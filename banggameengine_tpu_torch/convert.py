@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from banggameengine_tpu_torch.scene.build import RenderScene
 from banggameengine_tpu_torch.state import (
     InputFrame,
     StaticScene,
@@ -67,3 +68,11 @@ def static_scene_to_numpy(static: StaticScene) -> dict:
 
 def input_frame_to_numpy(inp: InputFrame) -> dict:
     return _to_numpy(inp)
+
+
+def render_scene_from_numpy(arrays: dict, device="cpu") -> RenderScene:
+    return _from_numpy(RenderScene, arrays, device)
+
+
+def render_scene_to_numpy(render: RenderScene) -> dict:
+    return _to_numpy(render)

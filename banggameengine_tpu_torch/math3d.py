@@ -1,7 +1,8 @@
 """3D math: quaternions and 4x4 transforms.
 
 PyTorch counterpart of the functions of ``banggameengine_tpu/math3d.py``
-that the physics tick calls, with the same conventions: column-vector
+that the physics tick and the renderer call, with the same conventions:
+column-vector
 ``float32[..., 4, 4]`` matrices, ``local = T @ R @ S``, Euler XYZ radians
 with ``R = Rz @ Ry @ Rx``, quaternions ``[x, y, z, w]``.  Every function
 broadcasts over leading batch dimensions.
@@ -96,14 +97,73 @@ def quat_integrate(q: Tensor, omega: Tensor, dt: Tensor) -> Tensor:
 def mat_from_srt(scale: Tensor, quat: Tensor, pos: Tensor) -> Tensor:
     """Compose local = T @ R @ S from scale[...,3], quat[...,4], pos[...,3]."""
     r = quat_to_mat3(quat)
-    rs = r * scale[..., None, :]  # R @ diag(s): scale columns
-    top = torch.cat([rs, pos[..., :, None]], dim=-1)  # [...,3,4]
+    return _affine(r * scale[..., None, :], pos)  # R @ diag(s): scale columns
+
+
+def mat_mul(a: Tensor, b: Tensor) -> Tensor:
+    """f32 matrix product (TF32 stays off: see the package docstring)."""
+    return torch.matmul(a, b)
+
+
+def inverse(m: Tensor) -> Tensor:
+    """Batched matrix inverse without the host synchronisation of
+    ``torch.linalg.inv`` (which checks for singular input on the host); a
+    singular matrix gives non-finite entries instead of an error."""
+    return torch.linalg.inv_ex(m).inverse
+
+
+def normal_matrix(world: Tensor) -> Tensor:
+    """(world^-1)^T upper-left 3x3, the reference's normal transform."""
+    return inverse(world[..., :3, :3]).transpose(-1, -2)
+
+
+def _affine(rot: Tensor, t: Tensor) -> Tensor:
+    """[..., 3, 3] and [..., 3] -> [..., 4, 4] with bottom row (0, 0, 0, 1)."""
+    top = torch.cat([rot, t[..., :, None]], dim=-1)
     bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype,
                          device=top.device)
     bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 
-def mat_mul(a: Tensor, b: Tensor) -> Tensor:
-    """f32 matrix product (TF32 stays off: see the package docstring)."""
-    return torch.matmul(a, b)
+def mtx_look_at(eye: Tensor, at: Tensor, up: Tensor | None = None) -> Tensor:
+    """View matrix looking from ``eye`` to ``at``: rows right, up, forward,
+    with the camera looking down +Z (bgfx/D3D convention)."""
+    if up is None:
+        up = torch.tensor([0.0, 1.0, 0.0], dtype=eye.dtype, device=eye.device)
+    f = at - eye
+    f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True).clamp_min(1e-12)
+    r = _cross(up, f)
+    r = r / torch.linalg.vector_norm(r, dim=-1, keepdim=True).clamp_min(1e-12)
+    u = _cross(f, r)
+    rot = torch.stack([r, u, f], dim=-2)
+    t = -torch.einsum("...ij,...j->...i", rot, eye)
+    return _affine(rot, t)
+
+
+def mtx_proj(fovy_deg: float, aspect: float, near: float, far: float,
+             device: torch.device | str = "cpu") -> Tensor:
+    """Perspective projection with depth in [0, 1] (D3D style), +Z forward,
+    computed in f32 like the JAX package's."""
+    f32 = dict(dtype=torch.float32, device=device)
+    fovy = torch.deg2rad(torch.tensor(fovy_deg, **f32))
+    h = 1.0 / torch.tan(fovy * 0.5)
+    w = h / torch.tensor(aspect, **f32)
+    near_t = torch.tensor(near, **f32)
+    far_t = torch.tensor(far, **f32)
+    a = far_t / (far_t - near_t)
+    b = -near_t * a
+    m = torch.zeros((4, 4), **f32)
+    m[0, 0] = w
+    m[1, 1] = h
+    m[2, 2] = a
+    m[2, 3] = b
+    m[3, 2] = 1.0
+    return m
+
+
+def yaw_pitch_forward(yaw: Tensor, pitch: Tensor) -> Tensor:
+    """Forward vector from yaw/pitch; yaw = pi/2 faces +Z."""
+    cp = torch.cos(pitch)
+    return torch.stack([torch.cos(yaw) * cp, torch.sin(pitch),
+                        torch.sin(yaw) * cp], dim=-1)

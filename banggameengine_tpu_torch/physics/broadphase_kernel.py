@@ -22,15 +22,13 @@ import os
 
 import torch
 
+from banggameengine_tpu_torch import cuda_build
 from banggameengine_tpu_torch.physics.broadphase import NeighborLists
 
 Tensor = torch.Tensor
 
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "neighbor_lists.cu")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-_CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 AABB_MARGIN = 0.04   # split across both sides of every pair test
 # rows per chunk of the plain version's [rows, N] mask: 2^24 pair entries
 # bound its working set to a few hundred MB at N = 10k
@@ -116,17 +114,9 @@ def neighbor_lists_aabb_reference(
 
 @functools.cache
 def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/neighbor_lists.cu`` for sm_90a into :data:`BUILD_DIR`
-    at first use (ninja rebuilds it when the source is newer than the
-    library) and load it.  A failed build raises."""
-    from torch.utils.cpp_extension import load
-
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    name = "bge_neighbor_lists"
-    path = load(name=name, sources=[_SOURCE], extra_cuda_cflags=_CUDA_FLAGS,
-                build_directory=BUILD_DIR, is_python_module=False,
-                verbose=False)
-    lib = ctypes.CDLL(path or os.path.join(BUILD_DIR, name + ".so"))
+    """Build ``csrc/neighbor_lists.cu`` for sm_90a at first use and load
+    it.  A failed build raises."""
+    lib = cuda_build.load_library("bge_neighbor_lists", _SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.neighbor_lists_launch.argtypes = [ptr] * 5 + [i32, i32, ptr, ptr, ptr]
     lib.neighbor_lists_launch.restype = i32

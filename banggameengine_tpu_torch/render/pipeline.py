@@ -1,0 +1,159 @@
+"""Frame pipeline: cull -> transform -> visibility walk -> deferred shade.
+
+Counterpart of ``banggameengine_tpu/render/pipeline.py``: ``render_frame``
+(the tiled deferred shade and the depth-only frame), ``make_render_fn``
+and ``make_frame_fn`` (the interactive tick: engine step, then frame).
+PyTorch runs eagerly, so the factories bind arguments instead of
+compiling; nothing in a frame synchronises with the host, so the card
+runs ahead of the caller.
+
+Not ported, and refused with NotImplementedError naming the ROADMAP
+item: ``wireframe=True`` (item 15), ``shade_mode="fused"`` (queue 2 #4),
+``shade_mode="flat"`` and raster backends other than the walk (queue 2
+#5), ``merged``/``pipelined`` ticks and ``make_interp_render_fn`` (item
+14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.render import raster as rz
+from banggameengine_tpu_torch.render.cull import entity_frustum_mask
+from banggameengine_tpu_torch.render.shading import (
+    LightParams,
+    shade_visibility_tiled,
+)
+from banggameengine_tpu_torch.scene.build import BuiltScene, RenderScene
+from banggameengine_tpu_torch.state import StepEvents
+
+Tensor = torch.Tensor
+
+
+def render_frame(
+    render_scene: RenderScene,
+    world_mats: Tensor,    # f32[N,4,4] entity world matrices
+    view: Tensor,          # f32[4,4]
+    proj: Tensor,          # f32[4,4]
+    camera_pos: Tensor,    # f32[3]
+    light: LightParams | None = None,
+    width: int = 1280,
+    height: int = 720,
+    bin_capacity: int = 512,
+    depth_only: bool = False,
+    return_depth: bool = False,
+    wireframe: bool = False,
+    shade_mode: str = "tiled",
+    raster_backend: str = "walk",
+):
+    """Render one shaded frame u8[H, W, 4], or the NDC depth f32[H, W]
+    (``depth_only=True``), or ``(frame, depth)`` (``return_depth=True``)."""
+    rs = render_scene
+    if wireframe:
+        raise NotImplementedError(
+            "wireframe=True (the line pass) is not ported: ROADMAP item 15")
+    if shade_mode != "tiled" and not depth_only:
+        item = "queue 2 #4" if shade_mode == "fused" else "queue 2 #5"
+        raise NotImplementedError(
+            f"shade_mode={shade_mode!r} is not ported: ROADMAP {item}")
+    if light is None:
+        light = LightParams.default(world_mats.device)
+
+    vis_ent = entity_frustum_mask(rs.ent_aabb_min, rs.ent_aabb_max,
+                                  rs.ent_has_mesh, world_mats, view, proj)
+    tri_valid = rs.tri_valid & vis_ent[rs.v_entity[::3].to(torch.int64)]
+    _, clip = rz.transform_vertices(rs.v_pos, rs.v_entity, world_mats, view,
+                                    proj)
+    if depth_only:
+        vis, _overflow = rz.rasterize(clip, tri_valid, width, height,
+                                      bin_capacity=bin_capacity,
+                                      backend=raster_backend)
+        return vis.depth
+
+    vis, _overflow, tiled = rz.rasterize(
+        clip, tri_valid, width, height, bin_capacity=bin_capacity,
+        return_tiled=True, backend=raster_backend)
+    world_nrm = rz.transform_normals(rs.v_nrm, rs.v_entity,
+                                     math3d.normal_matrix(world_mats))
+    w = clip[:, 3]
+    inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
+    # the walk covered every tile to the full width, so does the resolve
+    frame = shade_visibility_tiled(
+        tiled, width, height, world_nrm, rs.v_uv, inv_w, rs.tri_material,
+        rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color, rs.mat_tex,
+        rs.textures, rs.tex_size, rs.textures_quad_t, camera_pos, light,
+        view, proj)
+    if return_depth:
+        return frame, vis.depth
+    return frame
+
+
+def make_render_fn(render_scene: RenderScene, width: int, height: int,
+                   bin_capacity: int = 512, depth_only: bool = False,
+                   return_depth: bool = False, wireframe: bool = False,
+                   raster_backend: str = "walk"):
+    """A frame renderer bound to the render scene:
+    ``call(world_mats, view, proj, camera_pos, light=None)``."""
+    return functools.partial(
+        render_frame, render_scene, width=width, height=height,
+        bin_capacity=bin_capacity, depth_only=depth_only,
+        return_depth=return_depth, wireframe=wireframe,
+        raster_backend=raster_backend)
+
+
+def make_interp_render_fn(*args, **kwargs):
+    raise NotImplementedError(
+        "make_interp_render_fn (interpolated motion states) is not ported: "
+        "ROADMAP item 14")
+
+
+def make_frame_fn(built: BuiltScene, width: int, height: int,
+                  solver_iterations: int = 10, bin_capacity: int = 2048,
+                  pipelined: bool = False, substeps: int = 1,
+                  merged: bool = False, merged_barrier: bool = False,
+                  donate: bool = True, **physics_kwargs):
+    """The interactive tick: ``substeps`` engine steps, then the shaded
+    frame of the new world, with no host synchronisation in between.
+
+    Returns ``call(state, inp, view, proj, cam_pos, light=None)
+    -> (new_state, u8[H, W, 4], StepEvents)``; with ``substeps > 1`` the
+    events gain a leading [substeps] axis.  ``call.update_static(static)``
+    swaps the static scene.  ``donate`` has no counterpart in eager
+    PyTorch (the input state is never written) and is ignored."""
+    from banggameengine_tpu_torch.engine import engine_step
+    from banggameengine_tpu_torch.physics.step import scene_census
+
+    del donate
+    if pipelined or merged or merged_barrier:
+        raise NotImplementedError(
+            "the pipelined and merged ticks are not ported: ROADMAP item 14")
+    kwargs = {**scene_census(built.static), **physics_kwargs}
+    bound = {"st": built.static}
+    render = make_render_fn(built.render, width, height,
+                            bin_capacity=bin_capacity)
+
+    def step(state, inp):
+        events = []
+        for _ in range(substeps):
+            state, ev = engine_step(state, inp, bound["st"],
+                                    solver_iterations, **kwargs)
+            events.append(ev)
+        if substeps == 1:
+            return state, events[0]
+        return state, StepEvents(**{
+            f.name: torch.stack([getattr(e, f.name) for e in events])
+            for f in dataclasses.fields(StepEvents)})
+
+    def call(state, inp, view, proj, cam_pos, light=None):
+        s2, ev = step(state, inp)
+        return s2, render(s2.world, view, proj, cam_pos, light), ev
+
+    def update_static(new_static):
+        bound["st"] = new_static
+
+    call.update_static = update_static
+    return call

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-Drives ``banggameengine_tpu_torch`` through its main path, the 10,000-box
-stress tick, and checks it.  Phases, one line each:
+Drives ``banggameengine_tpu_torch`` through its two slices, the 10,000-box
+stress tick and the shaded 1080p frame, and checks them.  Phases, one line
+each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles ``physics/csrc/neighbor_lists.cu`` for sm_90a;
+2. build: compiles the three kernels for sm_90a, all at once
+   (``physics/csrc/neighbor_lists.cu``, ``render/csrc/raster_walk.cu``,
+   ``render/csrc/resolve_wide.cu``);
 3. kernel vs plain: the broadphase kernel against its plain PyTorch
    version, exactly equal (idx, count, overflow) on the stress scene at
    step 0 and after 200 steps, a saturated 96-box pile and random cases;
@@ -16,7 +19,21 @@ stress tick, and checks it.  Phases, one line each:
    above the ground and bit-equal to the same 200 steps taken with the
    plain broadphase; a 32-box scene tracks the JAX package's trajectory
    (``tests/data/stress32_jax_golden.json``);
-5. times: CUDA events, 2 warm-up and the median of 3 timed dispatches.
+5. times: CUDA events, 2 warm-up and the median of 3 timed dispatches;
+6. render build: the build times of the walk and the resolve;
+7. render kernels vs plain: the walk (depth, slot) and the resolve against
+   their plain PyTorch versions, exactly equal, on the inputs the showcase
+   frame and the 10k-box frame give them at 1920x1080, on random packs
+   with counts 0..272 over a tile count that is not a multiple of 8, and
+   on random slots with -1, slots >= KL and all-sky tiles;
+8. render slice, no host synchronisation: the showcase shaded and
+   depth-only frames through ``make_render_fn`` (u8 1080x1920x4, sky
+   0x88AAFF, bit-equal with the plain versions, within tolerance of the
+   JAX package's frame ``tests/data/showcase_jax_golden.npz``), then 10
+   ticks of ``make_frame_fn`` (step + frame) on the 10k-box world from its
+   200-step state, each kernel launched once per tick, one tick bit-equal
+   with the plain versions;
+9. render times: CUDA events, 2 warm-up and the median of 5.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
@@ -44,9 +61,23 @@ DISPATCHES = 4                 # 200 steps
 MAX_NEIGHBORS = 8
 KERNEL_SOURCE = "banggameengine_tpu_torch/physics/csrc/neighbor_lists.cu"
 TPU_KERNEL = "banggameengine_tpu/physics/broadphase_pallas.py:40"
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                      "data", "stress32_jax_golden.json")
+WALK_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_walk.cu"
+WALK_TPU_KERNEL = "banggameengine_tpu/render/raster_resolve_pallas.py:291"
+RESOLVE_SOURCE = "banggameengine_tpu_torch/render/csrc/resolve_wide.cu"
+RESOLVE_TPU_KERNEL = "banggameengine_tpu/render/resolve_pallas.py:117"
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                    "data")
+GOLDEN = os.path.join(DATA, "stress32_jax_golden.json")
 GOLDEN_ATOL = 1e-3   # port on the card vs JAX on the CPU after 60 steps
+FRAME_GOLDEN = os.path.join(DATA, "showcase_jax_golden.npz")
+RENDER_W, RENDER_H = 1920, 1080
+FRAME_TICKS = 10
+SKY = (0x88, 0xAA, 0xFF, 0xFF)
+# port on the card vs the JAX frame on the CPU: channels within 1 level on
+# >= 99.9 % of pixels, depth within 1e-6 on >= 99.9 % (JAX's CPU compiler
+# fuses multiply-adds; the card's inverse and rsqrt round differently)
+FRAME_OFF_SHARE = 1e-3
+DEPTH_ATOL = 1e-6
 
 
 class SmokeFailure(AssertionError):
@@ -155,14 +186,367 @@ def plain_broadphase():
         bk.neighbor_lists_aabb = kernel
 
 
+@contextlib.contextmanager
+def plain_render_kernels():
+    """Route the frame's walk and resolve through their plain PyTorch
+    versions, for the comparison runs only."""
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+    from banggameengine_tpu_torch.render import resolve as rsv
+
+    walk, resolve = rwk.raster_walk, rsv.resolve_tiles_wide
+    rwk.raster_walk = rwk.raster_walk_reference
+    rsv.resolve_tiles_wide = rsv.resolve_tiles_wide_reference
+    try:
+        yield
+    finally:
+        rwk.raster_walk, rsv.resolve_tiles_wide = walk, resolve
+
+
+@contextlib.contextmanager
+def recorded_render_inputs():
+    """Record the arguments of every walk and resolve call made inside:
+    the inputs the main path gives the kernels."""
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+    from banggameengine_tpu_torch.render import resolve as rsv
+
+    rec = {"walk": [], "resolve": []}
+    walk, resolve = rwk.raster_walk, rsv.resolve_tiles_wide
+
+    def rec_walk(*args):
+        rec["walk"].append(args)
+        return walk(*args)
+
+    def rec_resolve(*args):
+        rec["resolve"].append(args)
+        return resolve(*args)
+
+    rwk.raster_walk, rsv.resolve_tiles_wide = rec_walk, rec_resolve
+    try:
+        yield rec
+    finally:
+        rwk.raster_walk, rsv.resolve_tiles_wide = walk, resolve
+
+
+def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
+    """Median ms of single calls of ``fn`` by CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def random_walk_case(n_tiles: int, k_pad: int, tiles_x: int, seed: int,
+                     device):
+    """Random triangles over each tile, counts 0..k_pad, rows at and past
+    the count unused (``ok = 0``), some unused rows inside too."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, k_pad + 1, n_tiles).astype(np.int32)
+    counts[:2] = (0, k_pad)
+    shape = (n_tiles, k_pad)
+    ox = (np.arange(n_tiles) % tiles_x)[:, None] * 128.0
+    oy = (np.arange(n_tiles) // tiles_x)[:, None] * 32.0
+    pack = np.zeros(shape + (16,), np.float32)
+    pack[..., 0:3] = ((ox + rng.uniform(-10, 138, shape))[..., None]
+                      + rng.uniform(-60, 60, shape + (3,)))
+    pack[..., 3:6] = ((oy + rng.uniform(-10, 42, shape))[..., None]
+                      + rng.uniform(-30, 30, shape + (3,)))
+    pack[..., 6:9] = rng.uniform(-0.2, 1.2, shape + (3,))
+    pack[..., 9] = ((np.arange(k_pad)[None, :] < counts[:, None])
+                    & (rng.random(shape) < 0.9))
+    return (torch.as_tensor(counts, device=device),
+            torch.as_tensor(pack, device=device), tiles_x)
+
+
+def random_resolve_case(n_tiles: int, c: int, kl: int, seed: int, device):
+    """Random slots from -1 to KL + 39 (slots >= KL resolve to 0), two
+    all-sky tiles, a finite random table."""
+    rng = np.random.default_rng(seed)
+    slot = rng.integers(-1, kl + 40, (n_tiles, 4096)).astype(np.int32)
+    slot[[0, n_tiles // 2]] = -1
+    table = rng.standard_normal((n_tiles, c, kl)).astype(np.float32)
+    return (torch.as_tensor(slot, device=device),
+            torch.as_tensor(table, device=device))
+
+
+def frame_overflow(rs, world, view, proj) -> int:
+    """Triangle-tile pairs the frame's binning and walk dropped (the frame
+    itself does not return the count)."""
+    from banggameengine_tpu_torch.render import raster as rz
+    from banggameengine_tpu_torch.render.cull import entity_frustum_mask
+
+    vis = entity_frustum_mask(rs.ent_aabb_min, rs.ent_aabb_max,
+                              rs.ent_has_mesh, world, view, proj)
+    tri_valid = rs.tri_valid & vis[rs.v_entity[::3].long()]
+    _, clip = rz.transform_vertices(rs.v_pos, rs.v_entity, world, view, proj)
+    _, overflow = rz.rasterize(clip, tri_valid, RENDER_W, RENDER_H,
+                               bin_capacity=2048)
+    return int(overflow)
+
+
+def render_phases(dev, card: str, stress_state, static,
+                  build_s) -> list[dict]:
+    """Phases 6-9: the render slice.  Returns the walk's and the resolve's
+    entries of the kernel table."""
+    from banggameengine_tpu_torch import convert
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+    from banggameengine_tpu_torch.render import resolve as rsv
+    from banggameengine_tpu_torch.render.pipeline import (
+        make_frame_fn, make_render_fn)
+    from banggameengine_tpu_torch.scene.build import BuiltScene
+    from banggameengine_tpu_torch.scene.synthetic import (
+        build_box_render, build_showcase_render)
+    from banggameengine_tpu_torch.state import InputFrame
+
+    # ---- 6. build -------------------------------------------------------
+    print(f"[render-build] {WALK_SOURCE} built and loaded in "
+          f"{build_s[0]:.1f} s, {RESOLVE_SOURCE} in {build_s[1]:.1f} s "
+          f"(in phase 2, in parallel with the broadphase)")
+
+    sc = build_showcase_render(0)
+    show_rs = convert.render_scene_from_numpy(sc.render, dev)
+    cam = sc.camera
+    view = cam.view_matrix(dev)
+    proj = cam.proj_matrix(RENDER_W / RENDER_H, dev)
+    cam_pos = torch.as_tensor(cam.position, device=dev)
+    show_args = (torch.as_tensor(sc.world, device=dev), view, proj, cam_pos)
+    render = make_render_fn(show_rs, RENDER_W, RENDER_H, bin_capacity=2048,
+                            return_depth=True)
+    render_depth = make_render_fn(show_rs, RENDER_W, RENDER_H,
+                                  bin_capacity=2048, depth_only=True)
+    t0 = time.perf_counter()
+    box_rs = convert.render_scene_from_numpy(build_box_render(static), dev)
+    box_render = make_render_fn(box_rs, RENDER_W, RENDER_H, bin_capacity=2048)
+    print(f"[render] scenes: showcase {int(show_rs.tri_valid.sum())} "
+          f"triangles, 10k-box world {int(box_rs.tri_valid.sum())} "
+          f"triangles (built in {time.perf_counter() - t0:.1f} s)")
+
+    # ---- 7. kernels vs plain --------------------------------------------
+    with recorded_render_inputs() as show_in:
+        render(*show_args)
+    with recorded_render_inputs() as box_in:
+        box_render(stress_state.world, view, proj, cam_pos)
+    local = show_in["walk"][0][0] - 16
+    hist = torch.histc(local.float(), bins=9, min=0, max=288).long().tolist()
+    print(f"[render] showcase {RENDER_W}x{RENDER_H}: local triangles per "
+          f"tile, max {int(local.max())}, tiles > 48: "
+          f"{int((local > 48).sum())}, histogram over 0..288 in 9 bins: "
+          f"{hist}")
+    walk_cases = [("a: showcase 1920x1080", show_in["walk"][0]),
+                  ("b: 10k-box world 1920x1080", box_in["walk"][0]),
+                  ("c: random, 37 tiles, K 272",
+                   random_walk_case(37, 272, 15, seed=1, device=dev)),
+                  ("c: random, 510 tiles, K 13",
+                   random_walk_case(510, 13, 15, seed=2, device=dev))]
+    walk_err = 0.0
+    for name, (counts, pack, tiles_x) in walk_cases:
+        dep_k, slot_k = rwk.cuda_raster_walk(counts, pack, tiles_x)
+        dep_p, slot_p = rwk.raster_walk_reference(counts, pack, tiles_x)
+        torch.cuda.synchronize()
+        walk_err = max(walk_err, float((dep_k - dep_p).abs().max()),
+                       float((slot_k - slot_p).abs().max()))
+        check(torch.equal(slot_k, slot_p), f"walk {name}: slot differs")
+        check(torch.equal(dep_k, dep_p), f"walk {name}: depth differs")
+        print(f"[render-kernel-vs-plain] walk {name}: depth and slot "
+              f"exactly equal ({int((slot_k >= 0).sum())} covered pixels, "
+              f"counts up to {int(counts.max())})")
+    resolve_cases = [("a: showcase 1920x1080", show_in["resolve"][0]),
+                     ("b: 10k-box world 1920x1080", box_in["resolve"][0]),
+                     ("d: random, 510 tiles",
+                      random_resolve_case(510, 40, 272, seed=3, device=dev)),
+                     ("d: random, 37 tiles",
+                      random_resolve_case(37, 40, 272, seed=4, device=dev))]
+    resolve_err = 0.0
+    for name, (slot, table) in resolve_cases:
+        check(bool(torch.isfinite(table).all()), f"resolve {name}: table "
+              "not finite (the one-hot contract needs it)")
+        out_k = rsv.cuda_resolve_tiles_wide(slot, table)
+        out_p = rsv.resolve_tiles_wide_reference(slot, table)
+        torch.cuda.synchronize()
+        resolve_err = max(resolve_err, float((out_k - out_p).abs().max()))
+        check(torch.equal(out_k, out_p), f"resolve {name}: differs")
+        print(f"[render-kernel-vs-plain] resolve {name}: exactly equal "
+              f"({tuple(out_k.shape)}, slots up to {int(slot.max())}, "
+              f"KL {table.shape[2]})")
+
+    # ---- 8. the render slice --------------------------------------------
+    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
+    torch.cuda.set_sync_debug_mode("error")   # a host sync raises
+    try:
+        frame, depth = render(*show_args)
+        depth_only = render_depth(*show_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    walks, resolves = rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches
+    check((walks, resolves) == (2, 1),
+          f"showcase frames: walk launched {walks}, resolve {resolves} times")
+    check(frame.dtype == torch.uint8
+          and tuple(frame.shape) == (RENDER_H, RENDER_W, 4),
+          f"frame {frame.dtype}{tuple(frame.shape)}")
+    sky_px = depth == 1.0
+    sky = torch.tensor(SKY, dtype=torch.uint8, device=dev)
+    check(bool((frame[sky_px] == sky).all()), "a background pixel is not sky")
+    sky_share = float(sky_px.float().mean())
+    check(0.2 < sky_share < 0.8, f"sky share {sky_share}")
+    check(torch.equal(depth, depth_only), "depth-only frame differs")
+    with plain_render_kernels():
+        frame_p, depth_p = render(*show_args)
+    torch.cuda.synchronize()
+    check(torch.equal(frame, frame_p) and torch.equal(depth, depth_p),
+          "showcase frame with the kernels differs from the plain versions")
+    print(f"[render-slice] showcase {RENDER_W}x{RENDER_H} shaded + "
+          f"depth-only frames (no host sync): walk launched {walks}x, "
+          f"resolve {resolves}x; u8 {tuple(frame.shape)}, sky 0x88AAFF on "
+          f"{sky_share:.4f} of pixels; bit-equal to the plain versions; "
+          f"{frame_overflow(show_rs, show_args[0], view, proj)} pairs "
+          f"dropped")
+
+    g = np.load(FRAME_GOLDEN)
+    gw, gh = int(g["width"]), int(g["height"])
+    gsc = build_showcase_render(int(g["seed"]))
+    g_frame, g_depth = make_render_fn(
+        convert.render_scene_from_numpy(gsc.render, dev), gw, gh,
+        return_depth=True)(
+        torch.as_tensor(gsc.world, device=dev),
+        *(torch.as_tensor(g[k], device=dev)
+          for k in ("view", "proj", "cam_pos")))
+    g_frame, g_depth = g_frame.cpu().numpy(), g_depth.cpu().numpy()
+    off = np.abs(g_frame.astype(np.int32)
+                 - g["frame"].astype(np.int32)).max(-1) > 1
+    sky_diff = (((g_frame == SKY).all(-1) != (g["frame"] == SKY).all(-1))
+                & ~off)
+    depth_off = np.abs(g_depth - g["depth"]) > DEPTH_ATOL
+    check(off.mean() <= FRAME_OFF_SHARE,
+          f"golden frame: {off.sum()} pixels differ by more than 1 level")
+    check(not sky_diff.any(), f"golden frame: sky differs at "
+          f"{sky_diff.sum()} other pixels")
+    check(depth_off.mean() <= FRAME_OFF_SHARE,
+          f"golden depth: {depth_off.sum()} pixels differ by > {DEPTH_ATOL}")
+    print(f"[reference] showcase {gw}x{gh} vs the JAX package's frame: "
+          f"{off.sum()} of {off.size} pixels off by more than 1 level, "
+          f"{int((g_frame != g['frame']).any(-1).sum())} off at all, sky "
+          f"mask equal elsewhere; depth off by > {DEPTH_ATOL} at "
+          f"{depth_off.sum()} pixels")
+
+    built = BuiltScene(static=static, initial_state=stress_state,
+                       render=box_rs)
+    tick = make_frame_fn(built, RENDER_W, RENDER_H, broadphase="allpairs",
+                         max_neighbors=MAX_NEIGHBORS)
+    inp = InputFrame.zero(dev)
+    state = stress_state
+    bk.neighbor_lists_aabb.launches = 0
+    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(FRAME_TICKS):
+            state, img, events = tick(state, inp, view, proj, cam_pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    launches = {"neighbor_lists": bk.neighbor_lists_aabb.launches,
+                "raster_walk": rwk.raster_walk.launches,
+                "resolve_wide": rsv.resolve_tiles_wide.launches}
+    check(all(n == FRAME_TICKS for n in launches.values()),
+          f"{FRAME_TICKS} ticks launched {launches}")
+    check(tuple(img.shape) == (RENDER_H, RENDER_W, 4)
+          and bool(torch.isfinite(state.pos).all()),
+          "tick: bad frame or non-finite state")
+    s_k, img_k, _ = tick(state, inp, view, proj, cam_pos)
+    with plain_broadphase(), plain_render_kernels():
+        s_p, img_p, _ = tick(state, inp, view, proj, cam_pos)
+    torch.cuda.synchronize()
+    check(torch.equal(img_k, img_p), "tick frame differs from the plain one")
+    for field in ("pos", "quat", "lin_vel", "ang_vel", "world"):
+        check(torch.equal(getattr(s_k, field), getattr(s_p, field)),
+              f"tick state differs from the plain one in {field}")
+    print(f"[render-slice] {FRAME_TICKS} ticks of make_frame_fn "
+          f"(step + {RENDER_W}x{RENDER_H} frame) on the 10k-box world "
+          f"from step {int(stress_state.step_idx)} ({tick_s:.2f} s wall, no "
+          f"host sync): launches {launches}; one more tick bit-equal to the "
+          f"plain versions; frame overflow "
+          f"{frame_overflow(box_rs, state.world, view, proj)} pairs, "
+          f"contact_overflow {int(events.contact_overflow)}, "
+          f"{int((img != sky).any(-1).sum())} non-sky pixels")
+
+    # ---- 9. times ---------------------------------------------------------
+    counts, pack, tiles_x = show_in["walk"][0]
+    slot, table = show_in["resolve"][0]
+    walk_ms = median_ms(lambda: rwk.cuda_raster_walk(counts, pack, tiles_x))
+    walk_plain_ms = median_ms(
+        lambda: rwk.raster_walk_reference(counts, pack, tiles_x))
+    resolve_ms = median_ms(lambda: rsv.cuda_resolve_tiles_wide(slot, table))
+    resolve_plain_ms = median_ms(
+        lambda: rsv.resolve_tiles_wide_reference(slot, table))
+    print(f"[times] showcase {RENDER_W}x{RENDER_H}, walk alone "
+          f"({tuple(pack.shape)}): kernel {walk_ms:.4f} ms, plain "
+          f"{walk_plain_ms:.4f} ms; resolve alone ({tuple(table.shape)}): "
+          f"kernel {resolve_ms:.4f} ms, plain {resolve_plain_ms:.4f} ms "
+          f"{card}")
+    counts_b, pack_b, tx_b = box_in["walk"][0]
+    slot_b, table_b = box_in["resolve"][0]
+    box_walk_ms = median_ms(
+        lambda: rwk.cuda_raster_walk(counts_b, pack_b, tx_b))
+    box_walk_plain_ms = median_ms(
+        lambda: rwk.raster_walk_reference(counts_b, pack_b, tx_b))
+    box_resolve_ms = median_ms(
+        lambda: rsv.cuda_resolve_tiles_wide(slot_b, table_b))
+    print(f"[times] 10k-box {RENDER_W}x{RENDER_H}, walk alone: kernel "
+          f"{box_walk_ms:.4f} ms, plain {box_walk_plain_ms:.4f} ms; resolve "
+          f"alone: kernel {box_resolve_ms:.4f} ms {card}")
+    frame_ms = median_ms(lambda: render(*show_args))
+    depth_ms = median_ms(lambda: render_depth(*show_args))
+    with plain_render_kernels():
+        frame_plain_ms = median_ms(lambda: render(*show_args))
+    print(f"[times] showcase {RENDER_W}x{RENDER_H}: shaded frame "
+          f"{frame_ms:.3f} ms ({1e3 / frame_ms:.1f} frames/s), depth-only "
+          f"{depth_ms:.3f} ms ({1e3 / depth_ms:.1f} frames/s); shaded frame "
+          f"with the plain versions {frame_plain_ms:.3f} ms {card}")
+
+    def run_ticks():
+        nonlocal state
+        state, _, _ = tick(state, inp, view, proj, cam_pos)
+
+    with plain_broadphase(), plain_render_kernels():
+        tick_plain_ms = median_ms(run_ticks)
+    tick_ms = median_ms(run_ticks)
+    print(f"[times] 10k-box tick (step + {RENDER_W}x{RENDER_H} frame): "
+          f"{tick_ms:.2f} ms ({1e3 / tick_ms:.2f} ticks/s) with the kernels, "
+          f"{tick_plain_ms:.2f} ms ({1e3 / tick_plain_ms:.2f} ticks/s) with "
+          f"the plain versions {card}")
+
+    return [
+        {"name": "raster_walk", "route": "cuda", "source": WALK_SOURCE,
+         "replaces": WALK_TPU_KERNEL, "launches": launches["raster_walk"],
+         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms},
+        {"name": "resolve_wide", "route": "cuda", "source": RESOLVE_SOURCE,
+         "replaces": RESOLVE_TPU_KERNEL,
+         "launches": launches["resolve_wide"], "max_abs_err": resolve_err,
+         "ms": resolve_ms, "plain_ms": resolve_plain_ms},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    from banggameengine_tpu_torch import cuda_build
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn)
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+    from banggameengine_tpu_torch.render import resolve as rsv
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
     from banggameengine_tpu_torch.state import InputFrame
@@ -185,11 +569,14 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s), using {kind}")
     card = f"({smi})"
 
-    # ---- 2. build -------------------------------------------------------
+    # ---- 2. build: every kernel at once, one nvcc each -----------------
     t0 = time.perf_counter()
-    bk.load_kernel_library()
+    build_s = cuda_build.build_in_parallel([
+        bk.load_kernel_library, rwk.load_kernel_library,
+        rsv.load_kernel_library])
     print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{build_s[0]:.1f} s (3 kernels in parallel, "
+          f"{time.perf_counter() - t0:.1f} s in all)")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     state0, static = build_falling_boxes(N_STRESS, seed=0, device=dev)
@@ -320,11 +707,13 @@ def main() -> int:
           f"({kernel_dispatch:.1f} ms/dispatch), {rate_p:.2f} steps/s with "
           f"the plain broadphase ({plain_dispatch:.1f} ms/dispatch) {card}")
 
+    render = render_phases(dev, card, state, static, build_s[1:])
+
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches,
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    }] + render}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,140 @@
+"""The port's interactive tick (engine step + shaded frame) against the JAX
+package's, on a 32-box world, on the CPU.
+
+The JAX tick runs ``make_frame_fn(built, ..., broadphase="pallas")``: its
+broadphase kernel in interpret mode and its default XLA light/heavy
+raster, which gives the walk's result wherever every tile that needs the
+heavy pass ranks among its 64 fullest (all 10 tiles here).  The port runs
+``broadphase="allpairs"`` and the walk, with the plain versions of its
+kernels.  The state is held to the one-step tolerances of
+``tests/test_torch_step.py``, the frame to those of
+``tests/test_torch_render_frame.py``.
+"""
+
+import dataclasses
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from banggameengine_tpu.render.pipeline import make_frame_fn as jax_frame_fn
+from banggameengine_tpu.scene.build import RenderScene as JaxRenderScene
+from banggameengine_tpu.scene.synthetic import (
+    build_falling_boxes as jax_build_falling_boxes,
+)
+from banggameengine_tpu.state import InputFrame as JaxInputFrame
+from banggameengine_tpu_torch import convert
+from banggameengine_tpu_torch.render.camera import Camera
+from banggameengine_tpu_torch.render.pipeline import make_frame_fn
+from banggameengine_tpu_torch.scene.build import BuiltScene
+from banggameengine_tpu_torch.scene.synthetic import build_box_render
+from banggameengine_tpu_torch.state import InputFrame
+from test_torch_render_frame import SKY, frame_agreement
+from test_torch_step import FLOAT_TOL
+
+SCENE = dict(num_bodies=32, seed=11, spread=3.0)
+W, H = 256, 160
+
+
+def _np(obj) -> dict:
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def _camera():
+    cam = Camera()
+    cam.position[:] = (0.0, 9.0, -14.0)
+    cam.set_yaw_pitch(np.pi / 2, -0.14)
+    return (cam.view_matrix().numpy(), cam.proj_matrix(W / H).numpy(),
+            cam.position.copy())
+
+
+def _port_built(state0, static0) -> BuiltScene:
+    static = convert.static_scene_from_numpy(_np(static0))
+    return BuiltScene(static=static,
+                      initial_state=convert.world_state_from_numpy(
+                          _np(state0)),
+                      render=convert.render_scene_from_numpy(
+                          build_box_render(static)))
+
+
+@pytest.fixture(scope="module")
+def ticks():
+    state0, static0 = jax_build_falling_boxes(**SCENE)
+    built = _port_built(state0, static0)
+    view, proj, cam_pos = _camera()
+    jax_built = types.SimpleNamespace(
+        static=static0,
+        render=JaxRenderScene(**{
+            k: jnp.asarray(v) for k, v in
+            convert.render_scene_to_numpy(built.render).items()}))
+    jtick = jax_frame_fn(jax_built, W, H, donate=False, broadphase="pallas")
+    js, jimg, jev = jtick(state0, JaxInputFrame.zero(), jnp.asarray(view),
+                          jnp.asarray(proj), jnp.asarray(cam_pos))
+    tick = make_frame_fn(built, W, H, broadphase="allpairs")
+    ts, timg, tev = tick(built.initial_state, InputFrame.zero(),
+                         torch.as_tensor(view), torch.as_tensor(proj),
+                         torch.as_tensor(cam_pos))
+    return ((_np(js), np.array(jimg), int(jev.contact_overflow)),
+            (convert.world_state_to_numpy(ts), timg.numpy(),
+             int(tev.contact_overflow)))
+
+
+def test_tick_state_matches_jax(ticks):
+    (js, _, jo), (ts, _, to) = ticks
+    assert jo == to
+    for name, a in js.items():
+        b = ts[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.kind == "f":
+            atol, rtol = FLOAT_TOL.get(name, (1e-5, 0.0))
+            np.testing.assert_allclose(b, a, atol=atol, rtol=rtol,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def test_tick_frame_matches_jax(ticks):
+    (_, jimg, _), (_, timg, _) = ticks
+    assert timg.dtype == np.uint8 and timg.shape == (H, W, 4)
+    off, sky_off = frame_agreement(timg, jimg)
+    assert off <= 0.001 * H * W, f"{off} pixels differ by more than 1 level"
+    assert sky_off == 0, f"sky mask differs at {sky_off} other pixels"
+    assert 0.05 < (timg != SKY).any(-1).mean() < 0.95   # boxes in view
+
+
+def test_box_render_scene():
+    state0, static0 = jax_build_falling_boxes(**SCENE)
+    render = build_box_render(_port_built(state0, static0).static)
+    n = SCENE["num_bodies"]
+    assert int(render["tri_valid"].sum()) == 12 * n
+    np.testing.assert_array_equal(render["v_entity"][:36 * n],
+                                  np.repeat(np.arange(n), 36))
+    np.testing.assert_allclose(render["ent_aabb_max"][:n], 0.5)
+    assert render["ent_has_mesh"][:n].all()
+
+
+def test_substeps_stack_events_and_update_static():
+    state0, static0 = jax_build_falling_boxes(8, seed=2, spread=2.0)
+    built = _port_built(state0, static0)
+    view, proj, cam_pos = (torch.as_tensor(a) for a in _camera())
+    inp = InputFrame.zero()
+    one = make_frame_fn(built, 64, 32, broadphase="allpairs")
+    two = make_frame_fn(built, 64, 32, substeps=2, broadphase="allpairs")
+    s0, _, _ = one(built.initial_state, inp, view, proj, cam_pos)
+    s1, img1, _ = one(s0, inp, view, proj, cam_pos)
+    s2, img2, ev2 = two(built.initial_state, inp, view, proj, cam_pos)
+    assert torch.equal(s1.pos, s2.pos) and torch.equal(img1, img2)
+    assert ev2.contact_overflow.shape == (2,)
+    assert ev2.trigger_enter.shape[0] == 2
+    frozen = dataclasses.replace(built.static,
+                                 gravity=torch.zeros((), dtype=torch.float32))
+    one.update_static(frozen)
+    s3, _, _ = one(built.initial_state, inp, view, proj, cam_pos)
+    ref = make_frame_fn(dataclasses.replace(built, static=frozen), 64, 32,
+                        broadphase="allpairs")
+    s4, _, _ = ref(built.initial_state, inp, view, proj, cam_pos)
+    assert torch.equal(s3.pos, s4.pos)
+    assert not torch.equal(s3.pos, s0.pos)

@@ -10,9 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from banggameengine_tpu_torch import convert
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import shapes
-from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
+from banggameengine_tpu_torch.render import raster_walk as rwk
+from banggameengine_tpu_torch.render import resolve as rsv
+from banggameengine_tpu_torch.render.pipeline import make_render_fn
+from banggameengine_tpu_torch.scene.synthetic import (
+    build_falling_boxes,
+    build_showcase_render,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +92,90 @@ def test_kernel_counts_launches_and_rejects_bad_input(device):
     assert bk.neighbor_lists_aabb.launches == before + 1
     with pytest.raises(ValueError):
         bk.neighbor_lists_aabb(case[0], case[1], case[2].float(), *case[3:])
+
+
+# ---- the render kernels: the visibility walk and the attribute resolve ----
+
+
+def _walk_case(n_tiles, k_pad, seed, tiles_x, device):
+    """Random triangles over each tile, counts from -1 to k_pad + 3 (the
+    kernel clamps them), rows past the count marked unused."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(-1, k_pad + 4, n_tiles).astype(np.int32)
+    shape = (n_tiles, k_pad)
+    ox = (np.arange(n_tiles) % tiles_x)[:, None] * 128.0
+    oy = (np.arange(n_tiles) // tiles_x)[:, None] * 32.0
+    pack = np.zeros(shape + (rwk.PACK_CH,), np.float32)
+    pack[..., 0:3] = (ox + rng.uniform(-10, 138, shape))[..., None] + \
+        rng.uniform(-60, 60, shape + (3,))
+    pack[..., 3:6] = (oy + rng.uniform(-10, 42, shape))[..., None] + \
+        rng.uniform(-30, 30, shape + (3,))
+    pack[..., 6:9] = rng.uniform(-0.2, 1.2, shape + (3,))
+    pack[..., 9] = np.arange(k_pad)[None, :] < counts[:, None]
+    pack[:, ::7, 9] = 0.0                       # some unused rows inside
+    return (torch.as_tensor(counts, device=device),
+            torch.as_tensor(pack, device=device))
+
+
+@pytest.mark.parametrize("n_tiles,k_pad,tiles_x",
+                         [(1, 8, 1), (11, 272, 4), (37, 13, 15),
+                          (510, 272, 15)])
+def test_walk_equals_plain(device, n_tiles, k_pad, tiles_x):
+    counts, pack = _walk_case(n_tiles, k_pad, n_tiles + k_pad, tiles_x,
+                              device)
+    before = rwk.raster_walk.launches
+    dep_k, slot_k = rwk.raster_walk(counts, pack, tiles_x)
+    assert rwk.raster_walk.launches == before + 1
+    dep_p, slot_p = rwk.raster_walk_reference(counts, pack, tiles_x)
+    torch.cuda.synchronize()
+    assert torch.equal(slot_k, slot_p)
+    assert torch.equal(dep_k, dep_p)
+    assert bool((slot_k >= 0).any())
+
+
+@pytest.mark.parametrize("n_tiles,c,kl", [(1, 1, 1), (10, 40, 272),
+                                          (510, 40, 272), (3, 7, 130)])
+def test_resolve_equals_plain(device, n_tiles, c, kl):
+    rng = np.random.default_rng(n_tiles + c)
+    slot = rng.integers(-1, kl + 40, (n_tiles, 4096)).astype(np.int32)
+    slot[0] = -1                                   # an all-sky tile
+    table = rng.standard_normal((n_tiles, c, kl)).astype(np.float32)
+    slot_t = torch.as_tensor(slot, device=device)
+    table_t = torch.as_tensor(table, device=device)
+    before = rsv.resolve_tiles_wide.launches
+    out_k = rsv.resolve_tiles_wide(slot_t, table_t)
+    assert rsv.resolve_tiles_wide.launches == before + 1
+    out_p = rsv.resolve_tiles_wide_reference(slot_t, table_t)
+    torch.cuda.synchronize()
+    assert out_k.shape == (c, n_tiles, 4096)
+    assert torch.equal(out_k, out_p)
+
+
+def test_render_kernels_reject_bad_input(device):
+    counts, pack = _walk_case(2, 8, 0, 2, device)
+    with pytest.raises(ValueError):
+        rwk.raster_walk(counts.long(), pack, 2)
+    with pytest.raises(ValueError):
+        rsv.resolve_tiles_wide(torch.zeros((2, 4096), dtype=torch.int32,
+                                           device=device),
+                               torch.zeros((3, 4, 5), device=device))
+
+
+def test_showcase_frame_kernels_equal_plain(device, monkeypatch):
+    sc = build_showcase_render(0)
+    rs = convert.render_scene_from_numpy(sc.render, device)
+    w, h = 640, 360
+    args = (torch.as_tensor(sc.world, device=device),
+            sc.camera.view_matrix(device),
+            sc.camera.proj_matrix(w / h, device),
+            torch.as_tensor(sc.camera.position, device=device))
+    render = make_render_fn(rs, w, h, return_depth=True)
+    frame_k, depth_k = render(*args)
+    monkeypatch.setattr(rwk, "raster_walk", rwk.raster_walk_reference)
+    monkeypatch.setattr(rsv, "resolve_tiles_wide",
+                        rsv.resolve_tiles_wide_reference)
+    frame_p, depth_p = render(*args)
+    torch.cuda.synchronize()
+    assert frame_k.shape == (h, w, 4) and frame_k.dtype == torch.uint8
+    assert torch.equal(frame_k, frame_p)
+    assert torch.equal(depth_k, depth_p)
