@@ -4,17 +4,15 @@ Every kernel source under ``*/csrc/`` has a plain ``extern "C"`` launcher
 and includes no PyTorch header, so ``nvcc`` builds it in seconds.  Each
 library goes to its own directory under :data:`BUILD_DIR` (ninja rebuilds
 it when the source or the flags change); separate directories hold
-separate build locks, so several kernels can build at once
-(:func:`build_in_parallel`).  A failed build raises.
+separate build locks, so several kernels may build at once from different
+threads.  A failed build raises.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import os
-import time
-from typing import Callable, Sequence
+from typing import Sequence
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
@@ -32,15 +30,3 @@ def load_library(name: str, source: str,
                 build_directory=build_dir, is_python_module=False,
                 verbose=False)
     return ctypes.CDLL(path or os.path.join(build_dir, name + ".so"))
-
-
-def build_in_parallel(loaders: Sequence[Callable[[], object]]) -> list[float]:
-    """Call every loader at once, one thread each (each ``nvcc`` is its own
-    process), and return the seconds each took; the first failure raises."""
-    def timed(fn):
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-
-    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
-        return list(pool.map(timed, loaders))

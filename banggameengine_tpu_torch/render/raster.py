@@ -33,6 +33,7 @@ Tensor = torch.Tensor
 # walked by every tile
 K_GLOBAL = 16
 HEAVY_CAPACITY = 256   # local slots the walk covers per tile
+WALK_CHUNK = 8         # the walk's rows are padded to a multiple of this
 
 
 class VisibilityBuffer(NamedTuple):
@@ -287,15 +288,14 @@ def untile(a: Tensor, tiles_y: int, tiles_x: int, height: int,
 
 
 def rasterize(clip: Tensor, tri_valid: Tensor, width: int, height: int,
-              bin_capacity: int = 2048, chunk: int = 8,
-              heavy_capacity: int = HEAVY_CAPACITY, backend: str = "walk",
+              bin_capacity: int = 2048, backend: str = "walk",
               return_tiled: bool = False, slim: bool = True):
     """Visibility pass: near clip, setup, binning and the walk.  The tile
     grid extends past the right and bottom edges; outputs are cropped.
 
     Returns (vis, overflow) or, with ``return_tiled=True``,
     (vis, overflow, tiled).  Every tile walks the global list plus its
-    first ``heavy_capacity`` local triangles; ``overflow`` counts every
+    first ``HEAVY_CAPACITY`` local triangles; ``overflow`` counts every
     dropped triangle-tile pair once (the JAX walk route counts the pairs
     beyond ``bin_capacity`` twice).
 
@@ -329,10 +329,10 @@ def rasterize(clip: Tensor, tri_valid: Tensor, width: int, height: int,
     ids, _counts, local_counts, overflow, (tiles_y, tiles_x) = bin_triangles(
         tri, rw, rh, k_local=k_local)
 
-    kw = min(K_GLOBAL + heavy_capacity, ids.shape[1])
+    kw = min(K_GLOBAL + HEAVY_CAPACITY, ids.shape[1])
     ids = ids[:, :kw]
     tri_pack, _k_pad = pack_tile_triangles(ids, tri["sx"], tri["sy"],
-                                           tri["z"], chunk=chunk)
+                                           tri["z"], chunk=WALK_CHUNK)
     local_cap = kw - K_GLOBAL
     counts_walk = K_GLOBAL + torch.clamp_max(local_counts, local_cap)
     # bin_triangles counted the locals beyond k_local; count every local

@@ -171,7 +171,7 @@ def cuda_raster_walk(counts: Tensor, tri_pack: Tensor,
     if err != 0:
         msg = lib.raster_walk_error_string(err).decode()
         raise RuntimeError(f"raster_walk kernel launch failed: {msg}")
-    _counted.launches += 1
+    raster_walk.launches += 1
     return depth, slot
 
 
@@ -192,6 +192,3 @@ def raster_walk(counts: Tensor, tri_pack: Tensor,
 
 
 raster_walk.launches = 0
-# the count stays on the wrapper even while a caller swaps the module
-# attribute (e.g. to record the kernel's inputs)
-_counted = raster_walk

@@ -87,7 +87,7 @@ def cuda_resolve_tiles_wide(slot: Tensor, table: Tensor) -> Tensor:
     if err != 0:
         msg = lib.resolve_wide_error_string(err).decode()
         raise RuntimeError(f"resolve_wide kernel launch failed: {msg}")
-    _counted.launches += 1
+    resolve_tiles_wide.launches += 1
     return out
 
 
@@ -108,6 +108,3 @@ def resolve_tiles_wide(slot: Tensor, table: Tensor) -> Tensor:
 
 
 resolve_tiles_wide.launches = 0
-# the count stays on the wrapper even while a caller swaps the module
-# attribute (e.g. to record the kernel's inputs)
-_counted = resolve_tiles_wide

@@ -203,30 +203,25 @@ def shade_visibility_tiled(
     textures_quad_t: Tensor,
     camera_pos: Tensor, light: LightParams,
     view: Tensor, proj: Tensor,
-    shade_slots: int = 64,
 ) -> Tensor:
     """Tile-major deferred shade -> u8[H, W, 4].
 
-    When the walk covered every tile to the full width of ``tiled.ids``
-    (``tiled.full_walk``), the resolve covers that width; otherwise it
-    covers ``shade_slots``.  The JAX package sends winners beyond the
-    covered width to a row-gather fallback; that fallback is not ported,
-    so a narrower resolve than the walk raises NotImplementedError.  World
-    positions come from the depth plane and shininess from ``light``, so
-    the JAX signature's ``world_pos`` and ``mat_spec_params`` are not
-    taken."""
+    The resolve covers the full width of ``tiled.ids``, which needs a walk
+    that covered every tile to that width (``tiled.full_walk``).  A
+    narrower resolve needs the JAX package's row-gather fallback for the
+    winners beyond it; that fallback is not ported, so ``full_walk=False``
+    raises NotImplementedError.  World positions come from the depth plane
+    and shininess from ``light``, so the JAX signature's ``world_pos`` and
+    ``mat_spec_params`` are not taken."""
+    if not tiled.full_walk:
+        raise NotImplementedError(
+            "the shade resolves the full walk width only: a partial walk "
+            "needs the row-gather fallback, which is not ported (ROADMAP "
+            "queue 2 #5)")
     n_tiles, th, tw = tiled.slot.shape
     px_per_tile = th * tw
     tiles_x = -(-width // TILE_W)
     tiles_y = n_tiles // tiles_x
-
-    kw = tiled.ids.shape[1]
-    covered = kw if tiled.full_walk else min(shade_slots, kw)
-    if covered < kw:
-        raise NotImplementedError(
-            f"the resolve covers {covered} slots but winners may reach "
-            f"{kw}: the row-gather fallback for the rest is not ported "
-            "(ROADMAP queue 2 #5)")
 
     tri_row_t = _pack_tri_rows(world_nrm, v_uv, inv_w, tri_material,
                                mat_base_tint, mat_uv_scale, mat_spec_color,
@@ -236,7 +231,7 @@ def shade_visibility_tiled(
     # near-clip subs, then the 12 screen-space raster rows
     sub_row_t = torch.cat([torch.repeat_interleave(tri_row_t, 2, dim=1),
                            tiled.sub_raster], dim=0)                  # [40, S]
-    ids_w = tiled.ids[:, :covered].clamp_min(0).to(torch.int64)
+    ids_w = tiled.ids.clamp_min(0).to(torch.int64)
     tables = sub_row_t.T[ids_w].transpose(1, 2)          # [tiles, 40, KW]
     slot_p = tiled.slot.reshape(n_tiles, px_per_tile)
     planes = rsv.resolve_tiles_wide(slot_p, tables.contiguous())  # [40,t,px]

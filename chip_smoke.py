@@ -31,8 +31,9 @@ each:
    0x88AAFF, bit-equal with the plain versions, within tolerance of the
    JAX package's frame ``tests/data/showcase_jax_golden.npz``), then 10
    ticks of ``make_frame_fn`` (step + frame) on the 10k-box world from its
-   200-step state, each kernel launched once per tick, one tick bit-equal
-   with the plain versions;
+   200-step state, seen from the ground looking up into the falling boxes,
+   each kernel launched once per tick, one tick bit-equal with the plain
+   versions;
 9. render times: CUDA events, 2 warm-up and the median of 5.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -44,6 +45,7 @@ exits non-zero and prints no result.  Without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -73,6 +75,13 @@ FRAME_GOLDEN = os.path.join(DATA, "showcase_jax_golden.npz")
 RENDER_W, RENDER_H = 1920, 1080
 FRAME_TICKS = 10
 SKY = (0x88, 0xAA, 0xFF, 0xFF)
+# the 10k-box tick's camera: on the ground at the centre of the world,
+# looking up into the falling boxes.  At step 200 most boxes are still
+# falling (they start up to 5 km high) and few have landed, so this is
+# where the frame holds the most boxes: ~1,700 in view against ~25 from
+# the showcase camera
+TICK_CAMERA_POS = (0.0, 1.5, 0.0)
+TICK_CAMERA_YAW_PITCH = (np.pi / 2, np.deg2rad(80.0))
 # port on the card vs the JAX frame on the CPU: channels within 1 level on
 # >= 99.9 % of pixels, depth within 1e-6 on >= 99.9 % (JAX's CPU compiler
 # fuses multiply-adds; the card's inverse and rsqrt round differently)
@@ -140,6 +149,19 @@ def packed_pile(device):
     return tree_replace(state, pos=pos, quat=quat), static
 
 
+def build_in_parallel(loaders) -> list[float]:
+    """Call every kernel loader at once, one thread each (each ``nvcc`` is
+    its own process, each library has its own build directory), and
+    return the seconds each took; the first failure raises."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        return list(pool.map(timed, loaders))
+
+
 def cuda_ms(fn, warmup: int, reps: int) -> float:
     """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
     for _ in range(warmup):
@@ -204,13 +226,15 @@ def plain_render_kernels():
 
 @contextlib.contextmanager
 def recorded_render_inputs():
-    """Record the arguments of every walk and resolve call made inside:
-    the inputs the main path gives the kernels."""
+    """Record the arguments of every walk and resolve kernel launch made
+    inside: the inputs the main path gives the kernels.  The wrappers (and
+    their launch counts) stay in place; only the launchers they call are
+    wrapped."""
     from banggameengine_tpu_torch.render import raster_walk as rwk
     from banggameengine_tpu_torch.render import resolve as rsv
 
     rec = {"walk": [], "resolve": []}
-    walk, resolve = rwk.raster_walk, rsv.resolve_tiles_wide
+    walk, resolve = rwk.cuda_raster_walk, rsv.cuda_resolve_tiles_wide
 
     def rec_walk(*args):
         rec["walk"].append(args)
@@ -220,11 +244,11 @@ def recorded_render_inputs():
         rec["resolve"].append(args)
         return resolve(*args)
 
-    rwk.raster_walk, rsv.resolve_tiles_wide = rec_walk, rec_resolve
+    rwk.cuda_raster_walk, rsv.cuda_resolve_tiles_wide = rec_walk, rec_resolve
     try:
         yield rec
     finally:
-        rwk.raster_walk, rsv.resolve_tiles_wide = walk, resolve
+        rwk.cuda_raster_walk, rsv.cuda_resolve_tiles_wide = walk, resolve
 
 
 def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
@@ -299,6 +323,7 @@ def render_phases(dev, card: str, stress_state, static,
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
     from banggameengine_tpu_torch.render import raster_walk as rwk
     from banggameengine_tpu_torch.render import resolve as rsv
+    from banggameengine_tpu_torch.render.camera import Camera
     from banggameengine_tpu_torch.render.pipeline import (
         make_frame_fn, make_render_fn)
     from banggameengine_tpu_torch.scene.build import BuiltScene
@@ -318,6 +343,13 @@ def render_phases(dev, card: str, stress_state, static,
     proj = cam.proj_matrix(RENDER_W / RENDER_H, dev)
     cam_pos = torch.as_tensor(cam.position, device=dev)
     show_args = (torch.as_tensor(sc.world, device=dev), view, proj, cam_pos)
+    tick_cam = Camera()
+    tick_cam.position[:] = TICK_CAMERA_POS
+    tick_cam.set_yaw_pitch(*TICK_CAMERA_YAW_PITCH)
+    tick_args = (tick_cam.view_matrix(dev),
+                 tick_cam.proj_matrix(RENDER_W / RENDER_H, dev),
+                 torch.as_tensor(tick_cam.position, device=dev))
+    box_args = (stress_state.world,) + tick_args
     render = make_render_fn(show_rs, RENDER_W, RENDER_H, bin_capacity=2048,
                             return_depth=True)
     render_depth = make_render_fn(show_rs, RENDER_W, RENDER_H,
@@ -333,13 +365,15 @@ def render_phases(dev, card: str, stress_state, static,
     with recorded_render_inputs() as show_in:
         render(*show_args)
     with recorded_render_inputs() as box_in:
-        box_render(stress_state.world, view, proj, cam_pos)
-    local = show_in["walk"][0][0] - 16
-    hist = torch.histc(local.float(), bins=9, min=0, max=288).long().tolist()
-    print(f"[render] showcase {RENDER_W}x{RENDER_H}: local triangles per "
-          f"tile, max {int(local.max())}, tiles > 48: "
-          f"{int((local > 48).sum())}, histogram over 0..288 in 9 bins: "
-          f"{hist}")
+        box_render(*box_args)
+    for name, rec in (("showcase", show_in), ("10k-box world", box_in)):
+        local = rec["walk"][0][0] - 16
+        hist = torch.histc(local.float(), bins=9, min=0,
+                           max=288).long().tolist()
+        print(f"[render] {name} {RENDER_W}x{RENDER_H}: local triangles "
+              f"walked per tile, max {int(local.max())}, tiles > 48: "
+              f"{int((local > 48).sum())}, histogram over 0..288 in 9 "
+              f"bins: {hist}")
     walk_cases = [("a: showcase 1920x1080", show_in["walk"][0]),
                   ("b: 10k-box world 1920x1080", box_in["walk"][0]),
                   ("c: random, 37 tiles, K 272",
@@ -449,7 +483,7 @@ def render_phases(dev, card: str, stress_state, static,
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(FRAME_TICKS):
-            state, img, events = tick(state, inp, view, proj, cam_pos)
+            state, img, events = tick(state, inp, *tick_args)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -462,9 +496,9 @@ def render_phases(dev, card: str, stress_state, static,
     check(tuple(img.shape) == (RENDER_H, RENDER_W, 4)
           and bool(torch.isfinite(state.pos).all()),
           "tick: bad frame or non-finite state")
-    s_k, img_k, _ = tick(state, inp, view, proj, cam_pos)
+    s_k, img_k, _ = tick(state, inp, *tick_args)
     with plain_broadphase(), plain_render_kernels():
-        s_p, img_p, _ = tick(state, inp, view, proj, cam_pos)
+        s_p, img_p, _ = tick(state, inp, *tick_args)
     torch.cuda.synchronize()
     check(torch.equal(img_k, img_p), "tick frame differs from the plain one")
     for field in ("pos", "quat", "lin_vel", "ang_vel", "world"):
@@ -472,10 +506,11 @@ def render_phases(dev, card: str, stress_state, static,
               f"tick state differs from the plain one in {field}")
     print(f"[render-slice] {FRAME_TICKS} ticks of make_frame_fn "
           f"(step + {RENDER_W}x{RENDER_H} frame) on the 10k-box world "
-          f"from step {int(stress_state.step_idx)} ({tick_s:.2f} s wall, no "
+          f"from step {int(stress_state.step_idx)}, camera at "
+          f"{TICK_CAMERA_POS} looking up ({tick_s:.2f} s wall, no "
           f"host sync): launches {launches}; one more tick bit-equal to the "
           f"plain versions; frame overflow "
-          f"{frame_overflow(box_rs, state.world, view, proj)} pairs, "
+          f"{frame_overflow(box_rs, state.world, *tick_args[:2])} pairs, "
           f"contact_overflow {int(events.contact_overflow)}, "
           f"{int((img != sky).any(-1).sum())} non-sky pixels")
 
@@ -515,7 +550,7 @@ def render_phases(dev, card: str, stress_state, static,
 
     def run_ticks():
         nonlocal state
-        state, _, _ = tick(state, inp, view, proj, cam_pos)
+        state, _, _ = tick(state, inp, *tick_args)
 
     with plain_broadphase(), plain_render_kernels():
         tick_plain_ms = median_ms(run_ticks)
@@ -541,7 +576,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    from banggameengine_tpu_torch import cuda_build
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn)
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
@@ -571,7 +605,7 @@ def main() -> int:
 
     # ---- 2. build: every kernel at once, one nvcc each -----------------
     t0 = time.perf_counter()
-    build_s = cuda_build.build_in_parallel([
+    build_s = build_in_parallel([
         bk.load_kernel_library, rwk.load_kernel_library,
         rsv.load_kernel_library])
     print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
