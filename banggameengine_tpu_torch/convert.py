@@ -46,15 +46,15 @@ def _to_numpy(obj) -> dict:
     return out
 
 
-def world_state_from_numpy(arrays: dict, device="cpu") -> WorldState:
+def world_state_from_numpy(arrays: dict, device="cuda") -> WorldState:
     return _from_numpy(WorldState, arrays, device)
 
 
-def static_scene_from_numpy(arrays: dict, device="cpu") -> StaticScene:
+def static_scene_from_numpy(arrays: dict, device="cuda") -> StaticScene:
     return _from_numpy(StaticScene, arrays, device)
 
 
-def input_frame_from_numpy(arrays: dict, device="cpu") -> InputFrame:
+def input_frame_from_numpy(arrays: dict, device="cuda") -> InputFrame:
     return _from_numpy(InputFrame, arrays, device)
 
 
@@ -70,7 +70,7 @@ def input_frame_to_numpy(inp: InputFrame) -> dict:
     return _to_numpy(inp)
 
 
-def render_scene_from_numpy(arrays: dict, device="cpu") -> RenderScene:
+def render_scene_from_numpy(arrays: dict, device="cuda") -> RenderScene:
     return _from_numpy(RenderScene, arrays, device)
 
 

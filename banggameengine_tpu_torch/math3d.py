@@ -142,7 +142,7 @@ def mtx_look_at(eye: Tensor, at: Tensor, up: Tensor | None = None) -> Tensor:
 
 
 def mtx_proj(fovy_deg: float, aspect: float, near: float, far: float,
-             device: torch.device | str = "cpu") -> Tensor:
+             device: torch.device | str = "cuda") -> Tensor:
     """Perspective projection with depth in [0, 1] (D3D style), +Z forward,
     computed in f32 like the JAX package's."""
     f32 = dict(dtype=torch.float32, device=device)

@@ -54,12 +54,12 @@ class Camera:
                          + up * local[1]
                          + self.forward() * local[2]).astype(np.float32)
 
-    def view_matrix(self, device: torch.device | str = "cpu") -> torch.Tensor:
+    def view_matrix(self, device: torch.device | str = "cuda") -> torch.Tensor:
         eye = torch.as_tensor(self.position, device=device)
         at = eye + torch.as_tensor(self.forward(), device=device)
         return math3d.mtx_look_at(eye, at)
 
     def proj_matrix(self, aspect: float,
-                    device: torch.device | str = "cpu") -> torch.Tensor:
+                    device: torch.device | str = "cuda") -> torch.Tensor:
         return math3d.mtx_proj(self.fov_y_deg, aspect, self.near, self.far,
                                device=device)

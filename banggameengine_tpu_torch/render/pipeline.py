@@ -1,17 +1,22 @@
-"""Frame pipeline: cull -> transform -> visibility walk -> deferred shade.
+"""Frame pipeline: cull -> transform -> visibility -> deferred shade.
 
 Counterpart of ``banggameengine_tpu/render/pipeline.py``: ``render_frame``
-(the tiled deferred shade and the depth-only frame), ``make_render_fn``
-and ``make_frame_fn`` (the interactive tick: engine step, then frame).
+(the depth-only frame and three shades), ``make_render_fn`` and
+``make_frame_fn`` (the interactive tick: engine step, then frame).
 PyTorch runs eagerly, so the factories bind arguments instead of
 compiling; nothing in a frame synchronises with the host, so the card
 runs ahead of the caller.
 
-Not ported, and refused with NotImplementedError naming the ROADMAP
-item: ``wireframe=True`` (item 15), ``shade_mode="fused"`` (queue 2 #4),
-``shade_mode="flat"`` and raster backends other than the walk (queue 2
-#5), ``merged``/``pipelined`` ticks and ``make_interp_render_fn`` (item
-14).
+Shades (``shade_mode``): ``"tiled"`` (the default: the walk, then the
+per-tile resolve), ``"fused"`` (the walk and the resolve in one kernel)
+and ``"flat"`` (the row-gather shade over ``raster_backend="tile"``, the
+light/heavy full-carry raster).
+
+Not ported, and refused with NotImplementedError naming ROADMAP:
+``wireframe=True`` (item 15), ``shade_mode="tiled"`` over the
+``"tile"`` raster (its row-gather fallback, queue 1), raster backends
+other than ``"walk"`` and ``"tile"``, ``merged``/``pipelined`` ticks and
+``make_interp_render_fn`` (item 14).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render.cull import entity_frustum_mask
 from banggameengine_tpu_torch.render.shading import (
     LightParams,
+    shade_visibility,
+    shade_visibility_fused,
     shade_visibility_tiled,
 )
 from banggameengine_tpu_torch.scene.build import BuiltScene, RenderScene
@@ -51,15 +58,18 @@ def render_frame(
     raster_backend: str = "walk",
 ):
     """Render one shaded frame u8[H, W, 4], or the NDC depth f32[H, W]
-    (``depth_only=True``), or ``(frame, depth)`` (``return_depth=True``)."""
+    (``depth_only=True``), or ``(frame, depth)`` (``return_depth=True``).
+
+    ``shade_mode="fused"`` walks inside the fused kernel and ignores
+    ``raster_backend``; ``"flat"`` needs ``raster_backend="tile"`` (the
+    walk keeps no triangle ids); the depth-only frame takes either
+    backend."""
     rs = render_scene
     if wireframe:
         raise NotImplementedError(
             "wireframe=True (the line pass) is not ported: ROADMAP item 15")
-    if shade_mode != "tiled" and not depth_only:
-        item = "queue 2 #4" if shade_mode == "fused" else "queue 2 #5"
-        raise NotImplementedError(
-            f"shade_mode={shade_mode!r} is not ported: ROADMAP {item}")
+    if shade_mode not in ("tiled", "fused", "flat"):
+        raise ValueError(f"unknown shade_mode {shade_mode!r}")
     if light is None:
         light = LightParams.default(world_mats.device)
 
@@ -74,19 +84,31 @@ def render_frame(
                                       backend=raster_backend)
         return vis.depth
 
-    vis, _overflow, tiled = rz.rasterize(
-        clip, tri_valid, width, height, bin_capacity=bin_capacity,
-        return_tiled=True, backend=raster_backend)
     world_nrm = rz.transform_normals(rs.v_nrm, rs.v_entity,
                                      math3d.normal_matrix(world_mats))
     w = clip[:, 3]
     inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
-    # the walk covered every tile to the full width, so does the resolve
-    frame = shade_visibility_tiled(
-        tiled, width, height, world_nrm, rs.v_uv, inv_w, rs.tri_material,
-        rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color, rs.mat_tex,
-        rs.textures, rs.tex_size, rs.textures_quad_t, camera_pos, light,
-        view, proj)
+    shade_args = (world_nrm, rs.v_uv, inv_w, rs.tri_material,
+                  rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color,
+                  rs.mat_tex, rs.textures, rs.tex_size, rs.textures_quad_t,
+                  camera_pos, light)
+    if shade_mode == "fused":
+        prep = rz.prepare_fused_raster(clip, tri_valid, width, height,
+                                       bin_capacity=bin_capacity)
+        return shade_visibility_fused(prep, width, height, *shade_args,
+                                      view, proj, return_depth=return_depth)
+    if shade_mode == "flat":
+        vis, _overflow = rz.rasterize(clip, tri_valid, width, height,
+                                      bin_capacity=bin_capacity,
+                                      backend=raster_backend, slim=False)
+        frame = shade_visibility(vis.tri_id, vis.b1, vis.b2, *shade_args,
+                                 vis.depth, view, proj)
+    else:
+        vis, _overflow, tiled = rz.rasterize(
+            clip, tri_valid, width, height, bin_capacity=bin_capacity,
+            return_tiled=True, backend=raster_backend)
+        frame = shade_visibility_tiled(tiled, width, height, *shade_args,
+                                       view, proj)
     if return_depth:
         return frame, vis.depth
     return frame
@@ -95,14 +117,15 @@ def render_frame(
 def make_render_fn(render_scene: RenderScene, width: int, height: int,
                    bin_capacity: int = 512, depth_only: bool = False,
                    return_depth: bool = False, wireframe: bool = False,
-                   raster_backend: str = "walk"):
+                   raster_backend: str = "walk", shade_mode: str = "tiled"):
     """A frame renderer bound to the render scene:
-    ``call(world_mats, view, proj, camera_pos, light=None)``."""
+    ``call(world_mats, view, proj, camera_pos, light=None)``.
+    ``shade_mode`` is the port's addition to the JAX signature."""
     return functools.partial(
         render_frame, render_scene, width=width, height=height,
         bin_capacity=bin_capacity, depth_only=depth_only,
         return_depth=return_depth, wireframe=wireframe,
-        raster_backend=raster_backend)
+        raster_backend=raster_backend, shade_mode=shade_mode)
 
 
 def make_interp_render_fn(*args, **kwargs):

@@ -1,13 +1,19 @@
 """Tile rasterizer: vertex transform, near clip, setup, binning and the
-visibility walk.
+visibility pass.
 
 Counterpart of ``banggameengine_tpu/render/raster.py``: the same
 functions, on the same component-form [T]/[S] planes, in the same f32 op
-order.  The visibility pass is the count-adaptive walk
-(:mod:`raster_walk`, a CUDA kernel on the GPU): on the GPU it takes the
-place of the reference's XLA light/heavy tile scan, whose split exists to
-fit the TPU.  The walk keeps only depth and slot per pixel ("slim"); the
-shade recomputes barycentrics from ``TiledVisibility.sub_raster``.
+order.  Two visibility routes:
+
+- the count-adaptive walk (:mod:`raster_walk`, a CUDA kernel on the GPU),
+  the default: on the GPU it takes the place of the reference's XLA
+  light/heavy tile scan.  It keeps only depth and slot per pixel ("slim");
+  the tiled shade recomputes barycentrics from
+  ``TiledVisibility.sub_raster``, and the fused shade walks the same
+  :class:`FusedRasterPrep` inside its own kernel;
+- the light/heavy full-carry raster (:mod:`raster_tile`, a CUDA kernel on
+  the GPU, ``backend="tile"``), which also keeps each pixel's original
+  triangle id and barycentrics for the flat gather shade.
 
 Pixels are 32x128 tiles; depth is NDC z in [0, 1], 1.0 = background;
 rendering is two-sided with a LESS depth test.
@@ -20,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from banggameengine_tpu_torch.render import raster_tile as rt
 from banggameengine_tpu_torch.render import raster_walk as rwk
 from banggameengine_tpu_torch.render.raster_walk import (
     TILE_H,
@@ -32,13 +39,15 @@ Tensor = torch.Tensor
 # shared bin for triangles spanning many tiles (the ground plane class),
 # walked by every tile
 K_GLOBAL = 16
-HEAVY_CAPACITY = 256   # local slots the walk covers per tile
-WALK_CHUNK = 8         # the walk's rows are padded to a multiple of this
+HEAVY_CAPACITY = 256   # local slots the walk (and the heavy pass) covers
+WALK_CHUNK = 8         # slot lists are padded to a multiple of this
+LIGHT_CAPACITY = 48    # local slots the full-carry light pass covers
+HEAVY_TILES = 64       # tiles the full-carry heavy pass re-rasters
 
 
 class VisibilityBuffer(NamedTuple):
     """Planar visibility buffer.  The walk is slim: ``tri_id``, ``b1`` and
-    ``b2`` are None (the full carry is ROADMAP queue 2 #5)."""
+    ``b2`` are None; the full-carry raster fills them."""
 
     depth: Tensor           # f32[H,W], 1.0 = far/background
     tri_id: Tensor | None   # int32[H,W], -1 = background
@@ -54,7 +63,8 @@ class TiledVisibility:
 
     ``full_walk`` says that every tile was walked to the full width of
     ``ids``, so the shade's resolve must cover that width for every tile.
-    (The JAX package marks this with an empty ``heavy`` array.)"""
+    (The JAX package marks this with an empty ``heavy`` array.)  The
+    full-carry raster's light/heavy planes are not a full walk."""
 
     depth: Tensor        # f32[tiles, TH, TW]
     slot: Tensor         # int32[tiles, TH, TW]
@@ -287,74 +297,195 @@ def untile(a: Tensor, tiles_y: int, tiles_x: int, height: int,
     return a[:height, :width]
 
 
-def rasterize(clip: Tensor, tri_valid: Tensor, width: int, height: int,
-              bin_capacity: int = 2048, backend: str = "walk",
-              return_tiled: bool = False, slim: bool = True):
-    """Visibility pass: near clip, setup, binning and the walk.  The tile
-    grid extends past the right and bottom edges; outputs are cropped.
+class _Binned(NamedTuple):
+    """The front end of every raster route: near-clipped, set-up and binned
+    sub-triangles of one frame."""
 
-    Returns (vis, overflow) or, with ``return_tiled=True``,
-    (vis, overflow, tiled).  Every tile walks the global list plus its
-    first ``HEAVY_CAPACITY`` local triangles; ``overflow`` counts every
-    dropped triangle-tile pair once (the JAX walk route counts the pairs
-    beyond ``bin_capacity`` twice).
+    tri: dict             # setup_triangles of the S = 2T sub-triangles
+    sub_bary: Tensor      # f32[S, 3, 3] original-space corner barycentrics
+    ids: Tensor           # int32[tiles, K_GLOBAL + k_local], -1 padded
+    local_counts: Tensor  # int32[tiles]
+    overflow: Tensor      # the binner's dropped pairs
+    k_local: int
+    tiles_y: int
+    tiles_x: int
 
-    Only the walk is ported: ``backend`` other than "walk" raises
-    NotImplementedError.  The walk keeps depth and slot only, so
-    ``slim=False`` raises ValueError (the JAX walk silently ignores it)."""
-    if backend != "walk":
-        raise NotImplementedError(
-            f"raster backend {backend!r} is not ported: on the GPU the walk "
-            "replaces the XLA light/heavy scan (ROADMAP queue 2 #3), and the "
-            "full-carry tile raster is ROADMAP queue 2 #5")
-    if not slim:
-        raise ValueError(
-            "rasterize(backend='walk') keeps depth and slot only; slim=False "
-            "needs the full-carry tile raster (ROADMAP queue 2 #5)")
-    pad_w = (-width) % TILE_W
-    pad_h = (-height) % TILE_H
-    rw, rh = width + pad_w, height + pad_h
 
+def _bin_frame(clip: Tensor, tri_valid: Tensor, width: int, height: int,
+               bin_capacity: int) -> _Binned:
+    """Near clip, setup and binning.  The screen mapping uses the true
+    resolution; the tile grid extends past the right and bottom edges."""
     t = clip.shape[0] // 3
     sub_clip, sub_bary, sub_valid = clip_near_plane(clip.reshape(t, 3, 4),
                                                     tri_valid)
-    s = 2 * t
-    sub_clip = sub_clip.reshape(s, 3, 4)
-    sub_bary = sub_bary.reshape(s, 3, 3)
-    sub_valid = sub_valid.reshape(s)
-
-    # screen mapping at the true resolution; the tile grid extends past it
-    tri = setup_triangles(sub_clip, sub_valid, width, height)
+    tri = setup_triangles(sub_clip.reshape(2 * t, 3, 4),
+                          sub_valid.reshape(2 * t), width, height)
     k_local = min(bin_capacity, 2 * t)
     ids, _counts, local_counts, overflow, (tiles_y, tiles_x) = bin_triangles(
-        tri, rw, rh, k_local=k_local)
+        tri, width + (-width) % TILE_W, height + (-height) % TILE_H,
+        k_local=k_local)
+    return _Binned(tri, sub_bary.reshape(2 * t, 3, 3), ids, local_counts,
+                   overflow, k_local, tiles_y, tiles_x)
 
-    kw = min(K_GLOBAL + HEAVY_CAPACITY, ids.shape[1])
-    ids = ids[:, :kw]
-    tri_pack, _k_pad = pack_tile_triangles(ids, tri["sx"], tri["sy"],
-                                           tri["z"], chunk=WALK_CHUNK)
-    local_cap = kw - K_GLOBAL
-    counts_walk = K_GLOBAL + torch.clamp_max(local_counts, local_cap)
-    # bin_triangles counted the locals beyond k_local; count every local
-    # dropped by the walk width (local_cap <= k_local) once instead
-    overflow = (overflow
-                - (local_counts - k_local).clamp_min(0).sum()
-                + (local_counts - local_cap).clamp_min(0).sum()
-                ).to(torch.int32)
-    depth, slot = rwk.raster_walk(counts_walk.to(torch.int32), tri_pack,
-                                  tiles_x)
-    zb = depth.reshape(-1, TILE_H, TILE_W)
-    vis = VisibilityBuffer(depth=untile(zb, tiles_y, tiles_x, height, width),
-                           tri_id=None, b1=None, b2=None)
-    if not return_tiled:
-        return vis, overflow
+
+def _overflow_once(binned: _Binned, local_walked) -> Tensor:
+    """Dropped triangle-tile pairs, each counted once: the binner's (the
+    globals beyond K_GLOBAL, the locals beyond k_local) with its locals
+    replaced by those beyond the ``local_walked`` slots each tile's raster
+    covered (<= k_local; an int or int[tiles])."""
+    local = binned.local_counts
+    return (binned.overflow
+            - (local - binned.k_local).clamp_min(0).sum()
+            + (local - local_walked).clamp_min(0).sum()).to(torch.int32)
+
+
+def _sub_raster(tri: dict, sub_bary: Tensor) -> Tensor:
+    """Per-sub-triangle screen rows f32[12, S]: sx0..2, sy0..2, cb01, cb11,
+    cb21, cb02, cb12, cb22 (the shade recomputes barycentrics from them)."""
     sx, sy, cb = tri["sx"], tri["sy"], sub_bary
-    sub_raster = torch.stack([
+    return torch.stack([
         sx[:, 0], sx[:, 1], sx[:, 2],
         sy[:, 0], sy[:, 1], sy[:, 2],
         cb[:, 0, 1], cb[:, 1, 1], cb[:, 2, 1],
         cb[:, 0, 2], cb[:, 1, 2], cb[:, 2, 2],
-    ])                                                   # [12, S]
-    tiled = TiledVisibility(depth=zb, slot=slot.reshape(-1, TILE_H, TILE_W),
-                            ids=ids, sub_raster=sub_raster, full_walk=True)
+    ])
+
+
+class FusedRasterPrep(NamedTuple):
+    """The walk's inputs for one frame: binned and packed per-tile rows.
+    The fused shade joins the resolve tables to them at the kernel call;
+    the walk route walks them alone."""
+
+    tri_pack: Tensor     # f32[tiles, K_pad, PACK_CH]
+    counts_walk: Tensor  # int32[tiles] slots to walk (global + local)
+    ids_w: Tensor        # int32[tiles, KW] binned ids at the walk width
+    sub_raster: Tensor   # f32[12, S] per-sub-triangle screen rows
+    overflow: Tensor     # int32 dropped triangle-tile pairs, counted once
+    tiles_x: int
+    tiles_y: int
+
+
+def prepare_fused_raster(clip: Tensor, tri_valid: Tensor, width: int,
+                         height: int,
+                         bin_capacity: int = 2048) -> FusedRasterPrep:
+    """Near clip, setup, binning and packing for the walk: every tile walks
+    the global list plus its first ``HEAVY_CAPACITY`` local triangles,
+    predicated on its own count.  ``overflow`` counts every dropped
+    triangle-tile pair once (the JAX package counts the locals beyond
+    ``bin_capacity`` twice)."""
+    b = _bin_frame(clip, tri_valid, width, height, bin_capacity)
+    kw = min(K_GLOBAL + HEAVY_CAPACITY, b.ids.shape[1])
+    ids_w = b.ids[:, :kw]
+    tri_pack, _k_pad = pack_tile_triangles(ids_w, b.tri["sx"], b.tri["sy"],
+                                           b.tri["z"], chunk=WALK_CHUNK)
+    local_cap = kw - K_GLOBAL
+    counts_walk = (K_GLOBAL + torch.clamp_max(b.local_counts, local_cap)
+                   ).to(torch.int32)
+    return FusedRasterPrep(tri_pack, counts_walk, ids_w,
+                           _sub_raster(b.tri, b.sub_bary),
+                           _overflow_once(b, local_cap), b.tiles_x,
+                           b.tiles_y)
+
+
+def _gathered(b: _Binned, sel_ids: Tensor) -> tuple:
+    """The full-carry raster's per-slot inputs for the tiles of ``sel_ids``
+    int32[n, K]: (x, y, z, oid, cb1, cb2, ok)."""
+    safe = sel_ids.clamp_min(0).to(torch.int64)
+    cb = b.sub_bary[safe]                                  # [n, K, 3, 3]
+    return (b.tri["sx"][safe], b.tri["sy"][safe], b.tri["z"][safe],
+            (safe // 2).to(torch.int32), cb[..., 1], cb[..., 2],
+            (sel_ids >= 0).to(torch.int32))
+
+
+def _raster_full_carry(b: _Binned):
+    """The light/heavy full-carry raster (the JAX package's ``"pallas"``
+    backend): every tile rasters the global list and its first
+    ``LIGHT_CAPACITY`` locals; the ``HEAVY_TILES`` tiles with the most
+    locals, in a stable descending order (lower tile index first among
+    equal counts, as ``lax.top_k``), are rastered again at
+    ``HEAVY_CAPACITY`` locals, and their results replace the light ones
+    where they hold more than ``LIGHT_CAPACITY``.  The heavy pass always
+    runs, so no host synchronisation decides it.
+
+    Returns the planes (depth, tri_id, b1, b2, slot), each [tiles, 32,
+    128], and the locals each tile's raster covered, int[tiles]."""
+    n_tiles = b.ids.shape[0]
+    kl = min(K_GLOBAL + LIGHT_CAPACITY, b.ids.shape[1])
+    light_cap = kl - K_GLOBAL
+    all_tiles = torch.arange(n_tiles, dtype=torch.int32, device=b.ids.device)
+    planes = rt.raster_tiles(all_tiles, *_gathered(b, b.ids[:, :kl]),
+                             b.tiles_x)
+    covered = torch.full_like(b.local_counts, light_cap)
+    if b.ids.shape[1] > kl:
+        heavy = torch.sort(b.local_counts, descending=True,
+                           stable=True).indices[:HEAVY_TILES]
+        needs = b.local_counts[heavy] > light_cap
+        kh = min(K_GLOBAL + HEAVY_CAPACITY, b.ids.shape[1])
+        outs = rt.raster_tiles(heavy.to(torch.int32),
+                               *_gathered(b, b.ids[heavy, :kh]), b.tiles_x)
+        keep = needs[:, None, None]
+        planes = tuple(p.index_copy(0, heavy, torch.where(keep, o, p[heavy]))
+                       for p, o in zip(planes, outs))
+        covered = covered.index_copy(
+            0, heavy, torch.where(needs, kh - K_GLOBAL, light_cap).to(
+                covered.dtype))
+    return planes, covered
+
+
+def rasterize(clip: Tensor, tri_valid: Tensor, width: int, height: int,
+              bin_capacity: int = 2048, backend: str = "walk",
+              return_tiled: bool = False, slim: bool = True):
+    """Visibility pass: near clip, setup, binning and a raster route.
+    Outputs are cropped to width x height.
+
+    Returns (vis, overflow) or, with ``return_tiled=True``,
+    (vis, overflow, tiled).  ``overflow`` counts every dropped
+    triangle-tile pair once (the JAX package counts the locals beyond
+    ``bin_capacity`` twice).  Routes:
+
+    - ``"walk"`` (the default): every tile walks the global list plus its
+      first ``HEAVY_CAPACITY`` locals (:mod:`raster_walk`).  It keeps depth
+      and slot only: ``vis`` has no ``tri_id``/``b1``/``b2``, and
+      ``slim=False`` raises ValueError (the JAX walk silently ignores it).
+    - ``"tile"``: the light/heavy full-carry raster (:mod:`raster_tile`,
+      the JAX package's ``"pallas"`` backend; see :func:`_raster_full_carry`)
+      with all four planes of ``vis`` whatever ``slim`` says.  Its
+      ``tiled`` is not a full walk (``full_walk=False``).
+
+    Other backends raise NotImplementedError."""
+    if backend not in ("walk", "tile"):
+        raise NotImplementedError(
+            f"raster backend {backend!r} is not ported: on the GPU the walk "
+            "replaces the XLA light/heavy scan, and 'tile' is the "
+            "full-carry raster of the JAX package's 'pallas' (ROADMAP §3)")
+    if backend == "walk" and not slim:
+        raise ValueError(
+            "rasterize(backend='walk') keeps depth and slot only; slim=False "
+            "needs the full-carry raster, backend='tile'")
+    if backend == "walk":
+        prep = prepare_fused_raster(clip, tri_valid, width, height,
+                                    bin_capacity)
+        tiles_y, tiles_x = prep.tiles_y, prep.tiles_x
+        depth, slot = rwk.raster_walk(prep.counts_walk, prep.tri_pack,
+                                      tiles_x)
+        zb = depth.reshape(-1, TILE_H, TILE_W)
+        slot = slot.reshape(-1, TILE_H, TILE_W)
+        vis = VisibilityBuffer(
+            depth=untile(zb, tiles_y, tiles_x, height, width), tri_id=None,
+            b1=None, b2=None)
+        overflow, ids, sub_raster = prep.overflow, prep.ids_w, prep.sub_raster
+    else:
+        b = _bin_frame(clip, tri_valid, width, height, bin_capacity)
+        tiles_y, tiles_x = b.tiles_y, b.tiles_x
+        (zb, tid, b1, b2, slot), covered = _raster_full_carry(b)
+        vis = VisibilityBuffer(*(untile(a, tiles_y, tiles_x, height, width)
+                                 for a in (zb, tid, b1, b2)))
+        overflow = _overflow_once(b, covered)
+        ids = b.ids
+        sub_raster = _sub_raster(b.tri, b.sub_bary) if return_tiled else None
+    if not return_tiled:
+        return vis, overflow
+    tiled = TiledVisibility(depth=zb, slot=slot, ids=ids,
+                            sub_raster=sub_raster,
+                            full_walk=backend == "walk")
     return vis, overflow, tiled

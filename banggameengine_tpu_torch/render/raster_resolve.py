@@ -1,0 +1,136 @@
+"""Fused visibility walk + attribute resolve: plain version and CUDA kernel.
+
+Counterpart of ``banggameengine_tpu/render/raster_resolve_pallas.py``
+:func:`raster_resolve_tiles_pallas`.  The TPU kernel
+``_raster_resolve_kernel`` becomes the CUDA kernel in
+``csrc/raster_resolve.cu``; :func:`raster_resolve_tiles` launches it for
+CUDA tensors and runs the plain PyTorch version,
+:func:`raster_resolve_tiles_reference`, for CPU tensors.
+
+The contract is the walk of :mod:`raster_walk` followed by the resolve of
+:mod:`resolve` on the walk's winning slots, in one kernel: (depth
+f32[tiles, 4096], slot int32[tiles, 4096], resolved f32[C, tiles, 4096]),
+with ``resolved`` None when ``tables`` is None (depth and slot only).  The
+JAX kernel walks whole chunks of 8 per tile and resolves by a one-hot
+product; both give these numbers (the product returns +0.0 where a table
+holds -0.0, and needs finite tables).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+
+from banggameengine_tpu_torch import cuda_build
+from banggameengine_tpu_torch.render import raster_walk as rwk
+from banggameengine_tpu_torch.render import resolve as rsv
+from banggameengine_tpu_torch.render.raster_walk import TILE_PX
+
+Tensor = torch.Tensor
+
+_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                       "raster_resolve.cu")
+# uncontracted f32 arithmetic, as PyTorch's eager ops round it
+_EXTRA_FLAGS = ("--fmad=false",)
+# the kernel stages the table's columns below each tile's count in shared
+# memory: 227 KB a block, less the walk's 64 staged rows of 10 floats
+MAX_TABLE_FLOATS = (232_448 - 64 * 10 * 4) // 4
+
+
+def raster_resolve_tiles_reference(counts: Tensor, tri_pack: Tensor,
+                                   tables: Tensor | None, tiles_x: int):
+    """Plain PyTorch version of :func:`raster_resolve_tiles`, on any
+    device: the plain walk, then the plain resolve of its slots."""
+    depth, slot = rwk.raster_walk_reference(counts, tri_pack, tiles_x)
+    resolved = (None if tables is None
+                else rsv.resolve_tiles_wide_reference(slot, tables))
+    return depth, slot, resolved
+
+
+@functools.cache
+def load_kernel_library() -> ctypes.CDLL:
+    """Build ``csrc/raster_resolve.cu`` for sm_90a at first use and load it.
+    A failed build raises."""
+    lib = cuda_build.load_library("bge_raster_resolve", _SOURCE,
+                                  _EXTRA_FLAGS)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.raster_resolve_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32,
+                                          i32, ptr, ptr, ptr, ptr]
+    lib.raster_resolve_launch.restype = i32
+    lib.raster_resolve_error_string.argtypes = [i32]
+    lib.raster_resolve_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(counts: Tensor, tri_pack: Tensor,
+                  tables: Tensor | None) -> None:
+    rwk.check_walk_inputs(counts, tri_pack)
+    if tables is None:
+        return
+    if (tables.dtype != torch.float32 or tables.dim() != 3
+            or tables.shape[0] != tri_pack.shape[0] or tables.shape[1] < 1
+            or tables.shape[2] < 1 or tables.device != tri_pack.device):
+        raise ValueError(f"raster_resolve_tiles: tables must be f32"
+                         f"[{tri_pack.shape[0]}, C, KL] on "
+                         f"{tri_pack.device}, got {tables.dtype}"
+                         f"{list(tables.shape)} on {tables.device}")
+
+
+def cuda_raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
+                              tables: Tensor | None, tiles_x: int):
+    """The CUDA kernel on the current stream."""
+    _check_inputs(counts, tri_pack, tables)
+    n_tiles, k_pad, _ = tri_pack.shape
+    c, kl = (0, 0) if tables is None else tables.shape[1:]
+    if c * min(kl, k_pad) > MAX_TABLE_FLOATS:
+        raise ValueError(f"raster_resolve_tiles: the table's staged columns"
+                         f" ({c} x {min(kl, k_pad)}) exceed the "
+                         f"{MAX_TABLE_FLOATS} floats of shared memory")
+    device = tri_pack.device
+    lib = load_kernel_library()
+    counts, tri_pack = counts.contiguous(), tri_pack.contiguous()
+    depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
+                        device=device)
+    slot = torch.empty((n_tiles, TILE_PX), dtype=torch.int32, device=device)
+    resolved = None
+    if tables is not None:
+        tables = tables.contiguous()
+        resolved = torch.empty((c, n_tiles, TILE_PX), dtype=torch.float32,
+                               device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.raster_resolve_launch(
+            counts.data_ptr(), tri_pack.data_ptr(), n_tiles, k_pad, tiles_x,
+            None if tables is None else tables.data_ptr(), c, kl,
+            depth.data_ptr(), slot.data_ptr(),
+            None if resolved is None else resolved.data_ptr(), stream)
+    if err != 0:
+        msg = lib.raster_resolve_error_string(err).decode()
+        raise RuntimeError(f"raster_resolve kernel launch failed: {msg}")
+    raster_resolve_tiles.launches += 1
+    return depth, slot, resolved
+
+
+def raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
+                         tables: Tensor | None, tiles_x: int):
+    """Walk every tile to its count and resolve the winners through the
+    per-tile tables f32[tiles, C, KL] -> (depth f32[tiles, 4096], slot
+    int32[tiles, 4096], resolved f32[C, tiles, 4096] or None).
+
+    CUDA tensors always go through the CUDA kernel; CPU tensors through
+    the plain version; any other device raises.
+    ``raster_resolve_tiles.launches`` counts kernel launches."""
+    if tri_pack.device.type == "cuda":
+        return cuda_raster_resolve_tiles(counts, tri_pack, tables, tiles_x)
+    if tri_pack.device.type == "cpu":
+        _check_inputs(counts, tri_pack, tables)
+        return raster_resolve_tiles_reference(counts, tri_pack, tables,
+                                              tiles_x)
+    raise NotImplementedError(
+        f"raster_resolve_tiles: no kernel for device {tri_pack.device}")
+
+
+raster_resolve_tiles.launches = 0

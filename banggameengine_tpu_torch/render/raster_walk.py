@@ -40,7 +40,7 @@ ROW_Y0, ROW_Y1, ROW_Y2 = 3, 4, 5
 ROW_Z0, ROW_Z1, ROW_Z2 = 6, 7, 8
 ROW_OK = 9
 PACK_CH = 16
-_PLAIN_CHUNK = 8   # slots per step of the plain version
+PLAIN_CHUNK = 8   # slots per step of the plain versions
 
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "raster_walk.cu")
@@ -67,13 +67,36 @@ def pack_tile_triangles(sel_ids: Tensor, sx: Tensor, sy: Tensor, z: Tensor,
     return pack.contiguous(), k_pad
 
 
-def _pixel_centres(n_tiles: int, tiles_x: int, device):
-    """Pixel centres (px, py) f32[tiles, 4096] of every tile."""
-    t = torch.arange(n_tiles, device=device)[:, None]
-    p = torch.arange(TILE_PX, device=device)[None, :]
+def pixel_centres(tile_ids: Tensor, tiles_x: int) -> tuple[Tensor, Tensor]:
+    """Pixel centres (px, py) f32[n, 4096] of the screen tiles ``tile_ids``
+    int[n]."""
+    t = tile_ids.to(torch.int64)[:, None]
+    p = torch.arange(TILE_PX, device=tile_ids.device)[None, :]
     px = ((t % tiles_x) * TILE_W + p % TILE_W).to(torch.float32) + 0.5
     py = ((t // tiles_x) * TILE_H + p // TILE_W).to(torch.float32) + 0.5
     return px, py
+
+
+def slot_coverage(x0, x1, x2, y0, y1, y2, z0, z1, z2, pxc: Tensor,
+                  pyc: Tensor):
+    """Slots' corners against pixel centres, broadcast, in the kernels' op
+    order -> (cover, w0, w1, w2, depth): ``cover`` where the three edge
+    functions agree in sign with the area (two-sided) and the depth
+    ``w0*z0 + w1*z1 + w2*z2`` lies in [0, 1]."""
+    e0 = (x1 - x0) * (pyc - y0) - (y1 - y0) * (pxc - x0)
+    e1 = (x2 - x1) * (pyc - y1) - (y2 - y1) * (pxc - x1)
+    e2 = (x0 - x2) * (pyc - y2) - (y0 - y2) * (pxc - x2)
+    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    pos = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+    neg = (e0 <= 0) & (e1 <= 0) & (e2 <= 0)
+    apos = area > 0
+    inv_area = torch.reciprocal(torch.where(area.abs() > 1e-9, area, 1e-9))
+    w1 = e2 * inv_area
+    w2 = e0 * inv_area
+    w0 = 1.0 - w1 - w2
+    depth = w0 * z0 + w1 * z1 + w2 * z2
+    cover = (pos & apos) | (neg & ~apos)
+    return cover & (depth >= 0.0) & (depth <= 1.0), w0, w1, w2, depth
 
 
 def raster_walk_reference(counts: Tensor, tri_pack: Tensor,
@@ -85,35 +108,22 @@ def raster_walk_reference(counts: Tensor, tri_pack: Tensor,
     one, as in the JAX kernel."""
     n_tiles, k_pad, _ = tri_pack.shape
     device = tri_pack.device
-    px, py = _pixel_centres(n_tiles, tiles_x, device)
+    px, py = pixel_centres(torch.arange(n_tiles, device=device), tiles_x)
     pxc, pyc = px[:, None, :], py[:, None, :]             # [tiles, 1, px]
     walked = counts.to(torch.int64)[:, None, None]
     zbuf = torch.full((n_tiles, TILE_PX), float("inf"), device=device)
     slotb = torch.full((n_tiles, TILE_PX), -1, dtype=torch.int64,
                        device=device)
-    for base in range(0, k_pad, _PLAIN_CHUNK):
-        rows = tri_pack[:, base:base + _PLAIN_CHUNK, :]   # [tiles, c, 16]
+    for base in range(0, k_pad, PLAIN_CHUNK):
+        rows = tri_pack[:, base:base + PLAIN_CHUNK, :]   # [tiles, c, 16]
         c = rows.shape[1]
         x0, x1, x2, y0, y1, y2, z0, z1, z2, okc = (
             rows[:, :, j, None] for j in range(ROW_OK + 1))
-        e0 = (x1 - x0) * (pyc - y0) - (y1 - y0) * (pxc - x0)
-        e1 = (x2 - x1) * (pyc - y1) - (y2 - y1) * (pxc - x1)
-        e2 = (x0 - x2) * (pyc - y2) - (y0 - y2) * (pxc - x2)
-        area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
-        pos = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
-        neg = (e0 <= 0) & (e1 <= 0) & (e2 <= 0)
-        apos = area > 0
-        cover = (pos & apos) | (neg & ~apos)
-        inv_area = torch.reciprocal(
-            torch.where(area.abs() > 1e-9, area, 1e-9))
-        w1 = e2 * inv_area
-        w2 = e0 * inv_area
-        w0 = 1.0 - w1 - w2
-        depth = w0 * z0 + w1 * z1 + w2 * z2               # [tiles, c, px]
+        cover, _, _, _, depth = slot_coverage(x0, x1, x2, y0, y1, y2, z0,
+                                              z1, z2, pxc, pyc)
         cidx = torch.arange(c, device=device)[None, :, None]
         in_count = (base + cidx) < walked
-        ok = (cover & (okc > 0.0) & in_count & (depth >= 0.0)
-              & (depth <= 1.0))
+        ok = cover & (okc > 0.0) & in_count
         depth = torch.where(ok, depth, float("inf"))
         d_best = depth.amin(dim=1)                         # [tiles, px]
         best = torch.where(depth == d_best[:, None], cidx, c).amin(dim=1)
@@ -137,7 +147,7 @@ def load_kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(counts: Tensor, tri_pack: Tensor) -> None:
+def check_walk_inputs(counts: Tensor, tri_pack: Tensor) -> None:
     if (tri_pack.dtype != torch.float32 or tri_pack.dim() != 3
             or tri_pack.shape[0] < 1 or tri_pack.shape[2] != PACK_CH):
         raise ValueError(f"raster_walk: tri_pack must be f32[tiles >= 1, "
@@ -155,7 +165,7 @@ def _check_inputs(counts: Tensor, tri_pack: Tensor) -> None:
 def cuda_raster_walk(counts: Tensor, tri_pack: Tensor,
                      tiles_x: int) -> tuple[Tensor, Tensor]:
     """The CUDA kernel on the current stream."""
-    _check_inputs(counts, tri_pack)
+    check_walk_inputs(counts, tri_pack)
     n_tiles, k_pad, _ = tri_pack.shape
     device = tri_pack.device
     lib = load_kernel_library()
@@ -185,7 +195,7 @@ def raster_walk(counts: Tensor, tri_pack: Tensor,
     if tri_pack.device.type == "cuda":
         return cuda_raster_walk(counts, tri_pack, tiles_x)
     if tri_pack.device.type == "cpu":
-        _check_inputs(counts, tri_pack)
+        check_walk_inputs(counts, tri_pack)
         return raster_walk_reference(counts, tri_pack, tiles_x)
     raise NotImplementedError(
         f"raster_walk: no kernel for device {tri_pack.device}")

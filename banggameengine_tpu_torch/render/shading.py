@@ -9,17 +9,22 @@ fragment shader ``fs_basic``
           + specColor * pow(max(dot(N, H), 0), shininess) * specIntensity
 
 with the renderer's global shininess and spec intensity over the
-material's, and the 0x88AAFF sky clear.  Each pixel's attributes come from
-its tile's table through the resolve (:mod:`resolve`, a CUDA kernel on the
-GPU); the barycentrics are recomputed per pixel from the winning
-sub-triangle's screen rows, and the world position is unprojected from the
-depth plane.  Everything runs on tile-major [tiles, px] planes; only the
-final u8 image is untiled.
+material's, and the 0x88AAFF sky clear.  The world position is unprojected
+from the depth plane.  Three shades, one core:
 
-Ported: the tiled shade over the walk (the JAX package's Pallas resolve
-branch) and the channel-major texel-quad sampler.  The JAX package's flat
-gather shade, fused raster+resolve shade, XLA one-hot resolve and
-row-gather fallback are not (ROADMAP queue 2 #4, #5).
+- :func:`shade_visibility_tiled`: each pixel's attributes come from its
+  tile's table through the resolve (:mod:`resolve`, a CUDA kernel on the
+  GPU) of the walk's slots; the barycentrics are recomputed per pixel from
+  the winning sub-triangle's screen rows;
+- :func:`shade_visibility_fused`: the same, with the walk and the resolve
+  in one kernel (:mod:`raster_resolve`);
+- :func:`shade_visibility`: the flat gather shade of the full-carry
+  raster's planes, one row gather per pixel by its triangle id.
+
+The first two run on tile-major [tiles, px] planes and untile only the
+final u8 image.  Not ported: the JAX package's XLA one-hot resolve and the
+row-gather fallback of the tiled shade over the light/heavy raster
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -29,12 +34,16 @@ import dataclasses
 import torch
 
 from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.render import raster_resolve as rr
 from banggameengine_tpu_torch.render import resolve as rsv
 from banggameengine_tpu_torch.render.raster import (
+    TILE_H,
     TILE_W,
+    FusedRasterPrep,
     TiledVisibility,
     untile,
 )
+from banggameengine_tpu_torch.render.raster_walk import pixel_centres
 
 Tensor = torch.Tensor
 
@@ -53,7 +62,7 @@ class LightParams:
     spec_intensity: Tensor  # f32[] global override
 
     @staticmethod
-    def default(device: torch.device | str = "cpu") -> "LightParams":
+    def default(device: torch.device | str = "cuda") -> "LightParams":
         # filled on the device: a copy from the host would synchronise
         def f32(v, shape=()):
             return torch.full(shape, v, dtype=torch.float32, device=device)
@@ -192,6 +201,86 @@ def _to_u8(x: Tensor) -> Tensor:
     return (x.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
+def shade_visibility(
+    vis_tri_id: Tensor, vis_b1: Tensor, vis_b2: Tensor,
+    # per-vertex attributes (V = 3*T)
+    world_nrm: Tensor, v_uv: Tensor, inv_w: Tensor, tri_material: Tensor,
+    # material and texture tables
+    mat_base_tint: Tensor, mat_uv_scale: Tensor, mat_spec_color: Tensor,
+    mat_tex: Tensor, textures: Tensor, tex_size: Tensor,
+    textures_quad_t: Tensor,
+    camera_pos: Tensor, light: LightParams,
+    vis_depth: Tensor, view: Tensor, proj: Tensor,
+) -> Tensor:
+    """Flat deferred shade of the full-carry planes [H, W] -> u8[H, W, 4]:
+    one channel-major row gather of the triangle table per pixel, by its
+    triangle id.  World positions come from ``vis_depth`` (the JAX
+    package's ``reconstruct_wp`` form) and shininess from ``light``, so the
+    JAX signature's ``world_pos`` and ``mat_spec_params`` are not taken."""
+    h, w = vis_tri_id.shape
+    tri_row_t = _pack_tri_rows(world_nrm, v_uv, inv_w, tri_material,
+                               mat_base_tint, mat_uv_scale, mat_spec_color,
+                               mat_tex, tex_size)                     # [28, T]
+    tid = vis_tri_id.clamp_min(0).reshape(-1).to(torch.int64)
+    a = tri_row_t[:, tid].reshape(-1, h, w)                # [28, H, W]
+    device = vis_tri_id.device
+    pyc = torch.arange(h, device=device, dtype=torch.float32)[:, None] + 0.5
+    pxc = torch.arange(w, device=device, dtype=torch.float32)[None, :] + 0.5
+    rgba = _shade_core(lambda c: a[c], vis_b1, vis_b2, pxc.expand(h, w),
+                       pyc.expand(h, w), vis_depth, vis_tri_id < 0, w, h,
+                       view, proj, textures, textures_quad_t, camera_pos,
+                       light)
+    return torch.stack([_to_u8(c) for c in rgba], dim=-1)
+
+
+def _tile_tables(tri_row_t: Tensor, ids: Tensor,
+                 sub_raster: Tensor) -> Tensor:
+    """Per-tile resolve tables f32[tiles, 40, KW]: each listed
+    sub-triangle's channels (its triangle's 28, the same for both near-clip
+    subs), then its 12 screen-space raster rows."""
+    sub_row_t = torch.cat([torch.repeat_interleave(tri_row_t, 2, dim=1),
+                           sub_raster], dim=0)                    # [40, S]
+    ids_w = ids.clamp_min(0).to(torch.int64)
+    return sub_row_t.T[ids_w].transpose(1, 2).contiguous()
+
+
+def _shade_tiled_tail(planes: Tensor, slot_p: Tensor, ndc_z: Tensor,
+                      rb: int, tiles_y: int, tiles_x: int, width: int,
+                      height: int, textures: Tensor, textures_quad_t: Tensor,
+                      camera_pos: Tensor, light: LightParams, view: Tensor,
+                      proj: Tensor) -> Tensor:
+    """The tile-major shade both tiled shades share: the winning
+    sub-triangle's barycentrics recomputed from its resolved raster rows at
+    ``rb`` (in the raster's op order, then mapped to the original
+    triangle), the shading core and the u8 untile.  ``planes`` is the
+    resolved f32[C, tiles, px], ``slot_p`` and ``ndc_z`` [tiles, px]."""
+    n_tiles = slot_p.shape[0]
+
+    def get(c):
+        return planes[c]
+
+    pxc, pyc = pixel_centres(torch.arange(n_tiles, device=slot_p.device),
+                             tiles_x)                        # [tiles, px]
+    sx0, sx1, sx2 = get(rb), get(rb + 1), get(rb + 2)
+    sy0, sy1, sy2 = get(rb + 3), get(rb + 4), get(rb + 5)
+    e0 = (sx1 - sx0) * (pyc - sy0) - (sy1 - sy0) * (pxc - sx0)
+    e2 = (sx0 - sx2) * (pyc - sy2) - (sy0 - sy2) * (pxc - sx2)
+    area = (sx1 - sx0) * (sy2 - sy0) - (sy1 - sy0) * (sx2 - sx0)
+    inv_area = 1.0 / torch.where(area.abs() > 1e-9, area, 1e-9)
+    sb1 = e2 * inv_area
+    sb2 = e0 * inv_area
+    sb0 = 1.0 - sb1 - sb2
+    b1 = sb0 * get(rb + 6) + sb1 * get(rb + 7) + sb2 * get(rb + 8)
+    b2 = sb0 * get(rb + 9) + sb1 * get(rb + 10) + sb2 * get(rb + 11)
+
+    rgba = _shade_core(get, b1, b2, pxc, pyc, ndc_z, slot_p < 0, width,
+                       height, view, proj, textures, textures_quad_t,
+                       camera_pos, light)
+    out = torch.stack([_to_u8(c) for c in rgba], dim=-1)    # [tiles, px, 4]
+    return untile(out.reshape(n_tiles, TILE_H, TILE_W, 4), tiles_y, tiles_x,
+                  height, width)
+
+
 def shade_visibility_tiled(
     tiled: TiledVisibility,
     width: int, height: int,
@@ -209,64 +298,60 @@ def shade_visibility_tiled(
     The resolve covers the full width of ``tiled.ids``, which needs a walk
     that covered every tile to that width (``tiled.full_walk``).  A
     narrower resolve needs the JAX package's row-gather fallback for the
-    winners beyond it; that fallback is not ported, so ``full_walk=False``
-    raises NotImplementedError.  World positions come from the depth plane
-    and shininess from ``light``, so the JAX signature's ``world_pos`` and
+    winners beyond it (the light/heavy full-carry raster is such a case);
+    that fallback is not ported, so ``full_walk=False`` raises
+    NotImplementedError.  World positions come from the depth plane and
+    shininess from ``light``, so the JAX signature's ``world_pos`` and
     ``mat_spec_params`` are not taken."""
     if not tiled.full_walk:
         raise NotImplementedError(
-            "the shade resolves the full walk width only: a partial walk "
-            "needs the row-gather fallback, which is not ported (ROADMAP "
-            "queue 2 #5)")
-    n_tiles, th, tw = tiled.slot.shape
-    px_per_tile = th * tw
+            "the tiled shade resolves the full walk width only: a partial "
+            "walk (the light/heavy raster) needs the row-gather fallback, "
+            "which is not ported (ROADMAP queue 1)")
+    n_tiles = tiled.slot.shape[0]
     tiles_x = -(-width // TILE_W)
-    tiles_y = n_tiles // tiles_x
-
     tri_row_t = _pack_tri_rows(world_nrm, v_uv, inv_w, tri_material,
                                mat_base_tint, mat_uv_scale, mat_spec_color,
                                mat_tex, tex_size)                     # [28, T]
-    rb = tri_row_t.shape[0]
-    # per-sub-triangle table: each triangle's channels for its two
-    # near-clip subs, then the 12 screen-space raster rows
-    sub_row_t = torch.cat([torch.repeat_interleave(tri_row_t, 2, dim=1),
-                           tiled.sub_raster], dim=0)                  # [40, S]
-    ids_w = tiled.ids.clamp_min(0).to(torch.int64)
-    tables = sub_row_t.T[ids_w].transpose(1, 2)          # [tiles, 40, KW]
-    slot_p = tiled.slot.reshape(n_tiles, px_per_tile)
-    planes = rsv.resolve_tiles_wide(slot_p, tables.contiguous())  # [40,t,px]
+    tables = _tile_tables(tri_row_t, tiled.ids, tiled.sub_raster)
+    slot_p = tiled.slot.reshape(n_tiles, -1)
+    planes = rsv.resolve_tiles_wide(slot_p, tables)          # [40, t, px]
+    return _shade_tiled_tail(planes, slot_p, tiled.depth.reshape(n_tiles, -1),
+                             tri_row_t.shape[0], n_tiles // tiles_x, tiles_x,
+                             width, height, textures, textures_quad_t,
+                             camera_pos, light, view, proj)
 
-    def get(c):
-        return planes[c]
 
-    # tile-major pixel centres
-    tile_ids = torch.arange(n_tiles, device=slot_p.device)
-    ox = ((tile_ids % tiles_x) * tw).to(torch.float32)
-    oy = ((tile_ids // tiles_x) * th).to(torch.float32)
-    p = torch.arange(px_per_tile, device=slot_p.device)
-    xi = (p % tw).to(torch.float32)
-    yi = (p // tw).to(torch.float32)
-    pxc = ox[:, None] + xi[None, :] + 0.5                   # [tiles, px]
-    pyc = oy[:, None] + yi[None, :] + 0.5
-
-    # the winning sub-triangle's barycentrics, in the walk's op order, then
-    # mapped to the original triangle
-    sx0, sx1, sx2 = get(rb), get(rb + 1), get(rb + 2)
-    sy0, sy1, sy2 = get(rb + 3), get(rb + 4), get(rb + 5)
-    e0 = (sx1 - sx0) * (pyc - sy0) - (sy1 - sy0) * (pxc - sx0)
-    e2 = (sx0 - sx2) * (pyc - sy2) - (sy0 - sy2) * (pxc - sx2)
-    area = (sx1 - sx0) * (sy2 - sy0) - (sy1 - sy0) * (sx2 - sx0)
-    inv_area = 1.0 / torch.where(area.abs() > 1e-9, area, 1e-9)
-    sb1 = e2 * inv_area
-    sb2 = e0 * inv_area
-    sb0 = 1.0 - sb1 - sb2
-    b1 = sb0 * get(rb + 6) + sb1 * get(rb + 7) + sb2 * get(rb + 8)
-    b2 = sb0 * get(rb + 9) + sb1 * get(rb + 10) + sb2 * get(rb + 11)
-
-    rgba = _shade_core(get, b1, b2, pxc, pyc,
-                       tiled.depth.reshape(n_tiles, px_per_tile), slot_p < 0,
-                       width, height, view, proj, textures, textures_quad_t,
-                       camera_pos, light)
-    out = torch.stack([_to_u8(c) for c in rgba], dim=-1)    # [tiles, px, 4]
-    return untile(out.reshape(n_tiles, th, tw, 4), tiles_y, tiles_x, height,
-                  width)
+def shade_visibility_fused(
+    prep: FusedRasterPrep,
+    width: int, height: int,
+    # per-vertex attributes (V = 3*T)
+    world_nrm: Tensor, v_uv: Tensor, inv_w: Tensor, tri_material: Tensor,
+    # material and texture tables
+    mat_base_tint: Tensor, mat_uv_scale: Tensor, mat_spec_color: Tensor,
+    mat_tex: Tensor, textures: Tensor, tex_size: Tensor,
+    textures_quad_t: Tensor,
+    camera_pos: Tensor, light: LightParams,
+    view: Tensor, proj: Tensor,
+    return_depth: bool = False,
+):
+    """The tiled shade over the fused walk + resolve kernel: the depth and
+    slot planes never leave the kernel between the walk and the resolve.
+    Every tile is walked to the full width, so the frame equals
+    :func:`shade_visibility_tiled` over the walk bit for bit.  Returns
+    u8[H, W, 4], or (frame, depth f32[H, W]) with ``return_depth``."""
+    tri_row_t = _pack_tri_rows(world_nrm, v_uv, inv_w, tri_material,
+                               mat_base_tint, mat_uv_scale, mat_spec_color,
+                               mat_tex, tex_size)                     # [28, T]
+    tables = _tile_tables(tri_row_t, prep.ids_w, prep.sub_raster)
+    depth_p, slot_p, planes = rr.raster_resolve_tiles(
+        prep.counts_walk, prep.tri_pack, tables, prep.tiles_x)
+    frame = _shade_tiled_tail(planes, slot_p, depth_p, tri_row_t.shape[0],
+                              prep.tiles_y, prep.tiles_x, width, height,
+                              textures, textures_quad_t, camera_pos, light,
+                              view, proj)
+    if not return_depth:
+        return frame
+    depth = untile(depth_p.reshape(-1, TILE_H, TILE_W), prep.tiles_y,
+                   prep.tiles_x, height, width)
+    return frame, depth

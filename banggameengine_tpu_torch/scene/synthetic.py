@@ -61,7 +61,7 @@ def build_falling_boxes(
     config: PhysicsConfig | None = None,
     with_character: bool = False,
     with_trigger: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[WorldState, StaticScene]:
     """A world of ``num_bodies`` dynamic unit boxes raining onto the ground
     plane (the stress scene), on ``device``.  Deterministic for a seed."""

@@ -149,7 +149,7 @@ class InputFrame:
     cam_yaw: Tensor       # f32[]
 
     @staticmethod
-    def zero(device: torch.device | str = "cpu") -> "InputFrame":
+    def zero(device: torch.device | str = "cuda") -> "InputFrame":
         f = torch.zeros((), dtype=torch.float32, device=device)
         b = torch.zeros((), dtype=torch.bool, device=device)
         return InputFrame(move_forward=f, move_right=f.clone(), jump=b,
@@ -169,7 +169,7 @@ class StepEvents:
 
 def make_world_state(capacity: int, num_trigger_slots: int,
                      contact_slots: int = CONTACT_CACHE_SLOTS,
-                     device: torch.device | str = "cpu") -> WorldState:
+                     device: torch.device | str = "cuda") -> WorldState:
     """Fresh empty world with the given entity/trigger capacities."""
     n, t = capacity, num_trigger_slots
     f32 = dict(dtype=torch.float32, device=device)

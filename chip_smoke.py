@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-Drives ``banggameengine_tpu_torch`` through its two slices, the 10,000-box
-stress tick and the shaded 1080p frame, and checks them.  Phases, one line
-each:
+Drives ``banggameengine_tpu_torch`` through its three slices, the
+10,000-box stress tick, the shaded 1080p frame and its fused and
+full-carry routes, and checks them.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles the three kernels for sm_90a, all at once
+2. build: compiles the five kernels for sm_90a, all at once
    (``physics/csrc/neighbor_lists.cu``, ``render/csrc/raster_walk.cu``,
-   ``render/csrc/resolve_wide.cu``);
+   ``render/csrc/resolve_wide.cu``, ``render/csrc/raster_resolve.cu``,
+   ``render/csrc/raster_tile.cu``);
 3. kernel vs plain: the broadphase kernel against its plain PyTorch
    version, exactly equal (idx, count, overflow) on the stress scene at
    step 0 and after 200 steps, a saturated 96-box pile and random cases;
@@ -34,10 +35,30 @@ each:
    200-step state, seen from the ground looking up into the falling boxes,
    each kernel launched once per tick, one tick bit-equal with the plain
    versions;
-9. render times: CUDA events, 2 warm-up and the median of 5.
+9. render times: CUDA events, 2 warm-up and the median of 5, and the
+   resolve's library call (one ``torch.gather``);
+10. route kernels vs plain: the fused walk + resolve (with tables and
+   depth-only) and the full-carry tile raster (light and heavy passes)
+   against their plain versions, exactly equal, on the inputs the fused
+   and flat frames of both views give them at 1920x1080 and on random
+   cases; the fused kernel's depth and slot equal to the walk kernel's and
+   its planes to the resolve kernel's; the full-carry raster's depth and
+   slot equal to the walk's on every tile its light or heavy pass covers;
+11. route slice, no host synchronisation: ``shade_mode="fused"`` and
+   ``shade_mode="flat"`` (``raster_backend="tile"``) frames of both views,
+   each path's launches counted; the fused frames and the showcase's flat
+   frame bit-equal to the tiled frames, the flat route's dropped pairs
+   equal to the walk's on the showcase (printed, with the pixels that
+   differ, on the 10k-box view, where the top-64 heavy cap drops more);
+   every frame bit-equal with the plain versions;
+12. route times: both new kernels alone beside their plain versions and
+   bounds, and the three frames of each view, same method.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
+Each kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its f32 operations over
+67 TFLOP/s, counted from this run's inputs.  The line before the last is
+the kernel table as JSON; the last line is ``{"ok": true, "device":
+{...}}``.  Any failed check raises, so the run
 exits non-zero and prints no result.  Without a CUDA device it exits 1.
 
     python3 chip_smoke.py
@@ -67,6 +88,20 @@ WALK_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_walk.cu"
 WALK_TPU_KERNEL = "banggameengine_tpu/render/raster_resolve_pallas.py:291"
 RESOLVE_SOURCE = "banggameengine_tpu_torch/render/csrc/resolve_wide.cu"
 RESOLVE_TPU_KERNEL = "banggameengine_tpu/render/resolve_pallas.py:117"
+FUSED_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_resolve.cu"
+FUSED_TPU_KERNEL = "banggameengine_tpu/render/raster_resolve_pallas.py:68"
+TILE_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_tile.cu"
+TILE_TPU_KERNEL = "banggameengine_tpu/render/raster_pallas.py:27"
+# the published H100 SXM peaks the bounds use (at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per (pixel, used slot) of the walk and the tile raster:
+# edge functions 15, coverage compares 6, barycentric weights 4, depth 5,
+# depth tests 3
+RASTER_OPS = 33
+# operations per (row, column) pair of the broadphase: 6 float compares,
+# 8 integer tests of solidity, layer and mask, j != i, 10 ands
+BROADPHASE_OPS = 25
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                     "data")
 GOLDEN = os.path.join(DATA, "stress32_jax_golden.json")
@@ -139,8 +174,7 @@ def packed_pile(device):
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
     from banggameengine_tpu_torch.state import tree_replace
 
-    state, static = build_falling_boxes(96, seed=4, spread=1.5,
-                                        device=device)
+    state, static = build_falling_boxes(96, seed=4, spread=1.5)
     grid = [(x * 0.98, 0.49 + y * 0.98, z * 0.98)
             for y in range(6) for x in range(4) for z in range(4)]
     pos = torch.tensor(grid, dtype=torch.float32, device=device)
@@ -208,47 +242,131 @@ def plain_broadphase():
         bk.neighbor_lists_aabb = kernel
 
 
-@contextlib.contextmanager
-def plain_render_kernels():
-    """Route the frame's walk and resolve through their plain PyTorch
-    versions, for the comparison runs only."""
+def render_kernel_modules() -> dict:
+    """The render kernels by short name: (module, wrapper, launcher, plain
+    version)."""
+    from banggameengine_tpu_torch.render import raster_resolve as rr
+    from banggameengine_tpu_torch.render import raster_tile as rt
     from banggameengine_tpu_torch.render import raster_walk as rwk
     from banggameengine_tpu_torch.render import resolve as rsv
 
-    walk, resolve = rwk.raster_walk, rsv.resolve_tiles_wide
-    rwk.raster_walk = rwk.raster_walk_reference
-    rsv.resolve_tiles_wide = rsv.resolve_tiles_wide_reference
+    return {
+        "walk": (rwk, "raster_walk", "cuda_raster_walk",
+                 rwk.raster_walk_reference),
+        "resolve": (rsv, "resolve_tiles_wide", "cuda_resolve_tiles_wide",
+                    rsv.resolve_tiles_wide_reference),
+        "fused": (rr, "raster_resolve_tiles", "cuda_raster_resolve_tiles",
+                  rr.raster_resolve_tiles_reference),
+        "tile": (rt, "raster_tiles", "cuda_raster_tiles",
+                 rt.raster_tiles_reference),
+    }
+
+
+def launch_counts() -> dict:
+    return {k: getattr(m, w).launches
+            for k, (m, w, _, _) in render_kernel_modules().items()}
+
+
+def reset_launch_counts() -> None:
+    for m, w, _, _ in render_kernel_modules().values():
+        getattr(m, w).launches = 0
+
+
+@contextlib.contextmanager
+def plain_render_kernels():
+    """Route the frame's render kernels through their plain PyTorch
+    versions, for the comparison runs only."""
+    mods = render_kernel_modules()
+    saved = {k: getattr(m, w) for k, (m, w, _, _) in mods.items()}
+    for m, w, _, plain in mods.values():
+        setattr(m, w, plain)
     try:
         yield
     finally:
-        rwk.raster_walk, rsv.resolve_tiles_wide = walk, resolve
+        for k, (m, w, _, _) in mods.items():
+            setattr(m, w, saved[k])
 
 
 @contextlib.contextmanager
 def recorded_render_inputs():
-    """Record the arguments of every walk and resolve kernel launch made
-    inside: the inputs the main path gives the kernels.  The wrappers (and
-    their launch counts) stay in place; only the launchers they call are
-    wrapped."""
-    from banggameengine_tpu_torch.render import raster_walk as rwk
-    from banggameengine_tpu_torch.render import resolve as rsv
+    """Record the arguments of every render kernel launch made inside: the
+    inputs the main path gives the kernels, by short name.  The wrappers
+    (and their launch counts) stay in place; only the launchers they call
+    are wrapped."""
+    mods = render_kernel_modules()
+    rec = {k: [] for k in mods}
+    saved = {k: getattr(m, launcher)
+             for k, (m, _, launcher, _) in mods.items()}
 
-    rec = {"walk": [], "resolve": []}
-    walk, resolve = rwk.cuda_raster_walk, rsv.cuda_resolve_tiles_wide
+    def recorder(key):
+        def run(*args):
+            rec[key].append(args)
+            return saved[key](*args)
+        return run
 
-    def rec_walk(*args):
-        rec["walk"].append(args)
-        return walk(*args)
-
-    def rec_resolve(*args):
-        rec["resolve"].append(args)
-        return resolve(*args)
-
-    rwk.cuda_raster_walk, rsv.cuda_resolve_tiles_wide = rec_walk, rec_resolve
+    for k, (m, _, launcher, _) in mods.items():
+        setattr(m, launcher, recorder(k))
     try:
         yield rec
     finally:
-        rwk.cuda_raster_walk, rsv.cuda_resolve_tiles_wide = walk, resolve
+        for k, (m, _, launcher, _) in mods.items():
+            setattr(m, launcher, saved[k])
+
+
+def bound(n_bytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it: the
+    bytes over the memory rate or the f32 operations over the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def walk_work(counts, pack) -> tuple[int, int, int]:
+    """(walked rows, used rows, pixel-row pairs of the used rows) of one
+    walk: rows below each tile's count, and those with ok set."""
+    k_pad = pack.shape[1]
+    in_count = torch.arange(k_pad, device=pack.device)[None, :] < counts[:,
+                                                                         None]
+    walked = int(in_count.sum())
+    used = int((in_count & (pack[..., 9] > 0)).sum())
+    return walked, used, used * 4096
+
+
+def walk_bound(counts, pack) -> tuple[float, str]:
+    walked, _, pairs = walk_work(counts, pack)
+    n = pack.shape[0]
+    return bound(4 * n + 40 * walked + 8 * n * 4096, RASTER_OPS * pairs)
+
+
+def resolve_bound(slot, table) -> tuple[float, str]:
+    n, c, kl = table.shape
+    return bound(4 * slot.numel() + 4 * n * c * kl + 4 * c * slot.numel(),
+                 0)
+
+
+def fused_bound(counts, pack, table) -> tuple[float, str]:
+    """The walk's bytes and operations, the table columns below each
+    tile's count and the resolved planes."""
+    walked, _, pairs = walk_work(counts, pack)
+    n = pack.shape[0]
+    n_bytes = 4 * n + 40 * walked + 8 * n * 4096
+    if table is not None:
+        c, kl = table.shape[1:]
+        cols = int(torch.clamp(counts, 0, min(kl, pack.shape[1])).sum())
+        n_bytes += 4 * c * cols + 4 * c * n * 4096
+    return bound(n_bytes, RASTER_OPS * pairs)
+
+
+def tile_bound(passes) -> tuple[float, str]:
+    """Full-carry raster passes: per pass every ok flag and tile index, the
+    corners, barycentric columns and id of the used slots, five planes."""
+    n_bytes = ops = 0
+    for args in passes:
+        n, k = args[7].shape
+        used = int((args[7] != 0).sum())
+        n_bytes += 4 * n + 4 * n * k + 64 * used + 20 * n * 4096
+        ops += RASTER_OPS * used * 4096
+    return bound(n_bytes, ops)
 
 
 def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
@@ -300,9 +418,8 @@ def random_resolve_case(n_tiles: int, c: int, kl: int, seed: int, device):
             torch.as_tensor(table, device=device))
 
 
-def frame_overflow(rs, world, view, proj) -> int:
-    """Triangle-tile pairs the frame's binning and walk dropped (the frame
-    itself does not return the count)."""
+def frame_front(rs, world, view, proj):
+    """The frame's cull and vertex transform: (clip, tri_valid)."""
     from banggameengine_tpu_torch.render import raster as rz
     from banggameengine_tpu_torch.render.cull import entity_frustum_mask
 
@@ -310,15 +427,44 @@ def frame_overflow(rs, world, view, proj) -> int:
                               rs.ent_has_mesh, world, view, proj)
     tri_valid = rs.tri_valid & vis[rs.v_entity[::3].long()]
     _, clip = rz.transform_vertices(rs.v_pos, rs.v_entity, world, view, proj)
-    _, overflow = rz.rasterize(clip, tri_valid, RENDER_W, RENDER_H,
-                               bin_capacity=2048)
+    return clip, tri_valid
+
+
+def frame_overflow(rs, world, view, proj, backend: str = "walk") -> int:
+    """Triangle-tile pairs the frame's binning and raster dropped (the frame
+    itself does not return the count)."""
+    from banggameengine_tpu_torch.render import raster as rz
+
+    _, overflow = rz.rasterize(*frame_front(rs, world, view, proj),
+                               RENDER_W, RENDER_H, bin_capacity=2048,
+                               backend=backend)
     return int(overflow)
 
 
+def random_tile_case(n: int, k: int, tiles_x: int, seed: int, device):
+    """Random triangles over n listed tiles, a random subset of a
+    tiles_x-wide grid in random order, some slots unused, random ids and
+    barycentric columns: the full-carry raster's arguments."""
+    rng = np.random.default_rng(seed)
+    counts, pack, _ = random_walk_case(n, k, tiles_x, seed, "cpu")
+    tile_idx = rng.permutation(max(n, 3 * tiles_x))[:n].astype(np.int32)
+    pack = pack.numpy()
+    dx = (tile_idx % tiles_x - np.arange(n) % tiles_x)[:, None, None] * 128.0
+    dy = (tile_idx // tiles_x - np.arange(n) // tiles_x)[:, None, None] * 32.0
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return (t(tile_idx), t((pack[..., 0:3] + dx).astype(np.float32)),
+            t((pack[..., 3:6] + dy).astype(np.float32)), t(pack[..., 6:9]),
+            t(rng.integers(0, 10**6, (n, k)).astype(np.int32)),
+            t(rng.uniform(0, 1, (n, k, 3)).astype(np.float32)),
+            t(rng.uniform(0, 1, (n, k, 3)).astype(np.float32)),
+            t(pack[..., 9].astype(np.int32)), tiles_x)
+
+
 def render_phases(dev, card: str, stress_state, static,
-                  build_s) -> list[dict]:
+                  build_s) -> tuple[list[dict], dict]:
     """Phases 6-9: the render slice.  Returns the walk's and the resolve's
-    entries of the kernel table."""
+    entries of the kernel table, and the scenes, renderers and recorded
+    kernel inputs the route phases reuse."""
     from banggameengine_tpu_torch import convert
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
     from banggameengine_tpu_torch.render import raster_walk as rwk
@@ -333,21 +479,23 @@ def render_phases(dev, card: str, stress_state, static,
 
     # ---- 6. build -------------------------------------------------------
     print(f"[render-build] {WALK_SOURCE} built and loaded in "
-          f"{build_s[0]:.1f} s, {RESOLVE_SOURCE} in {build_s[1]:.1f} s "
-          f"(in phase 2, in parallel with the broadphase)")
+          f"{build_s[0]:.1f} s, {RESOLVE_SOURCE} in {build_s[1]:.1f} s, "
+          f"{FUSED_SOURCE} in {build_s[2]:.1f} s, {TILE_SOURCE} in "
+          f"{build_s[3]:.1f} s (in phase 2, in parallel with the "
+          f"broadphase)")
 
     sc = build_showcase_render(0)
-    show_rs = convert.render_scene_from_numpy(sc.render, dev)
+    show_rs = convert.render_scene_from_numpy(sc.render)
     cam = sc.camera
-    view = cam.view_matrix(dev)
-    proj = cam.proj_matrix(RENDER_W / RENDER_H, dev)
+    view = cam.view_matrix()
+    proj = cam.proj_matrix(RENDER_W / RENDER_H)
     cam_pos = torch.as_tensor(cam.position, device=dev)
     show_args = (torch.as_tensor(sc.world, device=dev), view, proj, cam_pos)
     tick_cam = Camera()
     tick_cam.position[:] = TICK_CAMERA_POS
     tick_cam.set_yaw_pitch(*TICK_CAMERA_YAW_PITCH)
-    tick_args = (tick_cam.view_matrix(dev),
-                 tick_cam.proj_matrix(RENDER_W / RENDER_H, dev),
+    tick_args = (tick_cam.view_matrix(),
+                 tick_cam.proj_matrix(RENDER_W / RENDER_H),
                  torch.as_tensor(tick_cam.position, device=dev))
     box_args = (stress_state.world,) + tick_args
     render = make_render_fn(show_rs, RENDER_W, RENDER_H, bin_capacity=2048,
@@ -355,7 +503,7 @@ def render_phases(dev, card: str, stress_state, static,
     render_depth = make_render_fn(show_rs, RENDER_W, RENDER_H,
                                   bin_capacity=2048, depth_only=True)
     t0 = time.perf_counter()
-    box_rs = convert.render_scene_from_numpy(build_box_render(static), dev)
+    box_rs = convert.render_scene_from_numpy(build_box_render(static))
     box_render = make_render_fn(box_rs, RENDER_W, RENDER_H, bin_capacity=2048)
     print(f"[render] scenes: showcase {int(show_rs.tri_valid.sum())} "
           f"triangles, 10k-box world {int(box_rs.tri_valid.sum())} "
@@ -448,7 +596,7 @@ def render_phases(dev, card: str, stress_state, static,
     gw, gh = int(g["width"]), int(g["height"])
     gsc = build_showcase_render(int(g["seed"]))
     g_frame, g_depth = make_render_fn(
-        convert.render_scene_from_numpy(gsc.render, dev), gw, gh,
+        convert.render_scene_from_numpy(gsc.render), gw, gh,
         return_depth=True)(
         torch.as_tensor(gsc.world, device=dev),
         *(torch.as_tensor(g[k], device=dev)
@@ -475,7 +623,7 @@ def render_phases(dev, card: str, stress_state, static,
                        render=box_rs)
     tick = make_frame_fn(built, RENDER_W, RENDER_H, broadphase="allpairs",
                          max_neighbors=MAX_NEIGHBORS)
-    inp = InputFrame.zero(dev)
+    inp = InputFrame.zero()
     state = stress_state
     bk.neighbor_lists_aabb.launches = 0
     rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
@@ -523,11 +671,25 @@ def render_phases(dev, card: str, stress_state, static,
     resolve_ms = median_ms(lambda: rsv.cuda_resolve_tiles_wide(slot, table))
     resolve_plain_ms = median_ms(
         lambda: rsv.resolve_tiles_wide_reference(slot, table))
+    # the library call: one gather from the table with a zero column
+    # appended for the slots outside [0, KL)
+    n_t, c_t, kl_t = table.shape
+    table_z = torch.cat([table, table.new_zeros((n_t, c_t, 1))], dim=2)
+    idx = torch.where((slot >= 0) & (slot < kl_t), slot, kl_t).long()
+    idx = idx[:, None, :].expand(n_t, c_t, slot.shape[1])
+    check(torch.equal(torch.gather(table_z, 2, idx).permute(1, 0, 2),
+                      rsv.cuda_resolve_tiles_wide(slot, table)),
+          "the resolve's library call differs from the kernel")
+    resolve_lib_ms = median_ms(lambda: torch.gather(table_z, 2, idx))
+    walk_b = walk_bound(counts, pack)
+    resolve_b = resolve_bound(slot, table)
     print(f"[times] showcase {RENDER_W}x{RENDER_H}, walk alone "
           f"({tuple(pack.shape)}): kernel {walk_ms:.4f} ms, plain "
-          f"{walk_plain_ms:.4f} ms; resolve alone ({tuple(table.shape)}): "
-          f"kernel {resolve_ms:.4f} ms, plain {resolve_plain_ms:.4f} ms "
-          f"{card}")
+          f"{walk_plain_ms:.4f} ms, bound {walk_b[0]:.4f} ms "
+          f"({walk_b[1]}); resolve alone ({tuple(table.shape)}): "
+          f"kernel {resolve_ms:.4f} ms, plain {resolve_plain_ms:.4f} ms, "
+          f"torch.gather {resolve_lib_ms:.4f} ms, bound "
+          f"{resolve_b[0]:.4f} ms ({resolve_b[1]}) {card}")
     counts_b, pack_b, tx_b = box_in["walk"][0]
     slot_b, table_b = box_in["resolve"][0]
     box_walk_ms = median_ms(
@@ -560,14 +722,273 @@ def render_phases(dev, card: str, stress_state, static,
           f"{tick_plain_ms:.2f} ms ({1e3 / tick_plain_ms:.2f} ticks/s) with "
           f"the plain versions {card}")
 
-    return [
+    entries = [
         {"name": "raster_walk", "route": "cuda", "source": WALK_SOURCE,
          "replaces": WALK_TPU_KERNEL, "launches": launches["raster_walk"],
-         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms},
+         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms,
+         "bound_ms": walk_b[0], "bound_by": walk_b[1], "library_ms": None},
         {"name": "resolve_wide", "route": "cuda", "source": RESOLVE_SOURCE,
          "replaces": RESOLVE_TPU_KERNEL,
          "launches": launches["resolve_wide"], "max_abs_err": resolve_err,
-         "ms": resolve_ms, "plain_ms": resolve_plain_ms},
+         "ms": resolve_ms, "plain_ms": resolve_plain_ms,
+         "bound_ms": resolve_b[0], "bound_by": resolve_b[1],
+         "library_ms": resolve_lib_ms},
+    ]
+    views = {"showcase": (show_rs, show_args, show_in),
+             "10k-box": (box_rs, box_args, box_in)}
+    return entries, views
+
+
+def route_phases(dev, card: str, views: dict) -> list[dict]:
+    """Phases 10-12: the fused and the full-carry frame routes on both
+    views.  Returns the fused kernel's and the tile raster's entries of the
+    kernel table."""
+    from banggameengine_tpu_torch.render import raster as rz
+    from banggameengine_tpu_torch.render import raster_resolve as rr
+    from banggameengine_tpu_torch.render import raster_tile as rt
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+    from banggameengine_tpu_torch.render import resolve as rsv
+    from banggameengine_tpu_torch.render.pipeline import make_render_fn
+
+    def renderer(rs, **kw):
+        return make_render_fn(rs, RENDER_W, RENDER_H, bin_capacity=2048,
+                              return_depth=True, **kw)
+
+    routes = {"tiled": {}, "fused": {}, "flat": {}}
+    rec = {}
+    for name, (rs, args, _) in views.items():
+        routes["tiled"][name] = renderer(rs)
+        routes["fused"][name] = renderer(rs, shade_mode="fused")
+        routes["flat"][name] = renderer(rs, shade_mode="flat",
+                                        raster_backend="tile")
+        with recorded_render_inputs() as r_fused:
+            routes["fused"][name](*args)
+        with recorded_render_inputs() as r_flat:
+            routes["flat"][name](*args)
+        check(len(r_fused["fused"]) == 1 and len(r_flat["tile"]) == 2,
+              f"{name}: the fused frame launched {len(r_fused['fused'])} "
+              f"fused kernels, the flat frame {len(r_flat['tile'])} tile "
+              f"rasters")
+        rec[name] = (r_fused["fused"][0], r_flat["tile"])
+
+    # ---- 10. route kernels vs plain -------------------------------------
+    rng = np.random.default_rng(5)
+    fused_cases = []
+    for name in views:
+        counts, pack, tables, tiles_x = rec[name][0]
+        fused_cases += [
+            (f"{name} {RENDER_W}x{RENDER_H}", (counts, pack, tables, tiles_x)),
+            (f"{name} {RENDER_W}x{RENDER_H} depth-only",
+             (counts, pack, None, tiles_x))]
+    for n_t, k, kl, seed in ((37, 272, 260, 6), (510, 13, 13, 7)):
+        counts, pack, tiles_x = random_walk_case(n_t, k, 15, seed=seed,
+                                                 device=dev)
+        table = torch.as_tensor(rng.standard_normal(
+            (n_t, 40, kl)).astype(np.float32), device=dev)
+        fused_cases += [
+            (f"random, {n_t} tiles, K {k}, KL {kl}",
+             (counts, pack, table, tiles_x)),
+            (f"random, {n_t} tiles, K {k}, depth-only",
+             (counts, pack, None, tiles_x))]
+    fused_err = 0.0
+    for name, (counts, pack, tables, tiles_x) in fused_cases:
+        dep_k, slot_k, res_k = rr.cuda_raster_resolve_tiles(counts, pack,
+                                                            tables, tiles_x)
+        dep_p, slot_p, res_p = rr.raster_resolve_tiles_reference(
+            counts, pack, tables, tiles_x)
+        dep_w, slot_w = rwk.cuda_raster_walk(counts, pack, tiles_x)
+        torch.cuda.synchronize()
+        fused_err = max(fused_err, float((dep_k - dep_p).abs().max()),
+                        float((slot_k - slot_p).abs().max()))
+        check(torch.equal(dep_k, dep_p) and torch.equal(slot_k, slot_p),
+              f"fused {name}: depth or slot differs from the plain version")
+        check(torch.equal(dep_k, dep_w) and torch.equal(slot_k, slot_w),
+              f"fused {name}: depth or slot differs from the walk kernel's")
+        if tables is None:
+            check(res_k is None, f"fused {name}: planes without tables")
+            what, also = "depth and slot", "the walk kernel"
+        else:
+            fused_err = max(fused_err, float((res_k - res_p).abs().max()))
+            check(torch.equal(res_k, res_p),
+                  f"fused {name}: planes differ from the plain version")
+            check(torch.equal(res_k, rsv.cuda_resolve_tiles_wide(slot_w,
+                                                                 tables)),
+                  f"fused {name}: planes differ from the resolve kernel's")
+            what = f"depth, slot and {tables.shape[1]} resolved planes"
+            also = "the walk and resolve kernels"
+        print(f"[route-kernel-vs-plain] fused {name}: {what} exactly equal "
+              f"to the plain version and to {also} "
+              f"({int((slot_k >= 0).sum())} covered pixels, counts up to "
+              f"{int(counts.max())})")
+
+    tile_cases = []
+    for name in views:
+        light, heavy = rec[name][1]
+        tile_cases += [(f"{name} light pass", light),
+                       (f"{name} heavy pass", heavy)]
+    tile_cases += [
+        ("random, 64 listed of 510 tiles, K 272",
+         random_tile_case(64, 272, 15, seed=8, device=dev)),
+        ("random, 37 listed tiles, K 13",
+         random_tile_case(37, 13, 15, seed=9, device=dev))]
+    tile_err = 0.0
+    for name, (*args, tiles_x) in tile_cases:
+        out_k = rt.cuda_raster_tiles(*args, tiles_x)
+        out_p = rt.raster_tiles_reference(*args, tiles_x)
+        torch.cuda.synchronize()
+        for plane, a, b in zip(("depth", "tri_id", "b1", "b2", "slot"),
+                               out_k, out_p):
+            tile_err = max(tile_err, float((a - b).abs().max()))
+            check(torch.equal(a, b), f"tile raster {name}: {plane} differs")
+        print(f"[route-kernel-vs-plain] tile raster {name}: depth, tri_id, "
+              f"b1, b2 and slot exactly equal ({args[7].shape[0]} tiles x "
+              f"{args[7].shape[1]} slots, {int((out_k[4] >= 0).sum())} "
+              f"covered pixels)")
+
+    for name, (rs, args, rec_in) in views.items():
+        clip, tri_valid = frame_front(rs, *args[:3])
+        _, _, walk_t = rz.rasterize(clip, tri_valid, RENDER_W, RENDER_H,
+                                    bin_capacity=2048, return_tiled=True)
+        _, _, tile_t = rz.rasterize(clip, tri_valid, RENDER_W, RENDER_H,
+                                    bin_capacity=2048, backend="tile",
+                                    return_tiled=True)
+        # a tile is covered when the light pass walked all its locals or
+        # the heavy pass re-rastered it
+        local = rec_in["walk"][0][0] - rz.K_GLOBAL
+        covered = local <= rz.LIGHT_CAPACITY
+        covered[rec[name][1][1][0].long()] = True
+        same = ((walk_t.depth == tile_t.depth)
+                & (walk_t.slot == tile_t.slot)).flatten(1).all(1)
+        check(bool(same[covered].all()), f"{name}: the full-carry raster's "
+              f"depth or slot differs from the walk's on a covered tile")
+        if name == "showcase":
+            check(bool(covered.all()), "showcase: a tile is not covered")
+        print(f"[route-kernel-vs-plain] {name} full-carry raster vs walk: "
+              f"depth and slot equal on all {int(covered.sum())} covered "
+              f"tiles of {covered.numel()} ({int(same.sum())} tiles equal "
+              f"in all)")
+
+    # ---- 11. the route slice ---------------------------------------------
+    frames, launches = {}, {}
+    for mode in ("fused", "flat"):
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")   # a host sync raises
+        try:
+            frames[mode] = {name: routes[mode][name](*args)
+                            for name, (_, args, _) in views.items()}
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches[mode] = launch_counts()
+        want = {"walk": 0, "resolve": 0,
+                "fused": 2 if mode == "fused" else 0,
+                "tile": 4 if mode == "flat" else 0}
+        check(launches[mode] == want,
+              f"{mode} frames: launches {launches[mode]}, expected {want}")
+    frames["tiled"] = {name: routes["tiled"][name](*args)
+                       for name, (_, args, _) in views.items()}
+    with plain_render_kernels():
+        plain = {mode: {name: routes[mode][name](*args)
+                        for name, (_, args, _) in views.items()}
+                 for mode in routes}
+    torch.cuda.synchronize()
+    sky = torch.tensor(SKY, dtype=torch.uint8, device=dev)
+    for name, (rs, args, _) in views.items():
+        t_frame, t_depth = frames["tiled"][name]
+        for mode in routes:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(frames[mode][name], plain[mode][name])),
+                  f"{name} {mode} frame with the kernels differs from the "
+                  f"plain versions")
+        f_frame, f_depth = frames["fused"][name]
+        check(torch.equal(f_frame, t_frame) and torch.equal(f_depth, t_depth),
+              f"{name}: the fused frame differs from the tiled frame")
+        l_frame, l_depth = frames["flat"][name]
+        # the flat shade's background is the pixels no triangle covers; a
+        # triangle that crosses the far plane covers some at depth 1.0
+        vis, over_tile = rz.rasterize(*frame_front(rs, *args[:3]), RENDER_W,
+                                      RENDER_H, bin_capacity=2048,
+                                      backend="tile", slim=False)
+        check(tuple(l_frame.shape) == (RENDER_H, RENDER_W, 4)
+              and torch.equal(vis.depth, l_depth)
+              and bool((l_frame[vis.tri_id < 0] == sky).all()),
+              f"{name}: flat frame shape, depth or sky")
+        far_px = int(((vis.tri_id >= 0) & (l_depth == 1.0)).sum())
+        over_walk = frame_overflow(rs, *args[:3])
+        over_tile = int(over_tile)
+        diff = int((l_frame != t_frame).any(-1).sum())
+        if name == "showcase":
+            check(torch.equal(l_frame, t_frame)
+                  and torch.equal(l_depth, t_depth),
+                  "showcase: the flat frame differs from the tiled frame")
+            check(over_walk == over_tile, f"showcase: the full-carry "
+                  f"raster dropped {over_tile} pairs, the walk {over_walk}")
+        print(f"[route-slice] {name} {RENDER_W}x{RENDER_H} (no host sync): "
+              f"fused frame bit-equal to the tiled frame; flat frame differs "
+              f"from it at {diff} pixels, sky where no triangle covers "
+              f"({far_px} covered pixels at depth 1.0); pairs dropped: walk "
+              f"{over_walk}, full-carry {over_tile}; every route bit-equal "
+              f"to the plain versions")
+    print(f"[route-slice] launches: fused frames of both views "
+          f"{launches['fused']}, flat frames {launches['flat']}")
+
+    # ---- 12. route times --------------------------------------------------
+    t = {}
+    for name in views:
+        counts, pack, tables, tiles_x = rec[name][0]
+        light, heavy = rec[name][1]
+        t[name] = dict(
+            fused=median_ms(lambda: rr.cuda_raster_resolve_tiles(
+                counts, pack, tables, tiles_x)),
+            split=median_ms(lambda: rsv.cuda_resolve_tiles_wide(
+                rwk.cuda_raster_walk(counts, pack, tiles_x)[1], tables)),
+            light=median_ms(lambda: rt.cuda_raster_tiles(*light)),
+            heavy=median_ms(lambda: rt.cuda_raster_tiles(*heavy)),
+            fused_b=fused_bound(counts, pack, tables),
+            tile_b=tile_bound([light[:-1], heavy[:-1]]))
+        if name == "showcase":
+            t[name].update(
+                fused_plain=median_ms(
+                    lambda: rr.raster_resolve_tiles_reference(
+                        counts, pack, tables, tiles_x)),
+                light_plain=median_ms(
+                    lambda: rt.raster_tiles_reference(*light)),
+                heavy_plain=median_ms(
+                    lambda: rt.raster_tiles_reference(*heavy)))
+        r = t[name]
+        print(f"[times] {name} {RENDER_W}x{RENDER_H}: fused walk + resolve "
+              f"alone {r['fused']:.4f} ms (walk then resolve kernels "
+              f"{r['split']:.4f} ms), bound {r['fused_b'][0]:.4f} ms "
+              f"({r['fused_b'][1]}); tile raster light pass "
+              f"({tuple(light[7].shape)}) {r['light']:.4f} ms, heavy pass "
+              f"({tuple(heavy[7].shape)}) {r['heavy']:.4f} ms, bound of both "
+              f"{r['tile_b'][0]:.4f} ms ({r['tile_b'][1]}) {card}")
+    r = t["showcase"]
+    print(f"[times] showcase plain versions: fused {r['fused_plain']:.3f} ms,"
+          f" tile raster light {r['light_plain']:.3f} ms, heavy "
+          f"{r['heavy_plain']:.3f} ms {card}")
+    for name, (_, args, _) in views.items():
+        # tiled, fused, flat, tiled: the tiled frame before and after shows
+        # how far the host's load moved between the runs
+        ms = [median_ms(lambda: routes[mode][name](*args))
+              for mode in ("tiled", "fused", "flat", "tiled")]
+        print(f"[times] {name} {RENDER_W}x{RENDER_H} frames: tiled "
+              f"{ms[0]:.3f} ms, fused {ms[1]:.3f} ms, flat {ms[2]:.3f} ms, "
+              f"tiled again {ms[3]:.3f} ms {card}")
+
+    return [
+        {"name": "raster_resolve", "route": "cuda", "source": FUSED_SOURCE,
+         "replaces": FUSED_TPU_KERNEL,
+         "launches": launches["fused"]["fused"], "max_abs_err": fused_err,
+         "ms": r["fused"], "plain_ms": r["fused_plain"],
+         "bound_ms": r["fused_b"][0], "bound_by": r["fused_b"][1],
+         "library_ms": None},
+        {"name": "raster_tile", "route": "cuda", "source": TILE_SOURCE,
+         "replaces": TILE_TPU_KERNEL, "launches": launches["flat"]["tile"],
+         "max_abs_err": tile_err, "ms": r["light"] + r["heavy"],
+         "plain_ms": r["light_plain"] + r["heavy_plain"],
+         "bound_ms": r["tile_b"][0], "bound_by": r["tile_b"][1],
+         "library_ms": None},
     ]
 
 
@@ -579,8 +1000,6 @@ def main() -> int:
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn)
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-    from banggameengine_tpu_torch.render import raster_walk as rwk
-    from banggameengine_tpu_torch.render import resolve as rsv
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
     from banggameengine_tpu_torch.state import InputFrame
@@ -605,16 +1024,17 @@ def main() -> int:
 
     # ---- 2. build: every kernel at once, one nvcc each -----------------
     t0 = time.perf_counter()
-    build_s = build_in_parallel([
-        bk.load_kernel_library, rwk.load_kernel_library,
-        rsv.load_kernel_library])
+    render_mods = render_kernel_modules()
+    build_s = build_in_parallel([bk.load_kernel_library] + [
+        render_mods[k][0].load_kernel_library
+        for k in ("walk", "resolve", "fused", "tile")])
     print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
-          f"{build_s[0]:.1f} s (3 kernels in parallel, "
+          f"{build_s[0]:.1f} s ({len(build_s)} kernels in parallel, "
           f"{time.perf_counter() - t0:.1f} s in all)")
 
     # ---- 3. kernel vs plain ---------------------------------------------
-    state0, static = build_falling_boxes(N_STRESS, seed=0, device=dev)
-    inp = InputFrame.zero(dev)
+    state0, static = build_falling_boxes(N_STRESS, seed=0)
+    inp = InputFrame.zero()
     run = make_multi_step_fn(static, STEPS_PER_DISPATCH,
                              broadphase="allpairs",
                              max_neighbors=MAX_NEIGHBORS)
@@ -703,7 +1123,7 @@ def main() -> int:
 
     with open(GOLDEN) as f:
         golden = json.load(f)
-    g_state, g_static = build_falling_boxes(**golden["scene"], device=dev)
+    g_state, g_static = build_falling_boxes(**golden["scene"])
     step = make_step_fn(g_static, broadphase="allpairs")
     for i in range(1, golden["steps"][-1] + 1):
         g_state, g_events = step(g_state, inp)
@@ -729,8 +1149,12 @@ def main() -> int:
         mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS), 3, 10)
     kernel_ms = cuda_ms(lambda: bk.neighbor_lists_aabb(
         mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS), 3, 10)
+    n_bp = mn.shape[0]
+    bp_bound = bound(36 * n_bp + 4 * (MAX_NEIGHBORS + 1) * n_bp,
+                     BROADPHASE_OPS * n_bp * n_bp)
     print(f"[times] broadphase alone at N={N_STRESS}, K={MAX_NEIGHBORS}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms {card}")
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bp_bound[0]:.4f} ms ({bp_bound[1]}) {card}")
     with plain_broadphase():
         plain_dispatch = dispatch_ms(run, state, inp)
     kernel_dispatch = dispatch_ms(run, state, inp)
@@ -741,13 +1165,15 @@ def main() -> int:
           f"({kernel_dispatch:.1f} ms/dispatch), {rate_p:.2f} steps/s with "
           f"the plain broadphase ({plain_dispatch:.1f} ms/dispatch) {card}")
 
-    render = render_phases(dev, card, state, static, build_s[1:])
+    render, views = render_phases(dev, card, state, static, build_s[1:])
+    routes = route_phases(dev, card, views)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches,
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }] + render}))
+        "bound_ms": bp_bound[0], "bound_by": bp_bound[1], "library_ms": None,
+    }] + render + routes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -47,17 +47,18 @@ def _camera():
     cam = Camera()
     cam.position[:] = (0.0, 9.0, -14.0)
     cam.set_yaw_pitch(np.pi / 2, -0.14)
-    return (cam.view_matrix().numpy(), cam.proj_matrix(W / H).numpy(),
+    return (cam.view_matrix("cpu").numpy(),
+            cam.proj_matrix(W / H, "cpu").numpy(),
             cam.position.copy())
 
 
 def _port_built(state0, static0) -> BuiltScene:
-    static = convert.static_scene_from_numpy(_np(static0))
+    static = convert.static_scene_from_numpy(_np(static0), "cpu")
     return BuiltScene(static=static,
                       initial_state=convert.world_state_from_numpy(
-                          _np(state0)),
+                          _np(state0), "cpu"),
                       render=convert.render_scene_from_numpy(
-                          build_box_render(static)))
+                          build_box_render(static), "cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +75,7 @@ def ticks():
     js, jimg, jev = jtick(state0, JaxInputFrame.zero(), jnp.asarray(view),
                           jnp.asarray(proj), jnp.asarray(cam_pos))
     tick = make_frame_fn(built, W, H, broadphase="allpairs")
-    ts, timg, tev = tick(built.initial_state, InputFrame.zero(),
+    ts, timg, tev = tick(built.initial_state, InputFrame.zero("cpu"),
                          torch.as_tensor(view), torch.as_tensor(proj),
                          torch.as_tensor(cam_pos))
     return ((_np(js), np.array(jimg), int(jev.contact_overflow)),
@@ -120,7 +121,7 @@ def test_substeps_stack_events_and_update_static():
     state0, static0 = jax_build_falling_boxes(8, seed=2, spread=2.0)
     built = _port_built(state0, static0)
     view, proj, cam_pos = (torch.as_tensor(a) for a in _camera())
-    inp = InputFrame.zero()
+    inp = InputFrame.zero("cpu")
     one = make_frame_fn(built, 64, 32, broadphase="allpairs")
     two = make_frame_fn(built, 64, 32, substeps=2, broadphase="allpairs")
     s0, _, _ = one(built.initial_state, inp, view, proj, cam_pos)

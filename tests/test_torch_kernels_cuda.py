@@ -13,6 +13,8 @@ import torch
 from banggameengine_tpu_torch import convert
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import shapes
+from banggameengine_tpu_torch.render import raster_resolve as rr
+from banggameengine_tpu_torch.render import raster_tile as rt
 from banggameengine_tpu_torch.render import raster_walk as rwk
 from banggameengine_tpu_torch.render import resolve as rsv
 from banggameengine_tpu_torch.render.pipeline import make_render_fn
@@ -47,7 +49,7 @@ def _packed_case(side, layers, device):
     """side x side x layers randomly rotated unit boxes at 0.98 spacing,
     in Morton order: every interior box overlaps more than 8 others."""
     n = side * side * layers
-    state, static = build_falling_boxes(n, seed=0, device=device)
+    state, static = build_falling_boxes(n, seed=0)
     g = torch.arange(n, device=device)
     pos = torch.stack([g % side, g // (side * side), (g // side) % side],
                       dim=1).to(torch.float32) * 0.98
@@ -161,21 +163,110 @@ def test_render_kernels_reject_bad_input(device):
                                torch.zeros((3, 4, 5), device=device))
 
 
-def test_showcase_frame_kernels_equal_plain(device, monkeypatch):
+@pytest.mark.parametrize("shade_mode,raster_backend",
+                         [("tiled", "walk"), ("fused", "walk"),
+                          ("flat", "tile")])
+def test_showcase_frame_kernels_equal_plain(device, monkeypatch, shade_mode,
+                                            raster_backend):
     sc = build_showcase_render(0)
-    rs = convert.render_scene_from_numpy(sc.render, device)
+    rs = convert.render_scene_from_numpy(sc.render)
     w, h = 640, 360
     args = (torch.as_tensor(sc.world, device=device),
-            sc.camera.view_matrix(device),
-            sc.camera.proj_matrix(w / h, device),
+            sc.camera.view_matrix(), sc.camera.proj_matrix(w / h),
             torch.as_tensor(sc.camera.position, device=device))
-    render = make_render_fn(rs, w, h, return_depth=True)
+    render = make_render_fn(rs, w, h, return_depth=True,
+                            shade_mode=shade_mode,
+                            raster_backend=raster_backend)
     frame_k, depth_k = render(*args)
     monkeypatch.setattr(rwk, "raster_walk", rwk.raster_walk_reference)
     monkeypatch.setattr(rsv, "resolve_tiles_wide",
                         rsv.resolve_tiles_wide_reference)
+    monkeypatch.setattr(rr, "raster_resolve_tiles",
+                        rr.raster_resolve_tiles_reference)
+    monkeypatch.setattr(rt, "raster_tiles", rt.raster_tiles_reference)
     frame_p, depth_p = render(*args)
     torch.cuda.synchronize()
     assert frame_k.shape == (h, w, 4) and frame_k.dtype == torch.uint8
     assert torch.equal(frame_k, frame_p)
     assert torch.equal(depth_k, depth_p)
+
+
+# ---- the route kernels: the fused walk + resolve, the full-carry raster ----
+
+
+@pytest.mark.parametrize("n_tiles,k_pad,kl,c",
+                         [(1, 8, 8, 1), (11, 272, 260, 40),
+                          (510, 272, 272, 40), (37, 13, 13, 7)])
+@pytest.mark.parametrize("with_tables", [True, False])
+def test_raster_resolve_equals_plain(device, n_tiles, k_pad, kl, c,
+                                     with_tables):
+    counts, pack = _walk_case(n_tiles, k_pad, n_tiles + kl, 15, device)
+    rng = np.random.default_rng(c)
+    table = (torch.as_tensor(rng.standard_normal(
+        (n_tiles, c, kl)).astype(np.float32), device=device)
+        if with_tables else None)
+    before = rr.raster_resolve_tiles.launches
+    dep_k, slot_k, res_k = rr.raster_resolve_tiles(counts, pack, table, 15)
+    assert rr.raster_resolve_tiles.launches == before + 1
+    dep_p, slot_p, res_p = rr.raster_resolve_tiles_reference(counts, pack,
+                                                             table, 15)
+    dep_w, slot_w = rwk.raster_walk(counts, pack, 15)
+    torch.cuda.synchronize()
+    assert torch.equal(slot_k, slot_p) and torch.equal(dep_k, dep_p)
+    assert torch.equal(slot_k, slot_w) and torch.equal(dep_k, dep_w)
+    if with_tables:
+        assert torch.equal(res_k, res_p)
+        assert torch.equal(res_k, rsv.resolve_tiles_wide(slot_w, table))
+    else:
+        assert res_k is None
+
+
+def _tile_kernel_case(n, k, tiles_x, seed, device):
+    """Random triangles over n listed tiles (a random subset of a
+    tiles_x-wide grid), ok = 0 on some rows, random ids and corners."""
+    rng = np.random.default_rng(seed)
+    _, pack = _walk_case(n, k, seed, tiles_x, torch.device("cpu"))
+    tile_idx = rng.permutation(max(n, 2 * tiles_x))[:n].astype(np.int32)
+    shift_x = (tile_idx % tiles_x - np.arange(n) % tiles_x) * 128.0
+    shift_y = (tile_idx // tiles_x - np.arange(n) // tiles_x) * 32.0
+    pack = pack.numpy()
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    f32 = np.float32
+    return (t(tile_idx),
+            t((pack[..., 0:3] + shift_x[:, None, None]).astype(f32)),
+            t((pack[..., 3:6] + shift_y[:, None, None]).astype(f32)),
+            t(pack[..., 6:9]),
+            t(rng.integers(0, 10**6, (n, k)).astype(np.int32)),
+            t(rng.uniform(0, 1, (n, k, 3)).astype(np.float32)),
+            t(rng.uniform(0, 1, (n, k, 3)).astype(np.float32)),
+            t(pack[..., 9].astype(np.int32)), tiles_x)
+
+
+@pytest.mark.parametrize("n,k,tiles_x", [(1, 8, 1), (64, 272, 15),
+                                         (510, 64, 15), (9, 13, 5)])
+def test_raster_tiles_equals_plain(device, n, k, tiles_x):
+    *args, tx = _tile_kernel_case(n, k, tiles_x, n + k, device)
+    before = rt.raster_tiles.launches
+    out_k = rt.raster_tiles(*args, tx)
+    assert rt.raster_tiles.launches == before + 1
+    out_p = rt.raster_tiles_reference(*args, tx)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("depth", "tri", "b1", "b2", "slot"), out_k,
+                          out_p):
+        assert torch.equal(a, b), name
+    assert bool((out_k[4] >= 0).any())
+
+
+def test_route_kernels_reject_bad_input(device):
+    counts, pack = _walk_case(2, 8, 0, 2, device)
+    with pytest.raises(ValueError):
+        rr.raster_resolve_tiles(counts, pack,
+                                torch.zeros((3, 4, 5), device=device), 2)
+    with pytest.raises(ValueError):          # more table than shared memory
+        rr.raster_resolve_tiles(counts, pack,
+                                torch.zeros((2, 8000, 8), device=device), 2)
+    *args, tx = _tile_kernel_case(3, 8, 2, 0, device)
+    with pytest.raises(ValueError):
+        rt.raster_tiles(args[0].long(), *args[1:], tx)
+    with pytest.raises(ValueError):
+        rt.raster_tiles(*args[:7], args[7].float(), tx)

@@ -53,8 +53,8 @@ def frame_agreement(port: np.ndarray, ref: np.ndarray) -> tuple[int, int]:
 
 
 def _camera_arrays(sc):
-    return dict(view=sc.camera.view_matrix().numpy(),
-                proj=sc.camera.proj_matrix(W / H).numpy(),
+    return dict(view=sc.camera.view_matrix("cpu").numpy(),
+                proj=sc.camera.proj_matrix(W / H, "cpu").numpy(),
                 cam_pos=sc.camera.position.copy())
 
 
@@ -83,12 +83,11 @@ def jax_golden():
 def port_render():
     sc = build_showcase_render(SEED)
     cam = {k: torch.as_tensor(v) for k, v in _camera_arrays(sc).items()}
-    fn = make_render_fn(convert.render_scene_from_numpy(sc.render), W, H,
-                        return_depth=True)
+    rs = convert.render_scene_from_numpy(sc.render, "cpu")
+    fn = make_render_fn(rs, W, H, return_depth=True)
     frame, depth = fn(torch.as_tensor(sc.world), cam["view"], cam["proj"],
                       cam["cam_pos"])
-    depth_only = make_render_fn(convert.render_scene_from_numpy(sc.render),
-                                W, H, depth_only=True)(
+    depth_only = make_render_fn(rs, W, H, depth_only=True)(
         torch.as_tensor(sc.world), cam["view"], cam["proj"], cam["cam_pos"])
     return frame.numpy(), depth.numpy(), depth_only.numpy()
 
@@ -127,9 +126,10 @@ def test_showcase_tiles_need_the_wide_resolve():
     triangles in some tiles (the resolve needs the full walk width there)
     and no tile overflows the walk's 256 local slots."""
     sc = build_showcase_render(SEED)
-    rs = convert.render_scene_from_numpy(sc.render)
+    rs = convert.render_scene_from_numpy(sc.render, "cpu")
     t = torch.as_tensor
-    view, proj = sc.camera.view_matrix(), sc.camera.proj_matrix(1920 / 1080)
+    view = sc.camera.view_matrix("cpu")
+    proj = sc.camera.proj_matrix(1920 / 1080, "cpu")
     _, clip = rz.transform_vertices(rs.v_pos, rs.v_entity, t(sc.world), view,
                                     proj)
     n = clip.shape[0] // 3
@@ -147,14 +147,18 @@ def test_showcase_tiles_need_the_wide_resolve():
 
 def test_unported_options_raise():
     sc = build_showcase_render(SEED)
-    rs = convert.render_scene_from_numpy(sc.render)
+    rs = convert.render_scene_from_numpy(sc.render, "cpu")
     cam = {k: torch.as_tensor(v) for k, v in _camera_arrays(sc).items()}
     args = (rs, torch.as_tensor(sc.world), cam["view"], cam["proj"],
             cam["cam_pos"])
-    for kw in (dict(wireframe=True), dict(shade_mode="fused"),
-               dict(shade_mode="flat"), dict(raster_backend="xla")):
+    for kw in (dict(wireframe=True), dict(raster_backend="xla"),
+               dict(raster_backend="auto"),
+               dict(shade_mode="tiled", raster_backend="tile")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_frame(*args, width=W, height=H, **kw)
+    # the flat shade needs the full carry, which the walk does not keep
+    with pytest.raises(ValueError, match="tile"):
+        render_frame(*args, width=W, height=H, shade_mode="flat")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_interp_render_fn(rs, W, H)
     for kw in (dict(pipelined=True), dict(merged=True)):

@@ -77,8 +77,8 @@ def showcase():
 
 
 def _camera_mats(camera, width, height):
-    return (camera.view_matrix().numpy(),
-            camera.proj_matrix(width / height).numpy())
+    return (camera.view_matrix("cpu").numpy(),
+            camera.proj_matrix(width / height, "cpu").numpy())
 
 
 @functools.partial(jax.jit, static_argnums=(4, 5))
@@ -117,11 +117,11 @@ def test_camera_matrices(showcase):
     jc = JaxCamera()
     jc.position[:] = showcase.camera.position
     jc.set_yaw_pitch(showcase.camera.yaw, showcase.camera.pitch)
-    np.testing.assert_allclose(showcase.camera.view_matrix().numpy(),
+    np.testing.assert_allclose(showcase.camera.view_matrix("cpu").numpy(),
                                np.asarray(jc.view_matrix()), atol=1e-6)
-    np.testing.assert_allclose(showcase.camera.proj_matrix(16 / 9).numpy(),
-                               np.asarray(jc.proj_matrix(16 / 9)), atol=1e-6,
-                               rtol=1e-6)
+    np.testing.assert_allclose(
+        showcase.camera.proj_matrix(16 / 9, "cpu").numpy(),
+        np.asarray(jc.proj_matrix(16 / 9)), atol=1e-6, rtol=1e-6)
     angles = np.linspace(-1.5, 1.5, 7, dtype=np.float32)
     np.testing.assert_allclose(
         math3d.yaw_pitch_forward(torch.as_tensor(angles),
@@ -350,9 +350,13 @@ def test_walk_refuses_full_carry_and_other_backends(showcase):
     args = (torch.as_tensor(clip), torch.as_tensor(tri_valid), W, H)
     with pytest.raises(ValueError, match="slim"):
         rz.rasterize(*args, slim=False)
-    for backend in ("xla", "auto", "pallas"):
+    for backend in ("xla", "auto", "pallas", "pallas_interpret"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rz.rasterize(*args, backend=backend)
+    # the full carry is the "tile" backend, which is no full walk
+    vis, _, tiled = rz.rasterize(*args, backend="tile", slim=False,
+                                 return_tiled=True)
+    assert vis.tri_id is not None and tiled.full_walk is False
 
 
 def test_full_walk_field_sets_the_resolve_width(showcase):
@@ -367,13 +371,13 @@ def test_full_walk_field_sets_the_resolve_width(showcase):
                                return_tiled=True)
     assert tiled.full_walk is True
     assert tiled.ids.shape[1] == rz.K_GLOBAL + rz.HEAVY_CAPACITY
-    rs = convert.render_scene_from_numpy(showcase.render)
+    rs = convert.render_scene_from_numpy(showcase.render, "cpu")
     view, proj = _camera_mats(showcase.camera, W, H)
     n = rs.v_pos.shape[0]
     args = (W, H, rs.v_nrm, rs.v_uv, torch.ones(n), rs.tri_material,
             rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color, rs.mat_tex,
             rs.textures, rs.tex_size, rs.textures_quad_t,
-            t(showcase.camera.position), LightParams.default(), t(view),
+            t(showcase.camera.position), LightParams.default("cpu"), t(view),
             t(proj))
     frame = shade_visibility_tiled(tiled, *args)
     assert frame.shape == (H, W, 4)
@@ -383,7 +387,7 @@ def test_full_walk_field_sets_the_resolve_width(showcase):
 
 
 def test_convert_render_scene_round_trip(showcase):
-    rs = convert.render_scene_from_numpy(showcase.render)
+    rs = convert.render_scene_from_numpy(showcase.render, "cpu")
     back = convert.render_scene_to_numpy(rs)
     assert back.keys() == showcase.render.keys()
     for k, a in showcase.render.items():

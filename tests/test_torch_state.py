@@ -27,7 +27,10 @@ from banggameengine_tpu.state import InputFrame as JaxInputFrame
 from banggameengine_tpu_torch import convert, engine, math3d
 from banggameengine_tpu_torch.ecs import transform
 from banggameengine_tpu_torch.physics import shapes, triggers
-from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
+from banggameengine_tpu_torch.scene.synthetic import (
+    build_box_render,
+    build_falling_boxes,
+)
 
 
 def _np(obj) -> dict:
@@ -51,8 +54,8 @@ def test_convert_round_trip_is_bit_exact():
         s_np["lin_vel"].shape).astype(np.float32)
     s_np["ang_vel"] = s_np["ang_vel"].copy()
     s_np["ang_vel"][0, 0] = -0.0
-    ts = convert.world_state_from_numpy(s_np)
-    tst = convert.static_scene_from_numpy(st_np)
+    ts = convert.world_state_from_numpy(s_np, "cpu")
+    tst = convert.static_scene_from_numpy(st_np, "cpu")
     assert ts.comp_mask.dtype == torch.int32 and tst.mask.dtype == torch.int32
     assert int(tst.mask[0]) == -1          # 0xFFFFFFFF as a bit view
     back = convert.world_state_to_numpy(ts)
@@ -64,14 +67,14 @@ def test_convert_round_trip_is_bit_exact():
                             jump=jnp.asarray(True), sprint=jnp.asarray(False),
                             cam_yaw=jnp.float32(1.5)))
     _assert_dicts_equal(inp, convert.input_frame_to_numpy(
-        convert.input_frame_from_numpy(inp)))
+        convert.input_frame_from_numpy(inp, "cpu")))
 
 
 @pytest.mark.parametrize("n,extras", [(8, False), (100, False), (8, True)])
 def test_builder_matches_jax(n, extras):
     kw = dict(seed=5, with_character=extras, with_trigger=extras)
     js, jst = jax_build_falling_boxes(n, **kw)
-    ts, tst = build_falling_boxes(n, **kw)
+    ts, tst = build_falling_boxes(n, **kw, device="cpu")
     _assert_dicts_equal(_np(jst), convert.static_scene_to_numpy(tst))
     j, t = _np(js), convert.world_state_to_numpy(ts)
     np.testing.assert_allclose(t.pop("quat"), j.pop("quat"), atol=2.5e-7,
@@ -157,8 +160,9 @@ def test_visual_positions_match_jax():
     js, jst = jax_build_falling_boxes(5, seed=1, with_character=True,
                                       with_trigger=True)
     want = np.asarray(jax_engine.visual_positions(js, jst))
-    got = engine.visual_positions(convert.world_state_from_numpy(_np(js)),
-                                  convert.static_scene_from_numpy(_np(jst)))
+    got = engine.visual_positions(
+        convert.world_state_from_numpy(_np(js), "cpu"),
+        convert.static_scene_from_numpy(_np(jst), "cpu"))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != np.asarray(js.pos)).any()   # the character moved
 
@@ -198,3 +202,44 @@ def test_triggers_match_jax():
                                        (prev, want, one_shot, active)))
     for w, g in zip(jax_out, torch_out):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _entry_points():
+    """Every entry point that makes tensors, called without a device:
+    (name, call) pairs."""
+    from banggameengine_tpu_torch.render.camera import Camera
+    from banggameengine_tpu_torch.render.shading import LightParams
+    from banggameengine_tpu_torch.state import InputFrame, make_world_state
+
+    inp = convert.input_frame_to_numpy(InputFrame.zero("cpu"))
+    state, static = build_falling_boxes(4, device="cpu")
+    return {
+        "build_falling_boxes": lambda: build_falling_boxes(4)[0].pos,
+        "make_world_state": lambda: make_world_state(4, 1).pos,
+        "InputFrame.zero": lambda: InputFrame.zero().move_forward,
+        "world_state_from_numpy": lambda: convert.world_state_from_numpy(
+            convert.world_state_to_numpy(state)).pos,
+        "static_scene_from_numpy": lambda: convert.static_scene_from_numpy(
+            convert.static_scene_to_numpy(static)).mask,
+        "input_frame_from_numpy": lambda: convert.input_frame_from_numpy(
+            inp).cam_yaw,
+        "render_scene_from_numpy": lambda: convert.render_scene_from_numpy(
+            build_box_render(static)).tri_valid,
+        "view_matrix": lambda: Camera().view_matrix(),
+        "proj_matrix": lambda: Camera().proj_matrix(1.5),
+        "mtx_proj": lambda: math3d.mtx_proj(60.0, 1.5, 0.1, 100.0),
+        "LightParams.default": lambda: LightParams.default().ambient,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """With no device named, an entry point puts its tensors on the card;
+    with no card it fails rather than fall back to the CPU."""
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError),
+                           match="CUDA|cuda"):
+            call()

@@ -67,10 +67,10 @@ def _jax_run(steps):
 def trajectories():
     jax_out = _jax_run(CHECKED_STEPS)
     state0, static = jax_build_falling_boxes(**SCENE)
-    state = convert.world_state_from_numpy(_np(state0))
-    static = convert.static_scene_from_numpy(_np(static))
+    state = convert.world_state_from_numpy(_np(state0), "cpu")
+    static = convert.static_scene_from_numpy(_np(static), "cpu")
     step = make_step_fn(static, broadphase="allpairs")
-    torch_out, inp = {}, InputFrame.zero()
+    torch_out, inp = {}, InputFrame.zero("cpu")
     for i in range(1, max(CHECKED_STEPS) + 1):
         state, events = step(state, inp)
         if i in CHECKED_STEPS:
@@ -117,9 +117,9 @@ def test_240_steps_statistical_bound(trajectories):
 
 def test_multi_step_equals_repeated_steps():
     state0, static = jax_build_falling_boxes(16, seed=3, spread=2.0)
-    state0 = convert.world_state_from_numpy(_np(state0))
-    static = convert.static_scene_from_numpy(_np(static))
-    inp = InputFrame.zero()
+    state0 = convert.world_state_from_numpy(_np(state0), "cpu")
+    static = convert.static_scene_from_numpy(_np(static), "cpu")
+    inp = InputFrame.zero("cpu")
     multi = make_multi_step_fn(static, 5, broadphase="allpairs",
                                max_neighbors=8)(state0, inp)
     step = make_step_fn(static, broadphase="allpairs", max_neighbors=8)
@@ -134,24 +134,26 @@ def test_multi_step_equals_repeated_steps():
 
 def test_unported_routes_raise():
     state, static = jax_build_falling_boxes(8, with_character=True)
-    state = convert.world_state_from_numpy(_np(state))
-    static = convert.static_scene_from_numpy(_np(static))
+    state = convert.world_state_from_numpy(_np(state), "cpu")
+    static = convert.static_scene_from_numpy(_np(static), "cpu")
     with pytest.raises(NotImplementedError, match="character"):
-        make_step_fn(static, broadphase="allpairs")(state, InputFrame.zero())
+        make_step_fn(static, broadphase="allpairs")(state,
+                                                    InputFrame.zero("cpu"))
     for route in ("dense", "grid", "static", "pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_step_fn(static, broadphase=route, any_char=False)(
-                state, InputFrame.zero())
+                state, InputFrame.zero("cpu"))
 
 
 def test_capsule_scene_is_refused():
     state, static = jax_build_falling_boxes(4)
     static = dataclasses.replace(
         static, shape_type=static.shape_type.at[0].set(2))
-    state = convert.world_state_from_numpy(_np(state))
-    static = convert.static_scene_from_numpy(_np(static))
+    state = convert.world_state_from_numpy(_np(state), "cpu")
+    static = convert.static_scene_from_numpy(_np(static), "cpu")
     with pytest.raises(ValueError, match="box-only"):
-        make_step_fn(static, broadphase="allpairs")(state, InputFrame.zero())
+        make_step_fn(static, broadphase="allpairs")(state,
+                                                    InputFrame.zero("cpu"))
 
 
 def _golden(out: dict) -> dict:
