@@ -397,6 +397,16 @@ def _gathered(b: _Binned, sel_ids: Tensor) -> tuple:
             (sel_ids >= 0).to(torch.int32))
 
 
+def _light_pass(b: _Binned) -> tuple:
+    """The light pass's arguments of :func:`raster_tile.raster_tiles`:
+    every tile, with the global list and its first ``LIGHT_CAPACITY``
+    locals."""
+    kl = min(K_GLOBAL + LIGHT_CAPACITY, b.ids.shape[1])
+    all_tiles = torch.arange(b.ids.shape[0], dtype=torch.int32,
+                             device=b.ids.device)
+    return (all_tiles, *_gathered(b, b.ids[:, :kl]), b.tiles_x)
+
+
 def _raster_full_carry(b: _Binned):
     """The light/heavy full-carry raster (the JAX package's ``"pallas"``
     backend): every tile rasters the global list and its first
@@ -409,12 +419,9 @@ def _raster_full_carry(b: _Binned):
 
     Returns the planes (depth, tri_id, b1, b2, slot), each [tiles, 32,
     128], and the locals each tile's raster covered, int[tiles]."""
-    n_tiles = b.ids.shape[0]
     kl = min(K_GLOBAL + LIGHT_CAPACITY, b.ids.shape[1])
     light_cap = kl - K_GLOBAL
-    all_tiles = torch.arange(n_tiles, dtype=torch.int32, device=b.ids.device)
-    planes = rt.raster_tiles(all_tiles, *_gathered(b, b.ids[:, :kl]),
-                             b.tiles_x)
+    planes = rt.raster_tiles(*_light_pass(b))
     covered = torch.full_like(b.local_counts, light_cap)
     if b.ids.shape[1] > kl:
         heavy = torch.sort(b.local_counts, descending=True,

@@ -1,0 +1,286 @@
+"""Trace one program with ``torch.profiler`` and summarize its device time.
+
+Counterpart of the JAX repository's ``scripts/trace_summary.py``, with the
+idle-gap report of its ``scripts/trace_loop.py`` folded in.  One warm-up
+execution, then a trace of one more, a sync, 3 executions and a sync; the
+summary gives, per execution of the 3:
+
+- each device kernel's ms and count, sorted by total time (top 10 printed);
+- the kernel launches;
+- the share of the traced window in which the card was busy (the union of
+  its kernel, copy and fill intervals over the window, from the first
+  host op to the last device op);
+- the 10 longest idle gaps in that window, each with the innermost host op
+  (an op, an annotation, or a CUDA runtime call such as a launch or a
+  sync) that spans the gap's midpoint: what the host was doing
+  meanwhile.
+
+Programs: ``stress`` (one 50-step dispatch of the 10k-box world from its
+200-step state), ``frame_tiled``, ``frame_fused``, ``frame_flat`` and
+``depth`` (the showcase at 1920x1080, as ``profile_render``), ``tick``
+(``make_frame_fn`` on the 10k-box world from its 200-step state, seen by the
+tick camera).  Under the profiler every host op costs more than without it,
+so the busy share it shows is a lower bound of the untraced one.
+
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary frame_tiled [OUTDIR]
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary tick --device cpu --small
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary --parse PATH [REPS]
+
+``PATH`` is an exported Chrome trace or a directory of them (the newest is
+read).  Without ``OUTDIR`` the trace goes to a new temporary directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import glob
+import json
+import os
+import sys
+import tempfile
+
+import torch
+
+from banggameengine_tpu_torch import convert
+from banggameengine_tpu_torch.engine import make_multi_step_fn
+from banggameengine_tpu_torch.render.camera import Camera
+from banggameengine_tpu_torch.render.pipeline import (
+    make_frame_fn,
+    make_render_fn,
+)
+from banggameengine_tpu_torch.scene.build import BuiltScene
+from banggameengine_tpu_torch.scene.synthetic import (
+    TICK_CAMERA_POS,
+    TICK_CAMERA_YAW_PITCH,
+    build_box_render,
+    build_falling_boxes,
+)
+from banggameengine_tpu_torch.scripts import profile_render
+from banggameengine_tpu_torch.state import InputFrame
+from banggameengine_tpu_torch.utils.profiling import (
+    device_sync,
+    start_trace,
+    stop_trace,
+    trace_annotation,
+)
+
+REPS = 3
+TOP = 10
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation")
+CUDA_API = "cuda_"     # the categories of host-side CUDA API calls
+PROGRAMS = ("stress", "frame_tiled", "frame_fused", "frame_flat", "depth",
+            "tick")
+MAX_NEIGHBORS = 8
+FIRST_EXECUTION = "execution 0"
+
+
+# ---- the programs -------------------------------------------------------
+
+def _stress_state(device, small: bool):
+    """The stress world after 200 steps (``small``: 64 boxes, 20 steps),
+    its static scene, a zero input and the 50-step (5) dispatch."""
+    n, steps = (64, 5) if small else (10_000, 50)
+    state, static = build_falling_boxes(n, seed=0, device=device)
+    inp = InputFrame.zero(device)
+    run = make_multi_step_fn(static, steps, broadphase="allpairs",
+                             max_neighbors=MAX_NEIGHBORS)
+    for _ in range(4):
+        state = run(state, inp)
+    return state, static, inp, run
+
+
+def build(name: str, device="cuda", small: bool = False):
+    """The program ``name`` as (function, its arguments on ``device``)."""
+    if name == "stress":
+        state, _, inp, run = _stress_state(device, small)
+        return run, (state, inp)
+    if name == "tick":
+        state, static, inp, _ = _stress_state(device, small)
+        width, height = (profile_render.SMALL_WH if small
+                         else profile_render.FULL_WH)
+        built = BuiltScene(static=static, initial_state=state,
+                           render=convert.render_scene_from_numpy(
+                               build_box_render(static), device))
+        tick = make_frame_fn(built, width, height, broadphase="allpairs",
+                             max_neighbors=MAX_NEIGHBORS)
+        cam = Camera()
+        cam.position[:] = TICK_CAMERA_POS
+        cam.set_yaw_pitch(*TICK_CAMERA_YAW_PITCH)
+        return tick, (state, inp, cam.view_matrix(device),
+                      cam.proj_matrix(width / height, device),
+                      torch.as_tensor(cam.position, device=device))
+    if name == "depth":
+        kw = {"depth_only": True}
+    elif name.startswith("frame_") and name[6:] in profile_render.ROUTES:
+        kw = profile_render.ROUTES[name[6:]]
+    else:
+        raise ValueError(f"unknown program {name!r}; one of {PROGRAMS}")
+    rs, frame_args, (width, height) = profile_render.showcase(device, small)
+    return make_render_fn(rs, width, height,
+                          bin_capacity=profile_render.BIN_CAPACITY,
+                          **kw), frame_args
+
+
+# ---- the trace ----------------------------------------------------------
+
+def load_trace(path: str) -> list:
+    """The events of an exported Chrome trace, or of the newest one in a
+    directory."""
+    if os.path.isdir(path):
+        paths = sorted(glob.glob(os.path.join(path, "*.json")),
+                       key=os.path.getmtime)
+        if not paths:
+            raise FileNotFoundError(f"no Chrome trace (*.json) in {path}")
+        path = paths[-1]
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _spans(events, keep):
+    """(start, end, event) of the complete events whose category
+    ``keep`` accepts."""
+    return [(e["ts"], e["ts"] + e["dur"], e) for e in events
+            if e.get("ph") == "X" and keep(e.get("cat", "")) and "dur" in e]
+
+
+def _is_host(cat: str) -> bool:
+    return cat in HOST_CATS or cat.startswith(CUDA_API)
+
+
+def _launched_at(events) -> dict:
+    """Host time of each launch (a CUDA API call) by correlation id."""
+    return {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("cat", "").startswith(CUDA_API)
+            and "correlation" in e.get("args", {})}
+
+
+def summarize(events: list, reps: int = 1) -> dict:
+    """Per-execution kernel times and counts, launches, busy share and the
+    longest idle gaps of a trace of ``reps`` executions (times in ms).
+
+    Where the trace marks its first execution (:func:`trace_and_summarize`
+    does), what was launched before it is left out.  A device op is placed
+    by the host time of its launch: the card's timestamps in a trace may
+    sit a few hundred microseconds off the host's, so a gap's host op is
+    as exact as that, and device time before the first host op is left
+    out of the busy share."""
+    first = [e["ts"] for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name") == FIRST_EXECUTION]
+    if first:
+        t_first = min(first)
+        launched = _launched_at(events)
+
+        def placed(e):
+            if e.get("cat") in DEVICE_CATS:
+                return launched.get(e.get("args", {}).get("correlation"),
+                                    e["ts"])
+            return e.get("ts", t_first)
+
+        events = [e for e in events if placed(e) >= t_first]
+    dev = sorted(_spans(events, DEVICE_CATS.__contains__),
+                 key=lambda s: s[0])
+    host = _spans(events, _is_host)
+    if not host:
+        raise ValueError("the trace holds no host op")
+    w0 = min(s[0] for s in host)
+    w1 = max(s[1] for s in host + dev)
+
+    total, count = collections.Counter(), collections.Counter()
+    for t0, t1, e in dev:
+        total[e["name"]] += t1 - t0
+        count[e["name"]] += 1
+    kernels = [{"name": k, "ms": total[k] / 1e3 / reps,
+                "count": count[k] / reps} for k, _ in total.most_common()]
+
+    busy, idle, end = 0.0, [], w0
+    for t0, t1, _ in dev:
+        if t0 > end:
+            idle.append((end, t0))
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    if w1 > end:
+        idle.append((end, w1))
+
+    def host_op(mid):
+        inside = [s for s in host if s[0] <= mid <= s[1]]
+        if not inside:
+            return "(no op)"
+        return max(inside, key=lambda s: (s[0], -s[1]))[2]["name"]
+
+    gaps = sorted(idle, key=lambda g: g[0] - g[1])[:TOP]
+    n_kernels = sum(1 for s in dev if s[2].get("cat") == "kernel")
+    return {
+        "window_ms": (w1 - w0) / 1e3 / reps,
+        "busy_ms": busy / 1e3 / reps,
+        "busy_share": busy / (w1 - w0) if w1 > w0 else 0.0,
+        "launches": n_kernels / reps,
+        "kernels": kernels,
+        "gaps": [{"ms": (g1 - g0) / 1e3, "at_ms": (g0 - w0) / 1e3,
+                  "host_op": host_op((g0 + g1) / 2)} for g0, g1 in gaps],
+    }
+
+
+def print_summary(s: dict) -> None:
+    print(f"{'ms/exec':>10}  {'count':>7}  kernel")
+    for k in s["kernels"][:TOP]:
+        print(f"{k['ms']:10.4f}  x{k['count']:<6g} {k['name'][:96]}")
+    print(f"{s['launches']:g} launches per execution; the card busy "
+          f"{100 * s['busy_share']:.1f} % of the window "
+          f"({s['busy_ms']:.3f} of {s['window_ms']:.3f} ms per execution)")
+    for g in s["gaps"]:
+        print(f"   gap {g['ms']:8.3f} ms at +{g['at_ms']:.3f} ms during "
+              f"[{g['host_op'][:70]}]")
+
+
+def parse_trace(path: str, reps: int = 1) -> dict:
+    """Summarize (and print) an exported Chrome trace of ``reps``
+    executions; ``path`` is the trace or a directory of traces."""
+    s = summarize(load_trace(path), reps)
+    print_summary(s)
+    return s
+
+
+def trace_and_summarize(fn, args, outdir: str | None = None) -> dict:
+    """Warm ``fn(*args)`` up, then trace one more warm-up execution and a
+    sync, ``REPS`` executions and a sync into ``outdir`` (a new temporary
+    directory if None), and summarize the ``REPS`` executions.  (A kernel
+    launched just after the profiler starts can be missing from its
+    record; the traced warm-up takes that place.)"""
+    device_sync(fn(*args))
+    outdir = outdir or tempfile.mkdtemp(prefix="trace_")
+    start_trace(outdir)
+    try:
+        with trace_annotation("warm-up"):
+            device_sync(fn(*args))
+        for i in range(REPS):
+            with trace_annotation(f"execution {i}"):
+                out = fn(*args)
+        device_sync(out)
+    finally:
+        path = stop_trace()
+    print(f"trace -> {path}")
+    return parse_trace(path, REPS)
+
+
+def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--parse"]:
+        return parse_trace(argv[1], int(argv[2]) if len(argv) > 2 else 1)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("program", choices=PROGRAMS)
+    ap.add_argument("outdir", nargs="?")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--small", action="store_true",
+                    help="a 128x64 frame, 64 boxes (CPU-cheap)")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    fn, fn_args = build(args.program, device, args.small)
+    return trace_and_summarize(fn, fn_args, args.outdir)
+
+
+if __name__ == "__main__":
+    main()

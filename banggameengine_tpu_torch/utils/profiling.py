@@ -1,0 +1,217 @@
+"""Profiling and tracing helpers.
+
+Counterpart of ``banggameengine_tpu/utils/profiling.py``:
+
+- :class:`StepTimer`: wall-time accumulator with min/max/mean and an
+  F9-style report line;
+- :func:`device_sync`: waits for the card that holds an output;
+- :func:`measure_throughput` and its chained and multi-trial forms: the
+  per-call time of a queued window of calls.  On the card the window is
+  timed by two CUDA events on the current stream (the device's own clock,
+  from the first queued call to the end of the last one); for CPU tensors
+  by ``time.perf_counter``.  Which clock is read follows from where the
+  warm-up output lies;
+- :func:`bound_ms`: the least time the card could take for given bytes
+  and operations;
+- :func:`trace_annotation`: a named region on the profiler's timeline;
+- :func:`start_trace` / :func:`stop_trace`: one whole-program
+  ``torch.profiler`` trace (host ops and, on a card, its kernels),
+  exported as a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+
+import torch
+
+# the published H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+class StepTimer:
+    """Accumulates wall-clock timings for a named phase."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.total = 0.0
+        self.last = 0.0
+        self.min = float("inf")
+        self.max = 0.0
+
+    @contextlib.contextmanager
+    def measure(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.last = dt
+            self.total += dt
+            self.count += 1
+            self.min = min(self.min, dt)
+            self.max = max(self.max, dt)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def report(self) -> str:
+        if not self.count:
+            return f"[{self.name}] no samples"
+        return (
+            f"[{self.name}] last={self.last * 1e3:.3f}ms "
+            f"mean={self.mean * 1e3:.3f}ms min={self.min * 1e3:.3f}ms "
+            f"max={self.max * 1e3:.3f}ms n={self.count}"
+        )
+
+
+def tensor_leaves(out):
+    """The tensors in ``out``: a tensor, or tuples, lists, dicts and
+    dataclasses of them, nested, in order."""
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for v in out:
+            yield from tensor_leaves(v)
+    elif isinstance(out, dict):
+        for v in out.values():
+            yield from tensor_leaves(v)
+    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
+        for f in dataclasses.fields(out):
+            yield from tensor_leaves(getattr(out, f.name))
+
+
+def _cuda_device(out) -> torch.device | None:
+    """The device of the first CUDA tensor among the leaves of ``out``."""
+    return next((t.device for t in tensor_leaves(out)
+                 if t.device.type == "cuda"), None)
+
+
+def device_sync(out) -> None:
+    """Wait until the card that holds the first CUDA tensor of ``out`` has
+    finished all queued work; nothing for CPU tensors."""
+    device = _cuda_device(out)
+    if device is not None:
+        torch.cuda.synchronize(device)
+
+
+def _windows(step, state, calls: int, warmup: int, trials: int):
+    """``trials`` windows of ``calls`` queued ``state = step(state)`` each,
+    after ``warmup`` untimed calls and one sync.  Returns (per-call seconds
+    of each window, final state)."""
+    for _ in range(max(warmup, 1)):
+        state = step(state)
+    if next(tensor_leaves(state), None) is None:
+        raise ValueError("the timed function must return a tensor (or a "
+                         "structure of tensors): its device says which "
+                         "clock to read")
+    device = _cuda_device(state)
+    device_sync(state)
+    times = []
+    for _ in range(max(trials, 1)):
+        if device is None:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                state = step(state)
+            times.append((time.perf_counter() - t0) / calls)
+            continue
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(calls):
+            state = step(state)
+        end.record(stream)
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / calls)
+    return times, state
+
+
+def _chained(fn, rest):
+    def step(s):
+        out = fn(s, *rest)
+        return out[0] if isinstance(out, tuple) else out
+    return step
+
+
+def measure_throughput(fn, *args, calls: int = 20, warmup: int = 2) -> float:
+    """Per-call seconds of ``fn(*args)`` over ``calls`` queued calls, after
+    ``warmup`` calls and one sync; on the card by CUDA events."""
+    times, _ = _windows(lambda _: fn(*args), None, calls, warmup, 1)
+    return times[0]
+
+
+def measure_throughput_chained(fn, state, *rest, calls: int = 20,
+                               warmup: int = 2):
+    """Like :func:`measure_throughput` for step-like fns.
+
+    ``fn(state, *rest)`` must return the next state (or a tuple whose first
+    element is).  Returns (seconds_per_call, final_state)."""
+    times, state = _windows(_chained(fn, rest), state, calls, warmup, 1)
+    return times[0], state
+
+
+def measure_trials(fn, *args, calls: int = 5, warmup: int = 2,
+                   trials: int = 5):
+    """Dispersion-aware :func:`measure_throughput`: the per-call seconds of
+    each of ``trials`` timed windows of ``calls`` queued calls."""
+    times, _ = _windows(lambda _: fn(*args), None, calls, warmup, trials)
+    return times
+
+
+def measure_trials_chained(fn, state, *rest, calls: int = 5,
+                           warmup: int = 2, trials: int = 5):
+    """Dispersion-aware :func:`measure_throughput_chained`: ``trials``
+    windows back to back, each of ``calls`` queued steps.  Returns
+    ``(per_call_seconds_list, final_state)``; report their median and
+    spread, since one window cannot tell a loaded host from a change."""
+    return _windows(_chained(fn, rest), state, calls, warmup, trials)
+
+
+def bound_ms(n_bytes: float, ops: float) -> tuple[float, str]:
+    """The least time one H100 could take for a piece of work, in ms, and
+    what sets it: ``n_bytes`` (each input read once, each output written
+    once) over the memory rate, or ``ops`` f32 operations over the peak
+    rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def trace_annotation(name: str):
+    """Named region on the trace timeline."""
+    return torch.profiler.record_function(name)
+
+
+_trace: dict = {}   # the running trace: its profiler and its directory
+
+
+def start_trace(log_dir: str) -> None:
+    """Start the process's one trace: host ops, and the card's kernels when
+    there is a card.  :func:`stop_trace` writes it into ``log_dir``."""
+    if _trace:
+        raise RuntimeError("a trace is already running")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    _trace.update(prof=prof, log_dir=log_dir)
+
+
+def stop_trace() -> str:
+    """Stop the trace and export it as a Chrome trace; returns its path."""
+    if not _trace:
+        raise RuntimeError("no trace is running")
+    prof, log_dir = _trace.pop("prof"), _trace.pop("log_dir")
+    prof.stop()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-Drives ``banggameengine_tpu_torch`` through its three slices, the
-10,000-box stress tick, the shaded 1080p frame and its fused and
-full-carry routes, and checks them.  Phases, one line each:
+Drives ``banggameengine_tpu_torch`` through its four slices, the
+10,000-box stress tick, the shaded 1080p frame, its fused and full-carry
+routes, and the profiling path, and checks them.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles the five kernels for sm_90a, all at once
+2. build: compiles the six kernels for sm_90a, all at once
    (``physics/csrc/neighbor_lists.cu``, ``render/csrc/raster_walk.cu``,
    ``render/csrc/resolve_wide.cu``, ``render/csrc/raster_resolve.cu``,
-   ``render/csrc/raster_tile.cu``);
+   ``render/csrc/raster_tile.cu``, ``scripts/csrc/gather_rows.cu``);
 3. kernel vs plain: the broadphase kernel against its plain PyTorch
    version, exactly equal (idx, count, overflow) on the stress scene at
    step 0 and after 200 steps, a saturated 96-box pile and random cases;
@@ -52,7 +52,22 @@ full-carry routes, and checks them.  Phases, one line each:
    differ, on the 10k-box view, where the top-64 heavy cap drops more);
    every frame bit-equal with the plain versions;
 12. route times: both new kernels alone beside their plain versions and
-   bounds, and the three frames of each view, same method.
+   bounds, and the three frames of each view, same method;
+13. gather kernel vs plain: the u8 row gather against its plain version,
+   exactly equal, on the shade-parts probe's inputs (u8[524288, 16] at
+   1920x1080 rows) and on random cases (row counts that are no power of
+   two, row counts that are no multiple of the block, indices below -R,
+   at -R, -1, R and beyond, 16-byte rows on an unaligned table, widths 7
+   and 33), and equal to ``torch.index_select`` and ``table[idx]`` on the
+   indices in [0, R);
+14. the profiling path: every probe of ``scripts/profile_shade_parts`` and
+   every stage of ``scripts/profile_render`` run once with host syncs
+   raising, each probe within 1e-5 of its f64 sum; then both scripts'
+   timers (what their ``main`` runs) on those probes and stages (the
+   gather's launches counted in the probe's),
+   ``scripts/trace_summary`` on ``frame_tiled`` and ``tick`` (kernels,
+   launches, busy share, longest gaps) and on the gather alone.  Every
+   timer is ``banggameengine_tpu_torch/utils/profiling.py``'s.
 
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its f32 operations over
@@ -73,10 +88,22 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+
+from banggameengine_tpu_torch.scene.synthetic import (
+    TICK_CAMERA_POS,
+    TICK_CAMERA_YAW_PITCH,
+)
+from banggameengine_tpu_torch.utils.profiling import (
+    bound_ms,
+    measure_throughput,
+    measure_trials,
+    measure_trials_chained,
+)
 
 N_STRESS = 10_000
 STEPS_PER_DISPATCH = 50
@@ -92,9 +119,11 @@ FUSED_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_resolve.cu"
 FUSED_TPU_KERNEL = "banggameengine_tpu/render/raster_resolve_pallas.py:68"
 TILE_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_tile.cu"
 TILE_TPU_KERNEL = "banggameengine_tpu/render/raster_pallas.py:27"
-# the published H100 SXM peaks the bounds use (at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+GATHER_SOURCE = "banggameengine_tpu_torch/scripts/csrc/gather_rows.cu"
+GATHER_TPU_KERNEL = "scripts/profile_shade_parts.py:93"
+# a probe's f32 sum against the same sum in f64: within this share of the
+# sum of its terms' magnitudes (up to 2 M terms, summed in another order)
+PROBE_RTOL = 1e-5
 # f32 operations per (pixel, used slot) of the walk and the tile raster:
 # edge functions 15, coverage compares 6, barycentric weights 4, depth 5,
 # depth tests 3
@@ -110,13 +139,6 @@ FRAME_GOLDEN = os.path.join(DATA, "showcase_jax_golden.npz")
 RENDER_W, RENDER_H = 1920, 1080
 FRAME_TICKS = 10
 SKY = (0x88, 0xAA, 0xFF, 0xFF)
-# the 10k-box tick's camera: on the ground at the centre of the world,
-# looking up into the falling boxes.  At step 200 most boxes are still
-# falling (they start up to 5 km high) and few have landed, so this is
-# where the frame holds the most boxes: ~1,700 in view against ~25 from
-# the showcase camera
-TICK_CAMERA_POS = (0.0, 1.5, 0.0)
-TICK_CAMERA_YAW_PITCH = (np.pi / 2, np.deg2rad(80.0))
 # port on the card vs the JAX frame on the CPU: channels within 1 level on
 # >= 99.9 % of pixels, depth within 1e-6 on >= 99.9 % (JAX's CPU compiler
 # fuses multiply-adds; the card's inverse and rsqrt round differently)
@@ -196,36 +218,18 @@ def build_in_parallel(loaders) -> list[float]:
         return list(pool.map(timed, loaders))
 
 
-def cuda_ms(fn, warmup: int, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
+    """Median ms of single calls of ``fn`` by CUDA events, after warm-up."""
+    return statistics.median(measure_trials(
+        fn, calls=1, warmup=warmup, trials=timed)) * 1e3
 
 
 def dispatch_ms(run, state, inp, warmup: int = 2, timed: int = 3):
     """Median ms of one dispatch (CUDA events) after ``warmup`` dispatches;
     each dispatch continues from the state the previous one left."""
-    for _ in range(warmup):
-        state = run(state, inp)
-    times = []
-    for _ in range(timed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state = run(state, inp)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    times, _ = measure_trials_chained(run, state, inp, calls=1,
+                                      warmup=warmup, trials=timed)
+    return statistics.median(times) * 1e3
 
 
 @contextlib.contextmanager
@@ -313,14 +317,6 @@ def recorded_render_inputs():
             setattr(m, launcher, saved[k])
 
 
-def bound(n_bytes: float, ops: float) -> tuple[float, str]:
-    """The least time the card could take, in ms, and what sets it: the
-    bytes over the memory rate or the f32 operations over the peak rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def walk_work(counts, pack) -> tuple[int, int, int]:
     """(walked rows, used rows, pixel-row pairs of the used rows) of one
     walk: rows below each tile's count, and those with ok set."""
@@ -335,13 +331,13 @@ def walk_work(counts, pack) -> tuple[int, int, int]:
 def walk_bound(counts, pack) -> tuple[float, str]:
     walked, _, pairs = walk_work(counts, pack)
     n = pack.shape[0]
-    return bound(4 * n + 40 * walked + 8 * n * 4096, RASTER_OPS * pairs)
+    return bound_ms(4 * n + 40 * walked + 8 * n * 4096, RASTER_OPS * pairs)
 
 
 def resolve_bound(slot, table) -> tuple[float, str]:
     n, c, kl = table.shape
-    return bound(4 * slot.numel() + 4 * n * c * kl + 4 * c * slot.numel(),
-                 0)
+    return bound_ms(
+        4 * slot.numel() + 4 * n * c * kl + 4 * c * slot.numel(), 0)
 
 
 def fused_bound(counts, pack, table) -> tuple[float, str]:
@@ -354,7 +350,7 @@ def fused_bound(counts, pack, table) -> tuple[float, str]:
         c, kl = table.shape[1:]
         cols = int(torch.clamp(counts, 0, min(kl, pack.shape[1])).sum())
         n_bytes += 4 * c * cols + 4 * c * n * 4096
-    return bound(n_bytes, RASTER_OPS * pairs)
+    return bound_ms(n_bytes, RASTER_OPS * pairs)
 
 
 def tile_bound(passes) -> tuple[float, str]:
@@ -366,23 +362,7 @@ def tile_bound(passes) -> tuple[float, str]:
         used = int((args[7] != 0).sum())
         n_bytes += 4 * n + 4 * n * k + 64 * used + 20 * n * 4096
         ops += RASTER_OPS * used * 4096
-    return bound(n_bytes, ops)
-
-
-def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
-    """Median ms of single calls of ``fn`` by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(timed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return bound_ms(n_bytes, ops)
 
 
 def random_walk_case(n_tiles: int, k_pad: int, tiles_x: int, seed: int,
@@ -713,6 +693,7 @@ def render_phases(dev, card: str, stress_state, static,
     def run_ticks():
         nonlocal state
         state, _, _ = tick(state, inp, *tick_args)
+        return state
 
     with plain_broadphase(), plain_render_kernels():
         tick_plain_ms = median_ms(run_ticks)
@@ -992,6 +973,166 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
     ]
 
 
+def random_gather_case(r: int, w: int, p: int, seed: int, device,
+                       offset: int = 0):
+    """A random u8 table of r rows of w bytes whose data starts ``offset``
+    bytes into its storage (1: not 16-byte aligned), and p indices from
+    [-r - 7, r + 3], the ends and both wraps included."""
+    rng = np.random.default_rng(seed)
+    base = torch.as_tensor(rng.integers(0, 256, r * w + offset).astype(
+        np.uint8), device=device)
+    idx = rng.integers(-r - 7, r + 4, p).astype(np.int32)
+    idx[:8] = (-r - 7, -r - 1, -r, -1, 0, r - 1, r, r + 3)
+    return base[offset:].view(r, w), torch.as_tensor(idx, device=device)
+
+
+def probe_reference(name: str, args) -> tuple:
+    """A shade-parts probe's sum in f64 by plain indexing, and the same sum
+    of its terms' magnitudes."""
+    if name == "onehot_mm":
+        slots, tabs = args
+        terms = torch.take_along_dim(tabs.double(),
+                                     slots.long()[..., None], dim=1)
+        dims = (0, 2)
+    elif name in ("attr_take", "texel_take"):
+        terms, dims = args[0].double()[:, args[1].long()], 1
+    else:
+        terms, dims = args[0].double()[args[1].long()], 0
+    return terms.sum(dims), terms.abs().sum(dims)
+
+
+def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
+    """Phases 13-14: the u8 row gather against its plain version, then the
+    profiling path: the shade-parts probe, the frame stage timer and the
+    trace summary.  Returns the gather's entry of the kernel table."""
+    from banggameengine_tpu_torch.scripts import gather_rows as gr
+    from banggameengine_tpu_torch.scripts import profile_render as prr
+    from banggameengine_tpu_torch.scripts import profile_shade_parts as psp
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+
+    # ---- 13. gather kernel vs plain ---------------------------------------
+    print(f"[profile-build] {GATHER_SOURCE} built and loaded in "
+          f"{build_s:.1f} s (in phase 2, in parallel with the others)")
+    probes = psp.probes(dev)
+    table, idx = probes["pl_gather"][1]
+    cases = [
+        (f"a: shade-parts probe, u8{list(table.shape)} at {idx.numel()} "
+         f"rows", (table, idx)),
+        ("b: random, R 12345, W 16, P 100003",
+         random_gather_case(12345, 16, 100_003, seed=10, device=dev)),
+        ("c: random, R 999, W 16 not 16-byte aligned, P 4097",
+         random_gather_case(999, 16, 4097, seed=11, device=dev, offset=1)),
+        ("d: random, R 1001, W 7, P 4099",
+         random_gather_case(1001, 7, 4099, seed=12, device=dev)),
+        ("e: random, R 257, W 33, P 513",
+         random_gather_case(257, 33, 513, seed=13, device=dev)),
+    ]
+    gather_err = 0
+    for name, (t, i) in cases:
+        out_k = gr.cuda_gather_rows_u8(t, i)
+        out_p = gr.gather_rows_u8_reference(t, i)
+        torch.cuda.synchronize()
+        gather_err = max(gather_err, int((out_k.int() - out_p.int()).abs()
+                                         .max()))
+        check(torch.equal(out_k, out_p), f"gather {name}: differs")
+        r = t.shape[0]
+        in_range = i[(i >= 0) & (i < r)]
+        out_r = gr.cuda_gather_rows_u8(t, in_range)
+        check(torch.equal(out_r, torch.index_select(t, 0, in_range))
+              and torch.equal(out_r, t[in_range]),
+              f"gather {name}: differs from index_select or table[idx] in "
+              f"range")
+        print(f"[gather-kernel-vs-plain] {name}: exactly equal "
+              f"({int(((i < -r) | (i >= r)).sum())} indices out of range, "
+              f"{int(((i < 0) & (i >= -r)).sum())} wrapped); equal to "
+              f"index_select and table[idx] on the {in_range.numel()} indices in "
+              f"[0, R)")
+
+    # ---- 14. the profiling path -------------------------------------------
+    # every function a window times runs once here with host syncs raising:
+    # a window queues calls and syncs only at its end
+    stages = prr.stages(dev)
+    runs = {**{f"probe {k}": v for k, v in probes.items()},
+            **{f"stage {k}": v for k, v in stages.items()}}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {k: fn(*args) for k, (fn, args) in runs.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for name in probes:
+        ref, mag = probe_reference(name, probes[name][1])
+        err = float(((outs[f"probe {name}"].double() - ref).abs()
+                     / mag.clamp_min(1.0)).max())
+        check(err <= PROBE_RTOL, f"probe {name}: off its f64 sum by {err} "
+              f"of the terms' magnitude")
+    check(torch.equal(outs["probe pl_gather"], outs["probe texel_rows"]),
+          "probe pl_gather differs from texel_rows (index_select)")
+    print(f"[profile] {len(runs)} timed functions ({len(probes)} probes, "
+          f"{len(runs) - len(probes)} stages) run without a host sync; each "
+          f"probe within {PROBE_RTOL} of its f64 sum; pl_gather equal to "
+          f"texel_rows")
+
+    # the timers of profile_shade_parts.main and profile_render.main, on
+    # the probes and stages built above
+    gr.gather_rows_u8.launches = 0
+    probe_ms = psp.time_probes(probes, dev)
+    launches = gr.gather_rows_u8.launches
+    check(launches > 0, "the shade-parts probe did not launch the gather")
+    stage_ms = prr.time_stages(stages, dev)
+    check(all(np.isfinite(v) and v > 0 for v in
+              list(probe_ms.values()) + list(stage_ms.values())),
+          f"a probe or stage time is not positive: {probe_ms} {stage_ms}")
+    print(f"[profile] the shade-parts probe launched the gather "
+          f"{launches}x; the stage timer timed {len(stage_ms)} stages "
+          f"{card}")
+
+    want = {"frame_tiled": ("raster_walk_kernel", "resolve_wide_kernel"),
+            "tick": ("neighbor_lists_kernel", "raster_walk_kernel",
+                     "resolve_wide_kernel")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kernels in want.items():
+            print(f"[profile] trace_summary {name} {card}:")
+            fn, args = ts.build(name, dev)
+            s = ts.trace_and_summarize(fn, args, os.path.join(tmp, name))
+            check(s["launches"] > 0 and 0.0 < s["busy_share"] <= 1.0,
+                  f"trace {name}: {s['launches']} launches, busy share "
+                  f"{s['busy_share']}")
+            counts = {k: sum(e["count"] for e in s["kernels"]
+                             if k in e["name"]) for k in kernels}
+            check(all(c == 1 for c in counts.values()),
+                  f"trace {name}: launches per execution {counts}")
+        # the kernels of the gather's two library calls, which explain
+        # their times
+        for lib, fn in (("index_select",
+                         lambda: torch.index_select(table, 0, idx)),
+                        ("advanced_index", lambda: table[idx])):
+            print(f"[profile] trace of {lib} alone at the probe's shape "
+                  f"{card}:")
+            ts.trace_and_summarize(fn, (), os.path.join(tmp, lib))
+        s = ts.trace_and_summarize(lambda: gr.gather_rows_u8(table, idx), (),
+                                   os.path.join(tmp, "gather"))
+    found = [e for e in s["kernels"] if "gather_rows_kernel" in e["name"]]
+    check(len(found) == 1 and found[0]["count"] == 1,
+          f"trace of the gather alone: {found}")
+    g = found[0]
+    b_ms, b_by = psp.gather_bound(table, idx)
+    print(f"[times] gather alone at the probe's shape: kernel "
+          f"{probe_ms['gather_rows_u8']:.4f} ms per call (CUDA events, 20 "
+          f"queued), {g['ms'] / g['count']:.4f} ms of device time per "
+          f"launch (trace); plain {probe_ms['gather_rows_u8_reference']:.4f}"
+          f" ms, index_select {probe_ms['index_select']:.4f} ms, table[idx] "
+          f"{probe_ms['advanced_index']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}) {card}")
+    return [{"name": "gather_rows_u8", "route": "cuda",
+             "source": GATHER_SOURCE, "replaces": GATHER_TPU_KERNEL,
+             "launches": launches, "max_abs_err": gather_err,
+             "ms": probe_ms["gather_rows_u8"],
+             "plain_ms": probe_ms["gather_rows_u8_reference"],
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": probe_ms["library"]}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1002,6 +1143,7 @@ def main() -> int:
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
+    from banggameengine_tpu_torch.scripts import gather_rows as gr
     from banggameengine_tpu_torch.state import InputFrame
 
     # TF32 would round the f32 payload moves; keep every product in f32
@@ -1027,7 +1169,8 @@ def main() -> int:
     render_mods = render_kernel_modules()
     build_s = build_in_parallel([bk.load_kernel_library] + [
         render_mods[k][0].load_kernel_library
-        for k in ("walk", "resolve", "fused", "tile")])
+        for k in ("walk", "resolve", "fused", "tile")]
+        + [gr.load_kernel_library])
     print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
           f"{build_s[0]:.1f} s ({len(build_s)} kernels in parallel, "
           f"{time.perf_counter() - t0:.1f} s in all)")
@@ -1145,13 +1288,17 @@ def main() -> int:
 
     # ---- 5. times -------------------------------------------------------
     mn, mx, dyn, layer, mask = cases[0][1]
-    plain_ms = cuda_ms(lambda: bk.neighbor_lists_aabb_reference(
-        mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS), 3, 10)
-    kernel_ms = cuda_ms(lambda: bk.neighbor_lists_aabb(
-        mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS), 3, 10)
+    plain_ms = measure_throughput(
+        lambda: bk.neighbor_lists_aabb_reference(
+            mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS),
+        calls=10, warmup=3) * 1e3
+    kernel_ms = measure_throughput(
+        lambda: bk.neighbor_lists_aabb(
+            mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS),
+        calls=10, warmup=3) * 1e3
     n_bp = mn.shape[0]
-    bp_bound = bound(36 * n_bp + 4 * (MAX_NEIGHBORS + 1) * n_bp,
-                     BROADPHASE_OPS * n_bp * n_bp)
+    bp_bound = bound_ms(36 * n_bp + 4 * (MAX_NEIGHBORS + 1) * n_bp,
+                        BROADPHASE_OPS * n_bp * n_bp)
     print(f"[times] broadphase alone at N={N_STRESS}, K={MAX_NEIGHBORS}: "
           f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bp_bound[0]:.4f} ms ({bp_bound[1]}) {card}")
@@ -1167,13 +1314,14 @@ def main() -> int:
 
     render, views = render_phases(dev, card, state, static, build_s[1:])
     routes = route_phases(dev, card, views)
+    profiling = profiling_phases(dev, card, build_s[5])
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches,
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bp_bound[0], "bound_by": bp_bound[1], "library_ms": None,
-    }] + render + routes}))
+    }] + render + routes + profiling}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

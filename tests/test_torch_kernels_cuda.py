@@ -22,6 +22,7 @@ from banggameengine_tpu_torch.scene.synthetic import (
     build_falling_boxes,
     build_showcase_render,
 )
+from banggameengine_tpu_torch.scripts import gather_rows as gr
 
 pytestmark = pytest.mark.cuda
 
@@ -270,3 +271,44 @@ def test_route_kernels_reject_bad_input(device):
         rt.raster_tiles(args[0].long(), *args[1:], tx)
     with pytest.raises(ValueError):
         rt.raster_tiles(*args[:7], args[7].float(), tx)
+
+
+# ---- the u8 row gather of the shade-parts probe ---------------------------
+
+
+@pytest.mark.parametrize("r,w,p,offset", [(1, 16, 1, 0), (300, 16, 1024, 0),
+                                          (12345, 16, 100_003, 0),
+                                          (999, 16, 4097, 1),
+                                          (1001, 7, 4099, 0),
+                                          (257, 33, 513, 3)])
+def test_gather_rows_equals_plain(device, r, w, p, offset):
+    """Indices below -R, at the ends and beyond R; 16-byte rows on an
+    aligned and an unaligned table, and other widths (the byte loop)."""
+    rng = np.random.default_rng(r + p)
+    base = torch.as_tensor(rng.integers(0, 256, r * w + offset).astype(
+        np.uint8), device=device)
+    table = base[offset:].view(r, w)
+    idx = rng.integers(-r - 7, r + 4, p).astype(np.int32)
+    idx[:min(p, 8)] = (-r - 7, -r - 1, -r, -1, 0, r - 1, r, r + 3)[:p]
+    idx = torch.as_tensor(idx, device=device)
+    before = gr.gather_rows_u8.launches
+    out_k = gr.gather_rows_u8(table, idx)
+    out_p = gr.gather_rows_u8_reference(table, idx)
+    torch.cuda.synchronize()
+    assert gr.gather_rows_u8.launches == before + 1
+    assert torch.equal(out_k, out_p)
+    in_range = idx[(idx >= 0) & (idx < r)]
+    if in_range.numel():
+        assert torch.equal(gr.gather_rows_u8(table, in_range),
+                           torch.index_select(table, 0, in_range))
+
+
+def test_gather_rows_rejects_bad_input(device):
+    table = torch.zeros((4, 16), dtype=torch.uint8, device=device)
+    idx = torch.zeros(8, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        gr.gather_rows_u8(table.float(), idx)
+    with pytest.raises(ValueError):
+        gr.gather_rows_u8(table, idx.long())
+    with pytest.raises(ValueError):
+        gr.gather_rows_u8(table, idx.cpu())
