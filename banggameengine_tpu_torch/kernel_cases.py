@@ -1,0 +1,233 @@
+"""Inputs of the CUDA kernels, for the checks and timings that hold them
+to their plain versions.
+
+- :func:`broadphase_edge_cases` and :func:`walk_edge_case`: cases at the
+  edges of the broadphase's and the walk's contracts, which the main
+  path's inputs rarely reach.  Plain numpy from a seed, so the same arrays
+  feed the JAX package, the plain PyTorch versions and the CUDA kernels;
+- :func:`sorted_broadphase_inputs` and :func:`recorded_render_inputs`: the
+  inputs the main path itself gives the kernels.
+
+``chip_smoke.py``, ``scripts/compare_kernels.py`` and the tests use them;
+no entry point of the port does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+
+WALK_LINE_TILE = 3        # the tile whose slot 0 is a zero-area line ...
+WALK_LINE_PIXEL = (18, 40)   # ... that covers this (row, column) of it,
+# outside its own bounding box
+
+
+def _filters(rng, n: int):
+    dyn = rng.choice(np.array([-1, 0, 1], np.int32), n, p=[0.1, 0.3, 0.6])
+    layer = rng.integers(0, 4, n).astype(np.int32)
+    mask = np.where(rng.random(n) < 0.5, -1,
+                    rng.integers(0, 4, n)).astype(np.int32)
+    return dyn, layer, mask
+
+
+def _random_boxes(rng, n: int, spread: float = 3.0):
+    center = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    half = rng.uniform(0.1, 0.8, (n, 3)).astype(np.float32)
+    return center - half, center + half
+
+
+def broadphase_edge_cases(seed: int = 0) -> dict:
+    """Broadphase inputs (mn, mx f32[N, 3], dyn, layer, mask int32[N]) by
+    name.  The kernel prunes by groups of 32 columns and bands of 64 rows;
+    these put the unions at their edges:
+
+    - ``touching``: 231 unit cubes on an integer lattice, x fastest: faces
+      meet exactly, so rows touch their neighbours' group unions exactly
+      (before the wrapper's margin; the kernel's own inputs, ``lo``/``hi``
+      with the margin applied, are these boxes grown, still overlapping);
+    - ``nan_inf``: 300 random boxes, some with a NaN bound (one group all
+      NaN), some with -inf / +inf bounds, one that spans all space, one
+      empty (lo = +inf);
+    - ``filter_groups``: 200 random boxes, rows 32..63 not solid, 64..95
+      static, 96..127 static with layer 0;
+    - ``far_clusters``: 2 x 1,000 boxes along two lines 7 km apart, sorted
+      along them: the unions prune almost every (band, group) pair;
+    - ``n20``, ``n65``: random boxes, fewer rows than a group, and one more
+      than a band.
+    """
+    rng = np.random.default_rng(seed)
+    cases = {}
+
+    g = np.stack(np.meshgrid(np.arange(11), np.arange(7), np.arange(3),
+                             indexing="ij"), -1).reshape(-1, 3)
+    g = g[np.lexsort((g[:, 0], g[:, 2], g[:, 1]))].astype(np.float32)
+    n = g.shape[0]
+    cases["touching"] = (g, g + 1.0, np.ones(n, np.int32),
+                         np.ones(n, np.int32), np.full(n, -1, np.int32))
+
+    n = 300
+    mn, mx = _random_boxes(rng, n)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    mn[3, 0] = nan
+    mx[40, 1] = nan
+    mn[41] = nan
+    mx[41] = nan
+    mn[64:96] = nan                       # a whole group of NaN rows
+    mn[100, 0] = -inf
+    mx[101, 2] = inf
+    mn[102], mx[102] = -inf, inf          # spans all space
+    mn[103, 1] = inf                      # empty
+    mx[104, 0] = -inf                     # empty
+    cases["nan_inf"] = (mn, mx, *_filters(rng, n))
+
+    n = 200
+    mn, mx = _random_boxes(rng, n)
+    dyn, layer, mask = _filters(rng, n)
+    dyn[32:64] = -1
+    dyn[64:128] = 0
+    layer[96:128] = 0
+    cases["filter_groups"] = (mn, mx, dyn, layer, mask)
+
+    n = 1000
+    x = np.sort(rng.uniform(0.0, 1000.0, n)).astype(np.float32)
+    centers = np.concatenate([
+        np.stack([x - 5000.0, rng.uniform(0, 2, n), rng.uniform(0, 2, n)], 1),
+        np.stack([x + 3000.0, rng.uniform(0, 2, n), rng.uniform(0, 2, n)], 1),
+    ]).astype(np.float32)
+    half = rng.uniform(0.3, 0.8, (2 * n, 3)).astype(np.float32)
+    cases["far_clusters"] = (centers - half, centers + half,
+                             *_filters(rng, 2 * n))
+
+    for n in (20, 65):
+        cases[f"n{n}"] = (*_random_boxes(rng, n), *_filters(rng, n))
+    return cases
+
+
+def walk_edge_case(n_tiles: int = 13, k_pad: int = 272, tiles_x: int = 5,
+                   seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Walk inputs (counts int32[n_tiles], tri_pack f32[n_tiles, k_pad,
+    16]) full of rows at the coverage rule's edges: zero-area rows
+    (collinear corners, a repeated corner, all three the same), corners
+    exactly on pixel centres, zero-area and half-pixel slivers along a
+    pixel row, triangles far larger than the tile, the same triangle in two
+    slots (a depth tie), depths outside [0, 1] and rows marked unused
+    inside the count.  Tiles 0, 1 and 2 walk 0, 1 and ``k_pad`` slots, the
+    rest random counts; 13 tiles is no multiple of a tile's bands.
+
+    Every corner is an integer or a pixel centre within ~1,600 pixels and
+    every depth a power of two or 0, so each edge function is exact in
+    f32 and each depth rounds the same with or without fused
+    multiply-adds: the JAX package on the CPU agrees exactly.  The
+    zero-area line in slot 0 of tile :data:`WALK_LINE_TILE` is nearest
+    (depth 0) and covers :data:`WALK_LINE_PIXEL`, outside its bounding
+    box."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, k_pad + 1, n_tiles).astype(np.int32)
+    counts[:3] = (0, 1, k_pad)
+    counts[WALK_LINE_TILE] = max(counts[WALK_LINE_TILE], 1)
+    pack = np.zeros((n_tiles, k_pad, 16), np.float32)
+    zs = np.float32([0.0, 0.125, 0.25, 0.5, 1.0, 2.0, -0.5])
+    for t in range(n_tiles):
+        ox, oy = (t % tiles_x) * 128.0, (t // tiles_x) * 32.0
+        c = lambda x, y: (ox + x, oy + y)  # noqa: E731
+        special = [
+            (c(10.5, 3.5), c(20.5, 8.5), c(30.5, 13.5)),     # collinear
+            (c(12.5, 4.5), c(12.5, 4.5), c(50.5, 20.5)),     # repeated
+            (c(64.5, 16.5), c(64.5, 16.5), c(64.5, 16.5)),   # a point
+            (c(5.5, 2.5), c(60.5, 2.5), c(5.5, 30.5)),       # on centres
+            (c(60.5, 2.5), c(5.5, 2.5), c(5.5, 30.5)),       # the same, cw
+            (c(0.5, 7.5), c(127.5, 7.5), c(64.5, 7.5)),      # row sliver
+            (c(0.5, 9.5), c(127.5, 9.5), c(64.5, 10.0)),     # half-pixel
+            (c(-1000, -500), c(1500, -400), c(50, 1100)),    # huge
+            (c(1400, 1000), c(-900, 1100), c(100, -600)),    # huge, cw
+            (c(20, 0), c(100, 31), c(-30, 40)),
+        ]
+        rows = []
+        for s in range(k_pad):
+            if s < len(special):
+                (x0, y0), (x1, y1), (x2, y2) = special[s]
+            elif s % 17 == 0:               # a copy of an earlier row
+                rows.append(rows[int(rng.integers(0, len(rows)))])
+                continue
+            else:
+                cx, cy = rng.integers(-20, 148), rng.integers(-10, 42)
+                (x0, x1, x2) = cx + rng.integers(-40, 41, 3) + ox
+                (y0, y1, y2) = cy + rng.integers(-20, 21, 3) + oy
+            z = rng.choice(zs, 3)
+            if t == WALK_LINE_TILE and s == 0:
+                z[:] = 0.0
+            rows.append((x0, x1, x2, y0, y1, y2, *z))
+        pack[t, :, :9] = np.asarray(rows, np.float32)
+    pack[..., 9] = np.arange(k_pad)[None, :] < counts[:, None]
+    pack[:, 11::23, 9] = 0.0                # unused rows inside the count
+    return counts, pack
+
+
+def sorted_broadphase_inputs(state, static):
+    """The broadphase inputs of one stress step, in Morton order, as
+    ``physics_step`` builds them: (mn, mx, dyn, layer, mask)."""
+    import torch
+
+    from banggameengine_tpu_torch.physics import shapes
+    from banggameengine_tpu_torch.physics.broadphase_kernel import (
+        morton_key_xz)
+    from banggameengine_tpu_torch.state import (
+        BODY_DYNAMIC, COMP_CHARACTER, COMP_COLLIDER)
+
+    order = torch.argsort(morton_key_xz(state.pos), stable=True)
+    mn, mx = shapes.shape_aabb(state.pos, state.quat, static.shape_type,
+                               static.shape_size)
+    alive = state.alive
+    solid = alive & ((state.comp_mask & COMP_COLLIDER) != 0) & (
+        (state.comp_mask & COMP_CHARACTER) == 0)
+    is_dyn = (static.body_type == BODY_DYNAMIC) & alive
+    dyn = torch.where(solid, is_dyn.to(torch.int32), -1)
+    return (mn[order], mx[order], dyn[order], static.layer[order],
+            static.mask[order])
+
+
+def render_kernel_modules() -> dict:
+    """The render kernels by short name: (module, wrapper, launcher, plain
+    version)."""
+    from banggameengine_tpu_torch.render import raster_resolve as rr
+    from banggameengine_tpu_torch.render import raster_tile as rt
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+    from banggameengine_tpu_torch.render import resolve as rsv
+
+    return {
+        "walk": (rwk, "raster_walk", "cuda_raster_walk",
+                 rwk.raster_walk_reference),
+        "resolve": (rsv, "resolve_tiles_wide", "cuda_resolve_tiles_wide",
+                    rsv.resolve_tiles_wide_reference),
+        "fused": (rr, "raster_resolve_tiles", "cuda_raster_resolve_tiles",
+                  rr.raster_resolve_tiles_reference),
+        "tile": (rt, "raster_tiles", "cuda_raster_tiles",
+                 rt.raster_tiles_reference),
+    }
+
+
+@contextlib.contextmanager
+def recorded_render_inputs():
+    """Record the arguments of every render kernel launch made inside: the
+    inputs the main path gives the kernels, by short name.  The wrappers
+    (and their launch counts) stay in place; only the launchers they call
+    are wrapped."""
+    mods = render_kernel_modules()
+    rec = {k: [] for k in mods}
+    saved = {k: getattr(m, launcher)
+             for k, (m, _, launcher, _) in mods.items()}
+
+    def recorder(key):
+        def run(*args):
+            rec[key].append(args)
+            return saved[key](*args)
+        return run
+
+    for k, (m, _, launcher, _) in mods.items():
+        setattr(m, launcher, recorder(k))
+    try:
+        yield rec
+    finally:
+        for k, (m, _, launcher, _) in mods.items():
+            setattr(m, launcher, saved[k])

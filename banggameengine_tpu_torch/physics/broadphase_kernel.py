@@ -12,6 +12,14 @@ the count of partners dropped beyond K.
 The pair filter matches the JAX kernel exactly: AABB overlap with the
 margin split across both sides, both solid, at least one dynamic, layer and
 mask both ways, not self.
+
+The kernel prunes by block AABBs: it skips every (band of
+:data:`BAND_ROWS` rows, group of :data:`GROUP_COLS` columns) pair whose
+union boxes do not meet, which changes no result (the argument is in the
+kernel's header).  :func:`block_bounds` and :func:`band_group_kept` are
+the plain versions of those unions and of that test, for the tests and
+for reporting the share of pairs the kernel visits; the kernel's path does
+not call them.
 """
 
 from __future__ import annotations
@@ -33,6 +41,10 @@ AABB_MARGIN = 0.04   # split across both sides of every pair test
 # rows per chunk of the plain version's [rows, N] mask: 2^24 pair entries
 # bound its working set to a few hundred MB at N = 10k
 _PLAIN_PAIRS_PER_CHUNK = 1 << 24
+# the kernel's pruning granularity (kGroup, kBand in csrc/neighbor_lists.cu;
+# the library is checked against them when it loads)
+GROUP_COLS = 32
+BAND_ROWS = 64
 
 
 def morton_key_xz(pos: Tensor, cell: float = 0.25) -> Tensor:
@@ -97,6 +109,33 @@ def plain_idx_count(lo: Tensor, hi: Tensor, dyn: Tensor, layer: Tensor,
     return idx, torch.cat(count_parts)
 
 
+def block_bounds(lo: Tensor, hi: Tensor,
+                 group: int) -> tuple[Tensor, Tensor]:
+    """Union box of every run of ``group`` consecutive rows of f32[N, 3]
+    boxes, NaN bounds left out (+inf / -inf where all of a run's bounds on
+    an axis are NaN): (lo f32[ceil(N / group), 3], hi the same), as the
+    kernel's union pre-pass computes them."""
+    n = lo.shape[0]
+    pad = -n % group
+    inf = float("inf")
+    lo = torch.where(torch.isnan(lo), inf, lo)
+    hi = torch.where(torch.isnan(hi), -inf, hi)
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=inf)
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-inf)
+    return (lo.reshape(-1, group, 3).amin(dim=1),
+            hi.reshape(-1, group, 3).amax(dim=1))
+
+
+def band_group_kept(lo: Tensor, hi: Tensor) -> Tensor:
+    """bool[bands, groups]: the (band of BAND_ROWS rows, group of
+    GROUP_COLS columns) pairs whose union boxes meet, margins already
+    applied; the kernel visits only these."""
+    blo, bhi = block_bounds(lo, hi, BAND_ROWS)
+    glo, ghi = block_bounds(lo, hi, GROUP_COLS)
+    return ((blo[:, None, :] <= ghi[None, :, :])
+            & (glo[None, :, :] <= bhi[:, None, :])).all(dim=2)
+
+
 def neighbor_lists_aabb_reference(
     mn: Tensor,           # f32[N,3] AABB min (no margin applied yet)
     mx: Tensor,           # f32[N,3] AABB max
@@ -118,10 +157,20 @@ def load_kernel_library() -> ctypes.CDLL:
     it.  A failed build raises."""
     lib = cuda_build.load_library("bge_neighbor_lists", _SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.neighbor_lists_launch.argtypes = [ptr] * 5 + [i32, i32, ptr, ptr, ptr]
+    lib.neighbor_lists_launch.argtypes = ([ptr] * 5 + [i32, i32]
+                                          + [ptr] * 4)
     lib.neighbor_lists_launch.restype = i32
     lib.neighbor_lists_error_string.argtypes = [i32]
     lib.neighbor_lists_error_string.restype = ctypes.c_char_p
+    lib.neighbor_lists_shape.argtypes = [ctypes.POINTER(i32)] * 2
+    lib.neighbor_lists_shape.restype = None
+    group, band = i32(), i32()
+    lib.neighbor_lists_shape(ctypes.byref(group), ctypes.byref(band))
+    if (group.value, band.value) != (GROUP_COLS, BAND_ROWS):
+        raise RuntimeError(
+            f"neighbor_lists: the library prunes by groups of {group.value} "
+            f"and bands of {band.value}, the wrapper expects {GROUP_COLS} "
+            f"and {BAND_ROWS}")
     return lib
 
 
@@ -146,14 +195,16 @@ def cuda_idx_count(lo: Tensor, hi: Tensor, dyn: Tensor, layer: Tensor,
     lo_t = lo.t().contiguous()            # SoA planes [3, n]
     hi_t = hi.t().contiguous()
     dyn, layer, mask = dyn.contiguous(), layer.contiguous(), mask.contiguous()
+    bounds = torch.empty((-(-n // GROUP_COLS), 6), dtype=torch.float32,
+                         device=device)   # scratch: the group unions
     idx = torch.empty((n, k), dtype=torch.int32, device=device)
     count = torch.empty((n,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.neighbor_lists_launch(
             lo_t.data_ptr(), hi_t.data_ptr(), dyn.data_ptr(),
-            layer.data_ptr(), mask.data_ptr(), n, k, idx.data_ptr(),
-            count.data_ptr(), stream)
+            layer.data_ptr(), mask.data_ptr(), n, k, bounds.data_ptr(),
+            idx.data_ptr(), count.data_ptr(), stream)
     if err != 0:
         msg = lib.neighbor_lists_error_string(err).decode()
         raise RuntimeError(f"neighbor_lists kernel launch failed: {msg}")

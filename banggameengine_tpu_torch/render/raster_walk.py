@@ -16,6 +16,14 @@ where no slot covers) and slot int32[tiles, 4096] (-1 there).  Slots at or
 beyond a tile's count are ignored; the JAX kernel walks whole chunks up to
 its block's largest count, which gives the same result because the
 binner's padding rows there have ``ok = 0``.
+
+The kernel splits each tile's 32 pixel rows into bands of 4 rows, one
+block each, so the densest tiles spread over many SMs, and each warp
+skips the slots whose cover box (the region outside which a slot provably
+covers no pixel centre) misses its 32 x 4 pixels; every pixel still walks
+the slots that can cover it in ascending order.
+:func:`cover_boxes` is the plain version of those boxes, for the tests
+and reports; the kernel's path does not call it.
 """
 
 from __future__ import annotations
@@ -97,6 +105,50 @@ def slot_coverage(x0, x1, x2, y0, y1, y2, z0, z1, z2, pxc: Tensor,
     depth = w0 * z0 + w1 * z1 + w2 * z2
     cover = (pos & apos) | (neg & ~apos)
     return cover & (depth >= 0.0) & (depth <= 1.0), w0, w1, w2, depth
+
+
+# the cover box's bound (csrc/raster_walk.cu): twice the edge functions'
+# rounding error per unit, and the corners and areas it holds for
+COVER_ERR = 2.0 ** -21
+COVER_MAX_COORD = 1e7
+COVER_MIN_AREA = 1e-6
+
+
+def cover_boxes(tri_pack: Tensor) -> Tensor:
+    """f32[tiles, K, 4] (x lo, x hi, y lo, y hi) per packed row, as the
+    kernel computes them: the corners' bounding box grown by 2 q R + 1
+    pixels and rounded outward, where no pixel centre outside is covered;
+    the whole plane for a row the bound does not hold for, an empty box
+    for an unused row (``ok <= 0``)."""
+    r = tri_pack[..., :6].double()
+    x, y = r[..., 0:3], r[..., 3:6]
+    xmin, xmax = x.amin(-1), x.amax(-1)
+    ymin, ymax = y.amin(-1), y.amax(-1)
+    x0, x1, x2, y0, y1, y2 = r.unbind(-1)
+    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    p = ((x1 - x0).abs() + (y1 - y0).abs() + (x2 - x1).abs()
+         + (y2 - y1).abs() + (x0 - x2).abs() + (y0 - y2).abs())
+    w = torch.maximum(xmax - xmin, ymax - ymin)
+    q = COVER_ERR * p * w / area.abs()
+    bounded = ((torch.maximum(torch.maximum(-xmin, xmax),
+                              torch.maximum(-ymin, ymax)) <= COVER_MAX_COORD)
+               & (area.abs() >= COVER_MIN_AREA) & (q < 0.25))
+    m = 2.0 * q * w + 1.0
+    inf = float("inf")
+
+    def outward(v, down):
+        f = v.float()
+        off = f.double() > v if down else f.double() < v
+        return torch.where(off, torch.nextafter(
+            f, torch.full_like(f, -inf if down else inf)), f)
+
+    box = torch.stack([outward(xmin - m, True), outward(xmax + m, False),
+                       outward(ymin - m, True), outward(ymax + m, False)], -1)
+    box = torch.where(bounded[..., None], box,
+                      box.new_tensor([-inf, inf, -inf, inf]))
+    used = tri_pack[..., ROW_OK] > 0.0
+    return torch.where(used[..., None], box,
+                       box.new_tensor([inf, -inf, inf, -inf]))
 
 
 def raster_walk_reference(counts: Tensor, tri_pack: Tensor,

@@ -11,6 +11,9 @@ Counterpart of ``banggameengine_tpu/utils/profiling.py``:
   from the first queued call to the end of the last one); for CPU tensors
   by ``time.perf_counter``.  Which clock is read follows from where the
   warm-up output lies;
+- :func:`measure_device_trials`: the card's own time per call, with the
+  host's per-call work kept out of the window (for kernels that take less
+  time than their wrapper's host work);
 - :func:`bound_ms`: the least time the card could take for given bytes
   and operations;
 - :func:`trace_annotation`: a named region on the profiler's timeline;
@@ -162,6 +165,55 @@ def measure_trials(fn, *args, calls: int = 5, warmup: int = 2,
     """Dispersion-aware :func:`measure_throughput`: the per-call seconds of
     each of ``trials`` timed windows of ``calls`` queued calls."""
     times, _ = _windows(lambda _: fn(*args), None, calls, warmup, trials)
+    return times
+
+
+def measure_device_trials(fn, *args, calls: int = 10, warmup: int = 2,
+                          trials: int = 5) -> list[float]:
+    """Per-call seconds of the card's own work for ``fn(*args)``, whose
+    output lies on the card, over ``trials`` windows of ``calls`` queued
+    calls.  Each window is queued behind a sleep kernel that outlasts the
+    host's queueing, so the card runs the window back to back and the two
+    CUDA events leave out the host's per-call work (checks, allocation,
+    the launch call).  A window whose sleep ran out before the host had
+    queued it all is timed again behind a sleep twice as long.
+
+    The sleep kernel is PyTorch's private ``torch.cuda._sleep(cycles)``
+    (a spin of that many clock cycles; PyTorch's own tests use it): a
+    PyTorch without it makes this function raise, and every device time
+    with it.  The first sleep is sized for ~0.1 ms a call at the H100's
+    clock; the doubling above covers a slower clock or host."""
+    if not hasattr(torch.cuda, "_sleep"):
+        raise RuntimeError("measure_device_trials: this PyTorch has no "
+                           "torch.cuda._sleep to hold the window")
+    out = None
+    for _ in range(max(warmup, 1)):
+        out = fn(*args)
+    device = _cuda_device(out)
+    if device is None:
+        raise ValueError("measure_device_trials: the timed function must "
+                         "return a tensor on the card")
+    torch.cuda.synchronize(device)
+    stream = torch.cuda.current_stream(device)
+    cycles = 200_000 * calls        # ~0.1 ms a call at the H100's clock
+    times = []
+    while len(times) < max(trials, 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record(stream)
+        for _ in range(calls):
+            fn(*args)
+        end.record(stream)
+        late = start.query()        # the card already waits for the host
+        end.synchronize()
+        if late:
+            cycles *= 2
+            if cycles > 1 << 36:    # ~30 s of sleep: the host never keeps up
+                raise RuntimeError("measure_device_trials: the host could "
+                                   "not queue the window ahead of the card")
+            continue
+        times.append(start.elapsed_time(end) / 1e3 / calls)
     return times
 
 

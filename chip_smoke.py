@@ -11,8 +11,15 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    ``render/csrc/resolve_wide.cu``, ``render/csrc/raster_resolve.cu``,
    ``render/csrc/raster_tile.cu``, ``scripts/csrc/gather_rows.cu``);
 3. kernel vs plain: the broadphase kernel against its plain PyTorch
-   version, exactly equal (idx, count, overflow) on the stress scene at
-   step 0 and after 200 steps, a saturated 96-box pile and random cases;
+   version, exactly equal (idx, count, overflow; through the wrapper and
+   on the raw boxes) on the stress scene at step 0 and after 200 steps, a
+   saturated 96-box pile, random cases with n below a group of 32, and
+   not a multiple of it or of a band of 64, and the edge cases of
+   ``kernel_cases.broadphase_edge_cases``: touching boxes, NaN and +-inf
+   bounds, a group of non-solid and one of static rows, two far
+   clusters; beside each, the share of (band, group) pairs the block
+   unions keep (``band_group_kept``): all on the pile and the random
+   cases, under 0.1 on the far clusters;
 4. slice: 200 steps of the 10k-box scene through
    ``make_multi_step_fn(static, 50, broadphase="allpairs", max_neighbors=8)``
    with the kernel, with no host synchronisation (CUDA sync debug mode
@@ -20,13 +27,23 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    above the ground and bit-equal to the same 200 steps taken with the
    plain broadphase; a 32-box scene tracks the JAX package's trajectory
    (``tests/data/stress32_jax_golden.json``);
-5. times: CUDA events, 2 warm-up and the median of 3 timed dispatches;
+5. times: the broadphase kernel alone on stress cases a and b (its union
+   pre-pass and main kernel, two launches a call), the card's own time
+   through ``cuda_idx_count`` (see below) and one call by CUDA events,
+   with the share its unions keep; through ``neighbor_lists_aabb`` (CUDA
+   events over 10 queued calls, host work included, as earlier ports
+   timed it) beside the plain version and the all-pairs bound; steps/s by
+   CUDA events, 2 warm-up and the median of 3 timed dispatches;
 6. render build: the build times of the walk and the resolve;
 7. render kernels vs plain: the walk (depth, slot) and the resolve against
    their plain PyTorch versions, exactly equal, on the inputs the showcase
    frame and the 10k-box frame give them at 1920x1080, on random packs
    with counts 0..272 over a tile count that is not a multiple of 8, and
-   on random slots with -1, slots >= KL and all-sky tiles;
+   on random slots with -1, slots >= KL and all-sky tiles; the walk also
+   on ``kernel_cases.walk_edge_case``: zero-area rows (collinear, a repeated
+   corner), corners on pixel centres, slivers along a pixel row,
+   triangles far larger than the tile, ties, counts 0, 1 and 272 over 13
+   tiles, and a zero-area line that covers a pixel outside its box;
 8. render slice, no host synchronisation: the showcase shaded and
    depth-only frames through ``make_render_fn`` (u8 1080x1920x4, sky
    0x88AAFF, bit-equal with the plain versions, within tolerance of the
@@ -35,8 +52,12 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    200-step state, seen from the ground looking up into the falling boxes,
    each kernel launched once per tick, one tick bit-equal with the plain
    versions;
-9. render times: CUDA events, 2 warm-up and the median of 5, and the
-   resolve's library call (one ``torch.gather``);
+9. render times: the walk kernel alone on both views, with the share of
+   (warp, slot) pairs its cover boxes skip, and the resolve kernel alone
+   beside its library call (one ``torch.gather``): each the card's own
+   time and one call by CUDA events, beside the plain version and the
+   bound; the frames and the tick by CUDA events, 2 warm-up and the
+   median of 5;
 10. route kernels vs plain: the fused walk + resolve (with tables and
    depth-only) and the full-carry tile raster (light and heavy passes)
    against their plain versions, exactly equal, on the inputs the fused
@@ -51,8 +72,9 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    equal to the walk's on the showcase (printed, with the pixels that
    differ, on the 10k-box view, where the top-64 heavy cap drops more);
    every frame bit-equal with the plain versions;
-12. route times: both new kernels alone beside their plain versions and
-   bounds, and the three frames of each view, same method;
+12. route times: both route kernels alone, the card's own time and one
+   call by CUDA events, beside their plain versions and bounds, and the
+   three frames of each view by CUDA events;
 13. gather kernel vs plain: the u8 row gather against its plain version,
    exactly equal, on the shade-parts probe's inputs (u8[524288, 16] at
    1920x1080 rows) and on random cases (row counts that are no power of
@@ -66,17 +88,27 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    timers (what their ``main`` runs) on those probes and stages (the
    gather's launches counted in the probe's),
    ``scripts/trace_summary`` on ``frame_tiled`` and ``tick`` (kernels,
-   launches, busy share, longest gaps) and on the gather alone.  Every
+   launches, busy share, longest gaps) and on the gather alone; the
+   gather kernel and its two library calls by the card's own time.  Every
    timer is ``banggameengine_tpu_torch/utils/profiling.py``'s.
 
-Each kernel's bound is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its f32 operations over
-67 TFLOP/s, counted from this run's inputs.  The line before the last is
-the kernel table as JSON; the last line is ``{"ok": true, "device":
-{...}}``.  Any failed check raises, so the run
-exits non-zero and prints no result.  Without a CUDA device it exits 1.
+Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
+own time for one call through the kernel's launcher (``cuda_*``, the
+function its wrapper calls on CUDA tensors): ``measure_device_trials``,
+the median of 5 windows of 10 calls queued behind a sleep kernel, so the
+host's per-call work stays out.  ``plain_ms`` is by CUDA events (the
+plain versions take milliseconds).  Each kernel's bound is the larger
+of its bytes (each input read once, each output written once) over 3.35
+TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
+inputs.  The line before the last is the kernel table as JSON; the last
+line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so
+the run exits non-zero and prints no result.  Without a CUDA device it
+exits 1.
 
     python3 chip_smoke.py
+
+``banggameengine_tpu_torch/scripts/compare_kernels.py`` times these
+kernels against another tree's, such as the parent commit's.
 """
 
 from __future__ import annotations
@@ -94,12 +126,19 @@ import time
 import numpy as np
 import torch
 
+from banggameengine_tpu_torch import kernel_cases
+from banggameengine_tpu_torch.kernel_cases import (
+    recorded_render_inputs,
+    render_kernel_modules,
+    sorted_broadphase_inputs,
+)
 from banggameengine_tpu_torch.scene.synthetic import (
     TICK_CAMERA_POS,
     TICK_CAMERA_YAW_PITCH,
 )
 from banggameengine_tpu_torch.utils.profiling import (
     bound_ms,
+    measure_device_trials,
     measure_throughput,
     measure_trials,
     measure_trials_chained,
@@ -137,6 +176,7 @@ GOLDEN = os.path.join(DATA, "stress32_jax_golden.json")
 GOLDEN_ATOL = 1e-3   # port on the card vs JAX on the CPU after 60 steps
 FRAME_GOLDEN = os.path.join(DATA, "showcase_jax_golden.npz")
 RENDER_W, RENDER_H = 1920, 1080
+WALK_WARP_ROWS = 4   # a walk warp's pixels: 32 x kRows of raster_walk.cu
 FRAME_TICKS = 10
 SKY = (0x88, 0xAA, 0xFF, 0xFF)
 # port on the card vs the JAX frame on the CPU: channels within 1 level on
@@ -153,27 +193,6 @@ class SmokeFailure(AssertionError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def sorted_broadphase_inputs(state, static):
-    """The broadphase inputs of one stress step, in Morton order, as
-    ``physics_step`` builds them: (mn, mx, dyn, layer, mask)."""
-    from banggameengine_tpu_torch.physics import shapes
-    from banggameengine_tpu_torch.physics.broadphase_kernel import (
-        morton_key_xz)
-    from banggameengine_tpu_torch.state import (
-        BODY_DYNAMIC, COMP_CHARACTER, COMP_COLLIDER)
-
-    order = torch.argsort(morton_key_xz(state.pos), stable=True)
-    mn, mx = shapes.shape_aabb(state.pos, state.quat, static.shape_type,
-                               static.shape_size)
-    alive = state.alive
-    solid = alive & ((state.comp_mask & COMP_COLLIDER) != 0) & (
-        (state.comp_mask & COMP_CHARACTER) == 0)
-    is_dyn = (static.body_type == BODY_DYNAMIC) & alive
-    dyn = torch.where(solid, is_dyn.to(torch.int32), -1)
-    return (mn[order], mx[order], dyn[order], static.layer[order],
-            static.mask[order])
 
 
 def random_inputs(n: int, seed: int, device):
@@ -224,6 +243,13 @@ def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
         fn, calls=1, warmup=warmup, trials=timed)) * 1e3
 
 
+def device_ms(fn, calls: int = 10, trials: int = 5) -> float:
+    """Median ms of the card's own work per call of ``fn`` (windows of
+    queued calls held behind a sleep kernel: no host time inside)."""
+    return statistics.median(measure_device_trials(
+        fn, calls=calls, trials=trials)) * 1e3
+
+
 def dispatch_ms(run, state, inp, warmup: int = 2, timed: int = 3):
     """Median ms of one dispatch (CUDA events) after ``warmup`` dispatches;
     each dispatch continues from the state the previous one left."""
@@ -244,26 +270,6 @@ def plain_broadphase():
         yield
     finally:
         bk.neighbor_lists_aabb = kernel
-
-
-def render_kernel_modules() -> dict:
-    """The render kernels by short name: (module, wrapper, launcher, plain
-    version)."""
-    from banggameengine_tpu_torch.render import raster_resolve as rr
-    from banggameengine_tpu_torch.render import raster_tile as rt
-    from banggameengine_tpu_torch.render import raster_walk as rwk
-    from banggameengine_tpu_torch.render import resolve as rsv
-
-    return {
-        "walk": (rwk, "raster_walk", "cuda_raster_walk",
-                 rwk.raster_walk_reference),
-        "resolve": (rsv, "resolve_tiles_wide", "cuda_resolve_tiles_wide",
-                    rsv.resolve_tiles_wide_reference),
-        "fused": (rr, "raster_resolve_tiles", "cuda_raster_resolve_tiles",
-                  rr.raster_resolve_tiles_reference),
-        "tile": (rt, "raster_tiles", "cuda_raster_tiles",
-                 rt.raster_tiles_reference),
-    }
 
 
 def launch_counts() -> dict:
@@ -291,32 +297,6 @@ def plain_render_kernels():
             setattr(m, w, saved[k])
 
 
-@contextlib.contextmanager
-def recorded_render_inputs():
-    """Record the arguments of every render kernel launch made inside: the
-    inputs the main path gives the kernels, by short name.  The wrappers
-    (and their launch counts) stay in place; only the launchers they call
-    are wrapped."""
-    mods = render_kernel_modules()
-    rec = {k: [] for k in mods}
-    saved = {k: getattr(m, launcher)
-             for k, (m, _, launcher, _) in mods.items()}
-
-    def recorder(key):
-        def run(*args):
-            rec[key].append(args)
-            return saved[key](*args)
-        return run
-
-    for k, (m, _, launcher, _) in mods.items():
-        setattr(m, launcher, recorder(k))
-    try:
-        yield rec
-    finally:
-        for k, (m, _, launcher, _) in mods.items():
-            setattr(m, launcher, saved[k])
-
-
 def walk_work(counts, pack) -> tuple[int, int, int]:
     """(walked rows, used rows, pixel-row pairs of the used rows) of one
     walk: rows below each tile's count, and those with ok set."""
@@ -332,6 +312,27 @@ def walk_bound(counts, pack) -> tuple[float, str]:
     walked, _, pairs = walk_work(counts, pack)
     n = pack.shape[0]
     return bound_ms(4 * n + 40 * walked + 8 * n * 4096, RASTER_OPS * pairs)
+
+
+def walk_skip_share(counts, pack, tiles_x: int,
+                    rows: int = WALK_WARP_ROWS) -> float:
+    """The share of (warp footprint, walked used slot) pairs whose cover box
+    misses the footprint of 32 x ``rows`` pixels: the walk kernel's skipped
+    work, from the plain cover boxes."""
+    from banggameengine_tpu_torch.render import raster_walk as rwk
+
+    box = rwk.cover_boxes(pack)                        # [tiles, K, 4]
+    t = torch.arange(pack.shape[0], device=pack.device)[:, None, None]
+    wx0 = (t % tiles_x) * 128 + torch.arange(0, 128, 32,
+                                             device=pack.device) + 0.5
+    wy0 = (t // tiles_x) * 32 + torch.arange(0, 32, rows,
+                                             device=pack.device) + 0.5
+    miss_x = (wx0 + 31 < box[..., 0:1]) | (wx0 > box[..., 1:2])
+    miss_y = (wy0 + rows - 1 < box[..., 2:3]) | (wy0 > box[..., 3:4])
+    miss = miss_x[..., :, None] | miss_y[..., None, :]
+    walked = ((torch.arange(pack.shape[1], device=pack.device)[None]
+               < counts[:, None]) & (pack[..., 9] > 0))
+    return float(miss[walked].float().mean())
 
 
 def resolve_bound(slot, table) -> tuple[float, str]:
@@ -502,12 +503,17 @@ def render_phases(dev, card: str, stress_state, static,
               f"walked per tile, max {int(local.max())}, tiles > 48: "
               f"{int((local > 48).sum())}, histogram over 0..288 in 9 "
               f"bins: {hist}")
+    edge_counts, edge_pack = (torch.as_tensor(a, device=dev)
+                              for a in kernel_cases.walk_edge_case())
     walk_cases = [("a: showcase 1920x1080", show_in["walk"][0]),
                   ("b: 10k-box world 1920x1080", box_in["walk"][0]),
                   ("c: random, 37 tiles, K 272",
                    random_walk_case(37, 272, 15, seed=1, device=dev)),
                   ("c: random, 510 tiles, K 13",
-                   random_walk_case(510, 13, 15, seed=2, device=dev))]
+                   random_walk_case(510, 13, 15, seed=2, device=dev)),
+                  ("e: edge rows (zero area, corners on pixel centres, "
+                   "slivers, huge triangles, ties), 13 tiles, K 272",
+                   (edge_counts, edge_pack, 5))]
     walk_err = 0.0
     for name, (counts, pack, tiles_x) in walk_cases:
         dep_k, slot_k = rwk.cuda_raster_walk(counts, pack, tiles_x)
@@ -517,9 +523,13 @@ def render_phases(dev, card: str, stress_state, static,
                        float((slot_k - slot_p).abs().max()))
         check(torch.equal(slot_k, slot_p), f"walk {name}: slot differs")
         check(torch.equal(dep_k, dep_p), f"walk {name}: depth differs")
+        if name.startswith("e"):
+            r, c = kernel_cases.WALK_LINE_PIXEL
+            check(int(slot_k[kernel_cases.WALK_LINE_TILE, r * 128 + c]) == 0,
+                  "walk edge rows: the zero-area line lost its pixel")
         print(f"[render-kernel-vs-plain] walk {name}: depth and slot "
               f"exactly equal ({int((slot_k >= 0).sum())} covered pixels, "
-              f"counts up to {int(counts.max())})")
+              f"counts {int(counts.min())} to {int(counts.max())})")
     resolve_cases = [("a: showcase 1920x1080", show_in["resolve"][0]),
                      ("b: 10k-box world 1920x1080", box_in["resolve"][0]),
                      ("d: random, 510 tiles",
@@ -643,12 +653,31 @@ def render_phases(dev, card: str, stress_state, static,
           f"{int((img != sky).any(-1).sum())} non-sky pixels")
 
     # ---- 9. times ---------------------------------------------------------
-    counts, pack, tiles_x = show_in["walk"][0]
+    # each kernel: the card's own time through its launcher (the JSON
+    # line's ms), and one call through it by CUDA events, host work in
+    walk_t = {}
+    for view, (c_v, p_v, tx_v) in (("showcase", show_in["walk"][0]),
+                                   ("10k-box", box_in["walk"][0])):
+        walk_t[view] = w = dict(
+            ms=device_ms(lambda: rwk.cuda_raster_walk(c_v, p_v, tx_v)),
+            host=median_ms(lambda: rwk.cuda_raster_walk(c_v, p_v, tx_v)),
+            plain=median_ms(lambda: rwk.raster_walk_reference(c_v, p_v,
+                                                              tx_v)),
+            bound=walk_bound(c_v, p_v))
+        print(f"[times] {view} {RENDER_W}x{RENDER_H}, walk kernel alone "
+              f"({tuple(p_v.shape)}): {w['ms']:.4f} ms of device time, "
+              f"where the cover boxes skip "
+              f"{walk_skip_share(c_v, p_v, tx_v):.4f} of (warp, slot) "
+              f"pairs; one call through cuda_raster_walk {w['host']:.4f} ms "
+              f"(events, host work included); plain {w['plain']:.4f} ms; "
+              f"bound {w['bound'][0]:.4f} ms ({w['bound'][1]}) {card}")
+    walk_ms, walk_plain_ms = walk_t["showcase"]["ms"], walk_t["showcase"][
+        "plain"]
+    walk_b = walk_t["showcase"]["bound"]
     slot, table = show_in["resolve"][0]
-    walk_ms = median_ms(lambda: rwk.cuda_raster_walk(counts, pack, tiles_x))
-    walk_plain_ms = median_ms(
-        lambda: rwk.raster_walk_reference(counts, pack, tiles_x))
-    resolve_ms = median_ms(lambda: rsv.cuda_resolve_tiles_wide(slot, table))
+    resolve_ms = device_ms(lambda: rsv.cuda_resolve_tiles_wide(slot, table))
+    resolve_host_ms = median_ms(
+        lambda: rsv.cuda_resolve_tiles_wide(slot, table))
     resolve_plain_ms = median_ms(
         lambda: rsv.resolve_tiles_wide_reference(slot, table))
     # the library call: one gather from the table with a zero column
@@ -660,27 +689,20 @@ def render_phases(dev, card: str, stress_state, static,
     check(torch.equal(torch.gather(table_z, 2, idx).permute(1, 0, 2),
                       rsv.cuda_resolve_tiles_wide(slot, table)),
           "the resolve's library call differs from the kernel")
-    resolve_lib_ms = median_ms(lambda: torch.gather(table_z, 2, idx))
-    walk_b = walk_bound(counts, pack)
+    resolve_lib_ms = device_ms(lambda: torch.gather(table_z, 2, idx))
+    resolve_lib_host_ms = median_ms(lambda: torch.gather(table_z, 2, idx))
     resolve_b = resolve_bound(slot, table)
-    print(f"[times] showcase {RENDER_W}x{RENDER_H}, walk alone "
-          f"({tuple(pack.shape)}): kernel {walk_ms:.4f} ms, plain "
-          f"{walk_plain_ms:.4f} ms, bound {walk_b[0]:.4f} ms "
-          f"({walk_b[1]}); resolve alone ({tuple(table.shape)}): "
-          f"kernel {resolve_ms:.4f} ms, plain {resolve_plain_ms:.4f} ms, "
-          f"torch.gather {resolve_lib_ms:.4f} ms, bound "
-          f"{resolve_b[0]:.4f} ms ({resolve_b[1]}) {card}")
-    counts_b, pack_b, tx_b = box_in["walk"][0]
+    print(f"[times] showcase {RENDER_W}x{RENDER_H}, resolve alone "
+          f"({tuple(table.shape)}), device time: kernel {resolve_ms:.4f} ms, "
+          f"torch.gather {resolve_lib_ms:.4f} ms; one call by events: kernel "
+          f"{resolve_host_ms:.4f} ms, torch.gather {resolve_lib_host_ms:.4f}"
+          f" ms, plain {resolve_plain_ms:.4f} ms; bound {resolve_b[0]:.4f} "
+          f"ms ({resolve_b[1]}) {card}")
     slot_b, table_b = box_in["resolve"][0]
-    box_walk_ms = median_ms(
-        lambda: rwk.cuda_raster_walk(counts_b, pack_b, tx_b))
-    box_walk_plain_ms = median_ms(
-        lambda: rwk.raster_walk_reference(counts_b, pack_b, tx_b))
-    box_resolve_ms = median_ms(
+    box_resolve_ms = device_ms(
         lambda: rsv.cuda_resolve_tiles_wide(slot_b, table_b))
-    print(f"[times] 10k-box {RENDER_W}x{RENDER_H}, walk alone: kernel "
-          f"{box_walk_ms:.4f} ms, plain {box_walk_plain_ms:.4f} ms; resolve "
-          f"alone: kernel {box_resolve_ms:.4f} ms {card}")
+    print(f"[times] 10k-box {RENDER_W}x{RENDER_H}, resolve alone: kernel "
+          f"{box_resolve_ms:.4f} ms of device time {card}")
     frame_ms = median_ms(lambda: render(*show_args))
     depth_ms = median_ms(lambda: render_depth(*show_args))
     with plain_render_kernels():
@@ -918,15 +940,17 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
     for name in views:
         counts, pack, tables, tiles_x = rec[name][0]
         light, heavy = rec[name][1]
-        t[name] = dict(
-            fused=median_ms(lambda: rr.cuda_raster_resolve_tiles(
-                counts, pack, tables, tiles_x)),
-            split=median_ms(lambda: rsv.cuda_resolve_tiles_wide(
-                rwk.cuda_raster_walk(counts, pack, tiles_x)[1], tables)),
-            light=median_ms(lambda: rt.cuda_raster_tiles(*light)),
-            heavy=median_ms(lambda: rt.cuda_raster_tiles(*heavy)),
-            fused_b=fused_bound(counts, pack, tables),
-            tile_b=tile_bound([light[:-1], heavy[:-1]]))
+        runs = dict(
+            fused=lambda: rr.cuda_raster_resolve_tiles(counts, pack, tables,
+                                                       tiles_x),
+            split=lambda: rsv.cuda_resolve_tiles_wide(
+                rwk.cuda_raster_walk(counts, pack, tiles_x)[1], tables),
+            light=lambda: rt.cuda_raster_tiles(*light),
+            heavy=lambda: rt.cuda_raster_tiles(*heavy))
+        t[name] = {k: device_ms(f) for k, f in runs.items()}
+        t[name].update({f"{k}_host": median_ms(f) for k, f in runs.items()},
+                       fused_b=fused_bound(counts, pack, tables),
+                       tile_b=tile_bound([light[:-1], heavy[:-1]]))
         if name == "showcase":
             t[name].update(
                 fused_plain=median_ms(
@@ -937,12 +961,15 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
                 heavy_plain=median_ms(
                     lambda: rt.raster_tiles_reference(*heavy)))
         r = t[name]
-        print(f"[times] {name} {RENDER_W}x{RENDER_H}: fused walk + resolve "
-              f"alone {r['fused']:.4f} ms (walk then resolve kernels "
-              f"{r['split']:.4f} ms), bound {r['fused_b'][0]:.4f} ms "
-              f"({r['fused_b'][1]}); tile raster light pass "
-              f"({tuple(light[7].shape)}) {r['light']:.4f} ms, heavy pass "
-              f"({tuple(heavy[7].shape)}) {r['heavy']:.4f} ms, bound of both "
+        print(f"[times] {name} {RENDER_W}x{RENDER_H}, device time (one call "
+              f"by events, host work included): fused walk + resolve alone "
+              f"{r['fused']:.4f} ({r['fused_host']:.4f}) ms, walk then "
+              f"resolve kernels {r['split']:.4f} ({r['split_host']:.4f}) "
+              f"ms, bound {r['fused_b'][0]:.4f} ms ({r['fused_b'][1]}); tile"
+              f" raster light pass ({tuple(light[7].shape)}) "
+              f"{r['light']:.4f} ({r['light_host']:.4f}) ms, heavy pass "
+              f"({tuple(heavy[7].shape)}) {r['heavy']:.4f} "
+              f"({r['heavy_host']:.4f}) ms, bound of both "
               f"{r['tile_b'][0]:.4f} ms ({r['tile_b'][1]}) {card}")
     r = t["showcase"]
     print(f"[times] showcase plain versions: fused {r['fused_plain']:.3f} ms,"
@@ -1088,8 +1115,8 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
           f"{card}")
 
     want = {"frame_tiled": ("raster_walk_kernel", "resolve_wide_kernel"),
-            "tick": ("neighbor_lists_kernel", "raster_walk_kernel",
-                     "resolve_wide_kernel")}
+            "tick": ("group_bounds_kernel", "neighbor_lists_kernel",
+                     "raster_walk_kernel", "resolve_wide_kernel")}
     with tempfile.TemporaryDirectory() as tmp:
         for name, kernels in want.items():
             print(f"[profile] trace_summary {name} {card}:")
@@ -1117,20 +1144,28 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
           f"trace of the gather alone: {found}")
     g = found[0]
     b_ms, b_by = psp.gather_bound(table, idx)
-    print(f"[times] gather alone at the probe's shape: kernel "
-          f"{probe_ms['gather_rows_u8']:.4f} ms per call (CUDA events, 20 "
-          f"queued), {g['ms'] / g['count']:.4f} ms of device time per "
-          f"launch (trace); plain {probe_ms['gather_rows_u8_reference']:.4f}"
-          f" ms, index_select {probe_ms['index_select']:.4f} ms, table[idx] "
-          f"{probe_ms['advanced_index']:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}) {card}")
+    dev_ms = {"kernel": device_ms(lambda: gr.cuda_gather_rows_u8(table, idx)),
+              "index_select": device_ms(
+                  lambda: torch.index_select(table, 0, idx)),
+              "advanced_index": device_ms(lambda: table[idx])}
+    print(f"[times] gather alone at the probe's shape, device time: kernel "
+          f"{dev_ms['kernel']:.4f} ms, index_select "
+          f"{dev_ms['index_select']:.4f} ms, table[idx] "
+          f"{dev_ms['advanced_index']:.4f} ms; {g['ms'] / g['count']:.4f} "
+          f"ms per launch in the trace; by the probe's timer (CUDA events, "
+          f"20 queued): kernel {probe_ms['gather_rows_u8']:.4f} ms, plain "
+          f"{probe_ms['gather_rows_u8_reference']:.4f} ms, index_select "
+          f"{probe_ms['index_select']:.4f} ms, table[idx] "
+          f"{probe_ms['advanced_index']:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}) {card}")
     return [{"name": "gather_rows_u8", "route": "cuda",
              "source": GATHER_SOURCE, "replaces": GATHER_TPU_KERNEL,
              "launches": launches, "max_abs_err": gather_err,
-             "ms": probe_ms["gather_rows_u8"],
+             "ms": dev_ms["kernel"],
              "plain_ms": probe_ms["gather_rows_u8_reference"],
              "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": probe_ms["library"]}]
+             "library_ms": min(dev_ms["index_select"],
+                               dev_ms["advanced_index"])}]
 
 
 def main() -> int:
@@ -1172,7 +1207,7 @@ def main() -> int:
         for k in ("walk", "resolve", "fused", "tile")]
         + [gr.load_kernel_library])
     print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
-          f"{build_s[0]:.1f} s ({len(build_s)} kernels in parallel, "
+          f"{build_s[0]:.1f} s ({len(build_s)} libraries in parallel, "
           f"{time.perf_counter() - t0:.1f} s in all)")
 
     # ---- 3. kernel vs plain ---------------------------------------------
@@ -1197,8 +1232,11 @@ def main() -> int:
          sorted_broadphase_inputs(plain_state, static)),
         ("c: packed 96-box pile", sorted_broadphase_inputs(*packed_pile(dev))),
     ] + [(f"d: random n={n}", random_inputs(n, seed=n, device=dev))
-         for n in (1, 33, 1025)]
+         for n in (1, 20, 33, 65, 1025)] + [
+        (f"e: {name}", tuple(torch.as_tensor(a, device=dev) for a in case))
+        for name, case in kernel_cases.broadphase_edge_cases().items()]
     max_abs_err = 0
+    kept_share = {}
     for name, (mn, mx, dyn, layer, mask) in cases:
         nl_k = bk.neighbor_lists_aabb(mn, mx, dyn, layer, mask,
                                       max_neighbors=MAX_NEIGHBORS)
@@ -1209,6 +1247,10 @@ def main() -> int:
                                        MAX_NEIGHBORS)
         _, count_p = bk.plain_idx_count(lo, hi, dyn, layer, mask,
                                         MAX_NEIGHBORS)
+        # the raw boxes as the kernel's lo/hi: the touching case touches
+        raw_k = bk.cuda_idx_count(mn, mx, dyn, layer, mask, MAX_NEIGHBORS)
+        raw_p = bk.plain_idx_count(mn, mx, dyn, layer, mask, MAX_NEIGHBORS)
+        kept = bk.band_group_kept(lo, hi)
         torch.cuda.synchronize()
         err = int((nl_k.idx - nl_p.idx).abs().max())
         max_abs_err = max(max_abs_err, err,
@@ -1217,11 +1259,24 @@ def main() -> int:
         check(torch.equal(count_k, count_p), f"{name}: count differs")
         check(torch.equal(nl_k.nbr_overflow, nl_p.nbr_overflow),
               f"{name}: overflow differs")
+        check(torch.equal(raw_k[0], raw_p[0])
+              and torch.equal(raw_k[1], raw_p[1]),
+              f"{name}: idx or count differs on the raw boxes")
+        share = float(kept.float().mean())
+        if name[0] in "ab":
+            kept_share[name[0]] = share
         if name.startswith("c"):
             check(int(nl_k.nbr_overflow) > 0, "pile: K = 8 not saturated")
+        if name[0] in "cd":
+            check(bool(kept.all()), f"{name}: the unions skip a pair")
+        if name == "e: far_clusters":
+            check(share < 0.1, f"{name}: the unions keep {share}")
         print(f"[kernel-vs-plain] {name}: idx, count, overflow exactly "
-              f"equal (pairs kept {int(nl_k.valid.sum())}, all passing "
-              f"{int(count_k.sum())}, overflow {int(nl_k.nbr_overflow)})")
+              f"equal, and on the raw boxes (pairs kept "
+              f"{int(nl_k.valid.sum())}, all passing {int(count_k.sum())}, "
+              f"overflow {int(nl_k.nbr_overflow)}; (band, group) pairs "
+              f"the unions keep: {int(kept.sum())} of {kept.numel()}, "
+              f"{share:.4f})")
 
     # ---- 4. the slice ---------------------------------------------------
     bk.neighbor_lists_aabb.launches = 0
@@ -1292,16 +1347,33 @@ def main() -> int:
         lambda: bk.neighbor_lists_aabb_reference(
             mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS),
         calls=10, warmup=3) * 1e3
-    kernel_ms = measure_throughput(
+    wrapper_ms = measure_throughput(
         lambda: bk.neighbor_lists_aabb(
             mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS),
         calls=10, warmup=3) * 1e3
     n_bp = mn.shape[0]
     bp_bound = bound_ms(36 * n_bp + 4 * (MAX_NEIGHBORS + 1) * n_bp,
                         BROADPHASE_OPS * n_bp * n_bp)
-    print(f"[times] broadphase alone at N={N_STRESS}, K={MAX_NEIGHBORS}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bp_bound[0]:.4f} ms ({bp_bound[1]}) {card}")
+    bp_ms = {}
+    for name, (mn_c, mx_c, *rest) in cases[:2]:
+        lo, hi = bk.with_margin(mn_c, mx_c)
+        key = name[0]
+        bp_ms[key] = device_ms(
+            lambda: bk.cuda_idx_count(lo, hi, *rest, MAX_NEIGHBORS))
+        one_ms = median_ms(
+            lambda: bk.cuda_idx_count(lo, hi, *rest, MAX_NEIGHBORS))
+        print(f"[times] broadphase kernel alone, case {key} (N={N_STRESS}, "
+              f"K={MAX_NEIGHBORS}; union pre-pass + main kernel): "
+              f"{bp_ms[key]:.4f} ms of device time, one call through "
+              f"cuda_idx_count {one_ms:.4f} ms (events, host work "
+              f"included); the unions keep {kept_share[key]:.4f} of (band, "
+              f"group) pairs {card}")
+    kernel_ms = bp_ms["a"]
+    print(f"[times] broadphase at N={N_STRESS}, K={MAX_NEIGHBORS}: "
+          f"kernel {kernel_ms:.4f} ms (device time), through "
+          f"neighbor_lists_aabb {wrapper_ms:.4f} ms a call (events, 10 "
+          f"queued, host work included), plain {plain_ms:.4f} ms, bound "
+          f"{bp_bound[0]:.4f} ms ({bp_bound[1]}, all pairs) {card}")
     with plain_broadphase():
         plain_dispatch = dispatch_ms(run, state, inp)
     kernel_dispatch = dispatch_ms(run, state, inp)

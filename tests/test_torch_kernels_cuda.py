@@ -6,11 +6,13 @@ Imports no JAX, so it runs on a machine that has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from banggameengine_tpu_torch import convert
+from banggameengine_tpu_torch import convert, kernel_cases
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import shapes
 from banggameengine_tpu_torch.render import raster_resolve as rr
@@ -83,9 +85,32 @@ def test_random_cases_exact(device, n, k):
     _assert_kernel_equals_plain(_random_case(n, seed=n + k, device=device), k)
 
 
-def test_packed_pile_overflows_exactly(device):
-    nl = _assert_kernel_equals_plain(_packed_case(16, 8, device), 8)
+@pytest.mark.parametrize("side,layers", [(16, 8), (4, 6)])
+def test_packed_pile_overflows_exactly(device, side, layers):
+    case = _packed_case(side, layers, device)
+    nl = _assert_kernel_equals_plain(case, 8)
     assert int(nl.nbr_overflow) > 0
+    kept = bk.band_group_kept(*bk.with_margin(case[0], case[1]))
+    if side == 4:        # 96 boxes: every band meets every group
+        assert bool(kept.all())
+
+
+@pytest.mark.parametrize("name", sorted(kernel_cases.broadphase_edge_cases()))
+def test_broadphase_edge_cases_exact(device, name):
+    """Touching boxes, NaN and infinite bounds, groups of non-solid or
+    static rows, far clusters, n below a group or just above a band: idx,
+    count and overflow equal, through the wrapper (margins applied) and on
+    the raw boxes (touching exactly)."""
+    case = [torch.as_tensor(a, device=device)
+            for a in kernel_cases.broadphase_edge_cases()[name]]
+    _assert_kernel_equals_plain(case, 8)
+    idx_k, count_k = bk.cuda_idx_count(*case, 8)
+    idx_p, count_p = bk.plain_idx_count(*case, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(idx_k, idx_p) and torch.equal(count_k, count_p)
+    if name == "far_clusters":
+        kept = bk.band_group_kept(*bk.with_margin(case[0], case[1]))
+        assert float(kept.float().mean()) < 0.1
 
 
 def test_kernel_counts_launches_and_rejects_bad_input(device):
@@ -134,6 +159,36 @@ def test_walk_equals_plain(device, n_tiles, k_pad, tiles_x):
     assert torch.equal(slot_k, slot_p)
     assert torch.equal(dep_k, dep_p)
     assert bool((slot_k >= 0).any())
+
+
+def test_compare_kernels_builds_the_other_trees_library(device):
+    """compare_kernels on this tree as the other: the other walk wrapper
+    builds and loads a library of its own and gives the same output."""
+    from banggameengine_tpu_torch.scripts import compare_kernels as ck
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = ck.other_module(root, ck.KERNELS["walk"][0])
+    counts, pack = _walk_case(37, 272, 5, 15, device)
+    dep_o, slot_o = other.cuda_raster_walk(counts, pack, 15)
+    dep_t, slot_t = rwk.cuda_raster_walk(counts, pack, 15)
+    torch.cuda.synchronize()
+    assert torch.equal(slot_o, slot_t) and torch.equal(dep_o, dep_t)
+    assert other.load_kernel_library()._name != rwk.load_kernel_library()._name
+    assert other.raster_walk.launches == 1
+
+
+def test_walk_edge_case_equals_plain(device):
+    """Zero-area rows, corners on pixel centres, slivers, huge triangles,
+    ties, counts 0, 1 and 272 over 13 tiles."""
+    counts, pack = (torch.as_tensor(a, device=device)
+                    for a in kernel_cases.walk_edge_case())
+    dep_k, slot_k = rwk.raster_walk(counts, pack, 5)
+    dep_p, slot_p = rwk.raster_walk_reference(counts, pack, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(slot_k, slot_p)
+    assert torch.equal(dep_k, dep_p)
+    r, c = kernel_cases.WALK_LINE_PIXEL
+    assert int(slot_k[kernel_cases.WALK_LINE_TILE, r * 128 + c]) == 0
 
 
 @pytest.mark.parametrize("n_tiles,c,kl", [(1, 1, 1), (10, 40, 272),

@@ -34,14 +34,17 @@ from banggameengine_tpu.render.raster_resolve_pallas import (
 from banggameengine_tpu.render.resolve_pallas import resolve_tiles_pallas_wide
 from banggameengine_tpu.scene import ResourceManager, build_scene
 from banggameengine_tpu.scene import parse_scene_json
-from banggameengine_tpu_torch import convert, math3d
+from banggameengine_tpu_torch import convert, kernel_cases, math3d
 from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render.camera import Camera
 from banggameengine_tpu_torch.render.cull import entity_frustum_mask
 from banggameengine_tpu_torch.render.raster_walk import (
     PACK_CH,
+    cover_boxes,
+    pixel_centres,
     raster_walk,
     raster_walk_reference,
+    slot_coverage,
 )
 from banggameengine_tpu_torch.render.resolve import (
     resolve_tiles_wide,
@@ -279,6 +282,64 @@ def test_walk_random_ragged_matches_pallas_interpret():
     counts, pack = _random_pack(11, 272, seed=5, tiles_x=4)
     slot = _walk_agrees(counts, pack, tiles_x=4)
     assert (slot >= 128).any()                     # the wide slots win too
+
+
+def test_walk_degenerate_rows_match_pallas_interpret():
+    """Zero-area rows, corners on pixel centres, slivers along a pixel row,
+    triangles far larger than the tile, depth ties, counts 0, 1 and 272:
+    every edge function and depth here is exact in f32, so the plain walk
+    (and the CUDA kernel, held to it on the card) equals the Pallas kernel
+    exactly.  A zero-area line covers pixels on it outside its bounding
+    box; a walk that skipped slots by their boxes would lose them."""
+    counts, pack = kernel_cases.walk_edge_case()
+    dep_j, slot_j = raster_walk_pallas(
+        jnp.asarray(counts), jnp.asarray(pack), px=4096, tile_w=128,
+        tiles_x=5, interpret=True)
+    dep, slot = raster_walk(torch.as_tensor(counts), torch.as_tensor(pack), 5)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(slot_j))
+    np.testing.assert_array_equal(dep.numpy(), np.asarray(dep_j))
+    r, c = kernel_cases.WALK_LINE_PIXEL
+    assert int(slot[kernel_cases.WALK_LINE_TILE, r * 128 + c]) == 0
+    assert (slot[0] == -1).all() and (slot[2] >= 128).any()
+
+
+@pytest.mark.parametrize("case", ["edge", "random", "showcase"])
+def test_walk_cover_boxes_hold_every_covered_pixel(case):
+    """The walk kernel skips a slot for a warp whose pixels all lie outside
+    the slot's cover box; no pixel centre outside the box may be covered
+    (the bound is proved in csrc/raster_walk.cu).  Checked here on every
+    (pixel, used slot) pair with the plain coverage test."""
+    if case == "edge":
+        counts, pack = kernel_cases.walk_edge_case()
+        tiles_x = 5
+    elif case == "random":
+        counts, pack = _random_pack(11, 272, seed=5, tiles_x=4)
+        tiles_x = 4
+    else:
+        _, _, counts, pack, tiles_x = _walk_inputs()
+    pack = torch.as_tensor(pack)
+    box = cover_boxes(pack)
+    px, py = pixel_centres(torch.arange(pack.shape[0]), tiles_x)
+    px, py = px[:, None], py[:, None]                  # [tiles, 1, 4096]
+    covered = 0
+    for base in range(0, pack.shape[1], 8):
+        rows = pack[:, base:base + 8]
+        cover, *_ = slot_coverage(*(rows[:, :, j, None] for j in range(9)),
+                                  px, py)
+        cover &= rows[:, :, 9, None] > 0
+        b = box[:, base:base + 8, None, :]
+        inside = ((px >= b[..., 0]) & (px <= b[..., 1]) & (py >= b[..., 2])
+                  & (py <= b[..., 3]))
+        assert not bool((cover & ~inside).any())
+        covered += int(cover.sum())
+    assert covered > 0
+    used = pack[..., 9] > 0
+    narrow = (box[..., 1] - box[..., 0] < 200.0)[used].float().mean()
+    if case == "edge":                # zero-area rows keep the whole plane
+        whole = torch.isinf(box[..., 0])[used]
+        assert bool(whole.any()) and not bool(whole.all())
+    else:
+        assert float(narrow) > 0.9
 
 
 def test_walk_plain_ignores_slots_beyond_count():
