@@ -1,10 +1,11 @@
 """Inputs of the CUDA kernels, for the checks and timings that hold them
 to their plain versions.
 
-- :func:`broadphase_edge_cases` and :func:`walk_edge_case`: cases at the
-  edges of the broadphase's and the walk's contracts, which the main
-  path's inputs rarely reach.  Plain numpy from a seed, so the same arrays
-  feed the JAX package, the plain PyTorch versions and the CUDA kernels;
+- :func:`broadphase_edge_cases`, :func:`walk_edge_case` and
+  :func:`tile_edge_case`: cases at the edges of the broadphase's, the
+  walk's and the full-carry raster's contracts, which the main path's
+  inputs rarely reach.  Plain numpy from a seed, so the same arrays feed
+  the JAX package, the plain PyTorch versions and the CUDA kernels;
 - :func:`sorted_broadphase_inputs` and :func:`recorded_render_inputs`: the
   inputs the main path itself gives the kernels.
 
@@ -162,6 +163,43 @@ def walk_edge_case(n_tiles: int = 13, k_pad: int = 272, tiles_x: int = 5,
     pack[..., 9] = np.arange(k_pad)[None, :] < counts[:, None]
     pack[:, 11::23, 9] = 0.0                # unused rows inside the count
     return counts, pack
+
+
+def tile_edge_case(seed: int = 0) -> tuple:
+    """Full-carry raster inputs (tile_idx int32[13], x, y, z f32[13, 272,
+    3], oid int32[13, 272], cb1, cb2 f32[13, 272, 3], ok int32[13, 272],
+    tiles_x) with the rows of :func:`walk_edge_case`: each screen tile's
+    rows, over that tile, listed in a shuffled order, ok set where the
+    walk's pack marks a row used (rows past its count are unused), random
+    ids, and random barycentric columns of 0 and powers of two, so each
+    winner's barycentrics are exact in f32 too and the JAX package on the
+    CPU agrees exactly.  Screen tile :data:`WALK_LINE_TILE` keeps its
+    zero-area line in slot 0."""
+    counts, pack = walk_edge_case()
+    rng = np.random.default_rng(seed)
+    n, k = pack.shape[:2]
+    order = rng.permutation(n)
+    rows = pack[order]
+    cols = np.float32([0.0, 0.125, 0.25, 0.5, 1.0])
+    return (order.astype(np.int32), rows[..., 0:3].copy(),
+            rows[..., 3:6].copy(), rows[..., 6:9].copy(),
+            rng.integers(0, 10**6, (n, k)).astype(np.int32),
+            rng.choice(cols, (n, k, 3)), rng.choice(cols, (n, k, 3)),
+            (rows[..., 9] > 0).astype(np.int32), 5)
+
+
+def carry_pack(x, y, z, ok):
+    """The full-carry raster's rows (x, y, z f32[n, K, 3], ok int[n, K]) as
+    the walk's packed rows f32[n, K, 16], for ``raster_walk.cover_boxes``
+    and the skip shares: the boxes the tile raster skips by are those of
+    this pack."""
+    import torch
+
+    pack = torch.zeros(tuple(ok.shape) + (16,), dtype=torch.float32,
+                       device=ok.device)
+    pack[..., 0:3], pack[..., 3:6], pack[..., 6:9] = x, y, z
+    pack[..., 9] = (ok != 0).to(torch.float32)
+    return pack
 
 
 def sorted_broadphase_inputs(state, static):

@@ -28,15 +28,23 @@
 // at every step: build with --fmad=false (no fused multiply-adds), never
 // with fast math, and keep the expressions in the plain version's order.
 //
-// Design: one block of 256 threads per listed tile; thread i owns the 16
-// pixels i, i + 256, ..., all in one column, so the five carried values of
-// each pixel stay in registers (80 of them).  The tile's slots are staged
-// through shared memory 64 at a time and read by every thread as
-// broadcasts; a slot with ok == 0 is skipped by the whole block.  What
-// bounds it: ~33 f32 operations per (pixel, used slot); the 1080p light
-// pass (510 tiles x 64 slots) is at most 134 M pixel-slot pairs, ~4.4 G
-// operations, well under a millisecond of the card's f32 rate.  The
-// winner's barycentrics cost 10 operations more, once per update.
+// What bounds it: ~33 f32 operations per (pixel, used slot).  The heavy
+// pass lists the 64 tiles with the most locals (up to 272 slots each), the
+// light pass every tile at up to 64 slots.  Design: tile_walk::band_walk
+// over the listed tile's x, y, z and ok arrays, n x kBands blocks of 128
+// threads in both passes, so a heavy pass of 64 dense tiles fills the
+// card with 512 blocks; each warp skips the slots whose cover boxes miss
+// its 32 x 4 pixels (an unused slot has an empty box).  Only depth and
+// slot are carried through the walk.  After it each covered pixel sets its
+// winner up again from the winner's row (read through L2) and recomputes
+// the weights with tile_walk::covers, which are those its winning test
+// computed, bit for bit (the same row at the same pixel, no fused
+// multiply-adds), then writes the winner's id and barycentrics.  That
+// keeps 8 registers of carry a thread instead of 20 and costs ~50
+// operations a covered pixel, once.  It measured faster than staging oid,
+// cb1 and cb2 beside the slots and updating them at every win: light +
+// heavy 0.097 against 0.108 ms on the showcase at 1080p, 0.082 against
+// 0.089 on the 10k-box view (NVIDIA H100 80GB HBM3, 700 W, one run).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,16 +54,30 @@
 
 namespace {
 
-using tile_walk::kPerThread;
-using tile_walk::kStage;
-using tile_walk::kThreads;
-using tile_walk::kTileH;
-using tile_walk::kTilePx;
-using tile_walk::kTileW;
-// staged row: x0..2, y0..2, z0..2 (tile_walk::setup's), cb1_0..2, cb2_0..2
-constexpr int kCarryCh = 15;
+using namespace tile_walk;
 
-__global__ void __launch_bounds__(kThreads)
+// The rows of one listed tile: x, y, z [k, 3] and ok [k] from its first
+// slot on; slot s is used when ok[s] != 0.
+struct CarryRows {
+  const float* x;
+  const float* y;
+  const float* z;
+  const int* ok;
+
+  // Whether slot s is used; if it is, its corners go to r.
+  __device__ __forceinline__ bool load(int s, float (&r)[kCorners]) const {
+    if (__ldg(ok + s) == 0) return false;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      r[j] = __ldg(x + 3 * s + j);
+      r[3 + j] = __ldg(y + 3 * s + j);
+      r[6 + j] = __ldg(z + 3 * s + j);
+    }
+    return true;
+  }
+};
+
+__global__ void __launch_bounds__(kBandThreads)
 raster_tile_kernel(const int* __restrict__ tile_idx,
                    const float* __restrict__ x, const float* __restrict__ y,
                    const float* __restrict__ z, const int* __restrict__ oid,
@@ -64,77 +86,46 @@ raster_tile_kernel(const int* __restrict__ tile_idx,
                    int k, int tiles_x, float* __restrict__ depth_out,
                    int* __restrict__ tri_out, float* __restrict__ b1_out,
                    float* __restrict__ b2_out, int* __restrict__ slot_out) {
-  __shared__ float rows[kStage][kCarryCh];
-  __shared__ int oids[kStage];
-  __shared__ int oks[kStage];
-  const int item = blockIdx.x;
+  const int item = blockIdx.x / kBands;
+  const int band = blockIdx.x - item * kBands;
   const int tid = threadIdx.x;
   const int tile = tile_idx[item];
-  const float px =
-      static_cast<float>((tile % tiles_x) * kTileW + tid % kTileW) + 0.5f;
-  const int y_base = (tile / tiles_x) * kTileH + tid / kTileW;
-  constexpr int kRowStep = kThreads / kTileW;    // 2 rows between pixels
-
-  float zbuf[kPerThread];
-  int tri[kPerThread];
-  float b1[kPerThread];
-  float b2[kPerThread];
-  int best[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    zbuf[i] = INFINITY;
-    tri[i] = -1;
-    b1[i] = 0.0f;
-    b2[i] = 0.0f;
-    best[i] = -1;
-  }
-
   const long long row0 = static_cast<long long>(item) * k;
-  for (int base = 0; base < k; base += kStage) {
-    const int n = min(kStage, k - base);
-    __syncthreads();                  // the previous stage is consumed
-    for (int e = tid; e < 3 * n; e += kThreads) {
-      const int s = e / 3;
-      const int j = e - 3 * s;
-      const long long src = (row0 + base) * 3 + e;
-      rows[s][j] = x[src];
-      rows[s][3 + j] = y[src];
-      rows[s][6 + j] = z[src];
-      rows[s][9 + j] = cb1[src];
-      rows[s][12 + j] = cb2[src];
-    }
-    for (int s = tid; s < n; s += kThreads) {
-      oids[s] = oid[row0 + base + s];
-      oks[s] = ok[row0 + base + s];
-    }
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      if (oks[s] == 0) continue;                 // same for every thread
-      const tile_walk::Tri t = tile_walk::setup(rows[s]);
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const float py = static_cast<float>(y_base + kRowStep * i) + 0.5f;
-        float w0, w1, w2, d;
-        if (tile_walk::covers(t, px, py, w0, w1, w2, d) & (d < zbuf[i])) {
-          zbuf[i] = d;
-          tri[i] = oids[s];
-          b1[i] = w0 * rows[s][9] + w1 * rows[s][10] + w2 * rows[s][11];
-          b2[i] = w0 * rows[s][12] + w1 * rows[s][13] + w2 * rows[s][14];
-          best[i] = base + s;
-        }
-      }
-    }
-  }
+  const CarryRows rows{x + row0 * 3, y + row0 * 3, z + row0 * 3, ok + row0};
+  const int x_base = (tile % tiles_x) * kTileW;
+  const int y_base = (tile / tiles_x) * kTileH + band * kRows;
+  float zbuf[kRows];
+  int best[kRows];
+  band_walk(rows, k, x_base, y_base, zbuf, best);
 
-  const long long out0 = static_cast<long long>(item) * kTilePx;
+  const float px = static_cast<float>(x_base + tid) + 0.5f;
+  const long long out0 = static_cast<long long>(item) * kTilePx +
+                         band * kRows * kTileW + tid;
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const long long o = out0 + tid + kThreads * i;
+  for (int i = 0; i < kRows; ++i) {
+    const int s = best[i];
+    int tri = -1;
+    float b1 = 0.0f;
+    float b2 = 0.0f;
+    if (s >= 0) {
+      float r[kCorners];
+      rows.load(s, r);                // a winner is a used slot
+      const Tri t = setup(r);
+      const float py = static_cast<float>(y_base + i) + 0.5f;
+      float w0, w1, w2, d;
+      covers(t, px, py, w0, w1, w2, d);
+      const float* c1 = cb1 + (row0 + s) * 3;
+      const float* c2 = cb2 + (row0 + s) * 3;
+      tri = oid[row0 + s];
+      b1 = w0 * c1[0] + w1 * c1[1] + w2 * c1[2];
+      b2 = w0 * c2[0] + w1 * c2[1] + w2 * c2[2];
+    }
+    const long long o = out0 + i * kTileW;
     depth_out[o] = isfinite(zbuf[i]) ? zbuf[i] : 1.0f;
-    tri_out[o] = tri[i];
-    b1_out[o] = b1[i];
-    b2_out[o] = b2[i];
-    slot_out[o] = best[i];
+    tri_out[o] = tri;
+    b1_out[o] = b1;
+    b2_out[o] = b2;
+    slot_out[o] = s;
   }
 }
 
@@ -152,7 +143,9 @@ extern "C" int raster_tile_launch(const int* tile_idx, const float* x,
   if (n < 1 || k < 0 || tiles_x < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  raster_tile_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = static_cast<unsigned>(n) * kBands;
+  raster_tile_kernel<<<blocks, kBandThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       tile_idx, x, y, z, oid, cb1, cb2, ok, k, tiles_x, depth, tri, b1, b2,
       slot);
   return static_cast<int>(cudaGetLastError());

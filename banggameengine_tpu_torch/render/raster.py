@@ -407,12 +407,23 @@ def _light_pass(b: _Binned) -> tuple:
     return (all_tiles, *_gathered(b, b.ids[:, :kl]), b.tiles_x)
 
 
+def _heavy_pass(b: _Binned) -> tuple:
+    """The heavy pass's arguments of :func:`raster_tile.raster_tiles`: the
+    ``HEAVY_TILES`` tiles with the most locals, in a stable descending
+    order (lower tile index first among equal counts, as ``lax.top_k``),
+    with the global list and their first ``HEAVY_CAPACITY`` locals."""
+    heavy = torch.sort(b.local_counts, descending=True,
+                       stable=True).indices[:HEAVY_TILES]
+    kh = min(K_GLOBAL + HEAVY_CAPACITY, b.ids.shape[1])
+    return (heavy.to(torch.int32), *_gathered(b, b.ids[heavy, :kh]),
+            b.tiles_x)
+
+
 def _raster_full_carry(b: _Binned):
     """The light/heavy full-carry raster (the JAX package's ``"pallas"``
     backend): every tile rasters the global list and its first
     ``LIGHT_CAPACITY`` locals; the ``HEAVY_TILES`` tiles with the most
-    locals, in a stable descending order (lower tile index first among
-    equal counts, as ``lax.top_k``), are rastered again at
+    locals (:func:`_heavy_pass`) are rastered again at
     ``HEAVY_CAPACITY`` locals, and their results replace the light ones
     where they hold more than ``LIGHT_CAPACITY``.  The heavy pass always
     runs, so no host synchronisation decides it.
@@ -424,12 +435,11 @@ def _raster_full_carry(b: _Binned):
     planes = rt.raster_tiles(*_light_pass(b))
     covered = torch.full_like(b.local_counts, light_cap)
     if b.ids.shape[1] > kl:
-        heavy = torch.sort(b.local_counts, descending=True,
-                           stable=True).indices[:HEAVY_TILES]
+        args = _heavy_pass(b)
+        heavy = args[0].long()
         needs = b.local_counts[heavy] > light_cap
-        kh = min(K_GLOBAL + HEAVY_CAPACITY, b.ids.shape[1])
-        outs = rt.raster_tiles(heavy.to(torch.int32),
-                               *_gathered(b, b.ids[heavy, :kh]), b.tiles_x)
+        kh = args[1].shape[1]
+        outs = rt.raster_tiles(*args)
         keep = needs[:, None, None]
         planes = tuple(p.index_copy(0, heavy, torch.where(keep, o, p[heavy]))
                        for p, o in zip(planes, outs))

@@ -13,7 +13,15 @@ f32[tiles, 4096], slot int32[tiles, 4096], resolved f32[C, tiles, 4096]),
 with ``resolved`` None when ``tables`` is None (depth and slot only).  The
 JAX kernel walks whole chunks of 8 per tile and resolves by a one-hot
 product; both give these numbers (the product returns +0.0 where a table
-holds -0.0, and needs finite tables).
+holds -0.0, and needs finite tables: one inf or NaN entry turns its
+tile's whole channel to NaN there, while here it reaches only the pixels
+that select it).
+
+The kernel runs the walk kernel's banded walk (``csrc/tile_walk.cuh``:
+bands of 4 pixel rows, one block each, warps skipping the slots whose
+cover boxes miss them) and then writes each band's pixels of every
+channel plane, reading the winners' entries straight from the tile's
+table, so a table of any width resolves.
 """
 
 from __future__ import annotations
@@ -35,9 +43,6 @@ _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "raster_resolve.cu")
 # uncontracted f32 arithmetic, as PyTorch's eager ops round it
 _EXTRA_FLAGS = ("--fmad=false",)
-# the kernel stages the table's columns below each tile's count in shared
-# memory: 227 KB a block, less the walk's 64 staged rows of 10 floats
-MAX_TABLE_FLOATS = (232_448 - 64 * 10 * 4) // 4
 
 
 def raster_resolve_tiles_reference(counts: Tensor, tri_pack: Tensor,
@@ -85,10 +90,6 @@ def cuda_raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
     _check_inputs(counts, tri_pack, tables)
     n_tiles, k_pad, _ = tri_pack.shape
     c, kl = (0, 0) if tables is None else tables.shape[1:]
-    if c * min(kl, k_pad) > MAX_TABLE_FLOATS:
-        raise ValueError(f"raster_resolve_tiles: the table's staged columns"
-                         f" ({c} x {min(kl, k_pad)}) exceed the "
-                         f"{MAX_TABLE_FLOATS} floats of shared memory")
     device = tri_pack.device
     lib = load_kernel_library()
     counts, tri_pack = counts.contiguous(), tri_pack.contiguous()

@@ -16,6 +16,14 @@ covers), the winner's original triangle id int32 (-1), its original-space
 barycentrics b1 and b2 f32 (0), and its slot int32 (-1).  ``b1`` is
 ``w0 * cb1[0] + w1 * cb1[1] + w2 * cb1[2]`` of the winner's sub-triangle
 weights and corner columns, and likewise ``b2``.
+
+The kernel walks with the walk kernel's banded walk
+(``csrc/tile_walk.cuh``: bands of 4 pixel rows, one block each, warps
+skipping the slots whose cover boxes miss them), carrying depth and slot
+only; each covered pixel then recomputes its winner's weights from the
+winner's row, which gives the weights its winning test computed, bit for
+bit.  :func:`raster_walk.cover_boxes` of :func:`kernel_cases.carry_pack`
+is the plain version of the boxes it skips by.
 """
 
 from __future__ import annotations

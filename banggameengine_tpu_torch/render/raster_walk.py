@@ -21,9 +21,11 @@ The kernel splits each tile's 32 pixel rows into bands of 4 rows, one
 block each, so the densest tiles spread over many SMs, and each warp
 skips the slots whose cover box (the region outside which a slot provably
 covers no pixel centre) misses its 32 x 4 pixels; every pixel still walks
-the slots that can cover it in ascending order.
-:func:`cover_boxes` is the plain version of those boxes, for the tests
-and reports; the kernel's path does not call it.
+the slots that can cover it in ascending order.  That banded walk lives
+once, in ``csrc/tile_walk.cuh``, and the fused walk + resolve and the
+full-carry raster run it too.  :func:`cover_boxes` is the plain version
+of those boxes, for the tests and reports; the kernels' path does not
+call it.
 """
 
 from __future__ import annotations
@@ -107,7 +109,7 @@ def slot_coverage(x0, x1, x2, y0, y1, y2, z0, z1, z2, pxc: Tensor,
     return cover & (depth >= 0.0) & (depth <= 1.0), w0, w1, w2, depth
 
 
-# the cover box's bound (csrc/raster_walk.cu): twice the edge functions'
+# the cover box's bound (csrc/tile_walk.cuh): twice the edge functions'
 # rounding error per unit, and the corners and areas it holds for
 COVER_ERR = 2.0 ** -21
 COVER_MAX_COORD = 1e7

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX repository's ``scripts/trace_summary.py``, with the
 idle-gap report of its ``scripts/trace_loop.py`` folded in.  One warm-up
-execution, then a trace of one more, a sync, 3 executions and a sync; the
-summary gives, per execution of the 3:
+execution, then a trace of one more, a sync, 3 executions, a sync, and one
+more execution and a sync; the summary gives, per execution of the 3:
 
 - each device kernel's ms and count, sorted by total time (top 10 printed);
 - the kernel launches;
@@ -74,6 +74,7 @@ PROGRAMS = ("stress", "frame_tiled", "frame_fused", "frame_flat", "depth",
             "tick")
 MAX_NEIGHBORS = 8
 FIRST_EXECUTION = "execution 0"
+COOL_DOWN = "cool-down"
 
 
 # ---- the programs -------------------------------------------------------
@@ -160,17 +161,22 @@ def summarize(events: list, reps: int = 1) -> dict:
     """Per-execution kernel times and counts, launches, busy share and the
     longest idle gaps of a trace of ``reps`` executions (times in ms).
 
-    Where the trace marks its first execution (:func:`trace_and_summarize`
-    does), what was launched before it is left out.  A device op is placed
-    by the host time of its launch: the card's timestamps in a trace may
-    sit a few hundred microseconds off the host's, so a gap's host op is
-    as exact as that, and device time before the first host op is left
-    out of the busy share."""
-    first = [e["ts"] for e in events if e.get("ph") == "X"
-             and e.get("cat") == "user_annotation"
-             and e.get("name") == FIRST_EXECUTION]
+    Where the trace marks its first execution and the cool-down after the
+    last (:func:`trace_and_summarize` does), what was launched before the
+    one or from the other on is left out.  A device op is placed by the
+    host time of its launch: the card's timestamps in a trace may sit a
+    few hundred microseconds off the host's, so a gap's host op is as
+    exact as that, and device time before the first host op is left out
+    of the busy share."""
+    def marked(name):
+        return [e["ts"] for e in events if e.get("ph") == "X"
+                and e.get("cat") == "user_annotation"
+                and e.get("name") == name]
+
+    first, last = marked(FIRST_EXECUTION), marked(COOL_DOWN)
     if first:
         t_first = min(first)
+        t_last = min(last) if last else float("inf")
         launched = _launched_at(events)
 
         def placed(e):
@@ -179,7 +185,7 @@ def summarize(events: list, reps: int = 1) -> dict:
                                     e["ts"])
             return e.get("ts", t_first)
 
-        events = [e for e in events if placed(e) >= t_first]
+        events = [e for e in events if t_first <= placed(e) < t_last]
     dev = sorted(_spans(events, DEVICE_CATS.__contains__),
                  key=lambda s: s[0])
     host = _spans(events, _is_host)
@@ -246,10 +252,11 @@ def parse_trace(path: str, reps: int = 1) -> dict:
 
 def trace_and_summarize(fn, args, outdir: str | None = None) -> dict:
     """Warm ``fn(*args)`` up, then trace one more warm-up execution and a
-    sync, ``REPS`` executions and a sync into ``outdir`` (a new temporary
-    directory if None), and summarize the ``REPS`` executions.  (A kernel
-    launched just after the profiler starts can be missing from its
-    record; the traced warm-up takes that place.)"""
+    sync, ``REPS`` executions and a sync, and a cool-down execution and a
+    sync into ``outdir`` (a new temporary directory if None), and
+    summarize the ``REPS`` executions.  (A kernel launched just after the
+    profiler starts, or just before it stops, can be missing from its
+    record; the traced warm-up and cool-down take those places.)"""
     device_sync(fn(*args))
     outdir = outdir or tempfile.mkdtemp(prefix="trace_")
     start_trace(outdir)
@@ -260,6 +267,8 @@ def trace_and_summarize(fn, args, outdir: str | None = None) -> dict:
             with trace_annotation(f"execution {i}"):
                 out = fn(*args)
         device_sync(out)
+        with trace_annotation(COOL_DOWN):
+            device_sync(fn(*args))
     finally:
         path = stop_trace()
     print(f"trace -> {path}")

@@ -61,10 +61,14 @@ routes, and the profiling path, and checks them.  Phases, one line each:
 10. route kernels vs plain: the fused walk + resolve (with tables and
    depth-only) and the full-carry tile raster (light and heavy passes)
    against their plain versions, exactly equal, on the inputs the fused
-   and flat frames of both views give them at 1920x1080 and on random
-   cases; the fused kernel's depth and slot equal to the walk kernel's and
-   its planes to the resolve kernel's; the full-carry raster's depth and
-   slot equal to the walk's on every tile its light or heavy pass covers;
+   and flat frames of both views give them at 1920x1080, on random cases
+   and on the walk's edge rows (``kernel_cases.walk_edge_case``, and
+   ``tile_edge_case``: the same rows as full-carry arguments over 13
+   tiles listed in a shuffled order), where the zero-area line keeps its
+   pixel outside its box in both kernels; the fused kernel's depth and
+   slot equal to the walk kernel's and its planes to the resolve
+   kernel's; the full-carry raster's depth and slot equal to the walk's
+   on every tile its light or heavy pass covers, and on the edge rows;
 11. route slice, no host synchronisation: ``shade_mode="fused"`` and
    ``shade_mode="flat"`` (``raster_backend="tile"``) frames of both views,
    each path's launches counted; the fused frames and the showcase's flat
@@ -73,8 +77,12 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    differ, on the 10k-box view, where the top-64 heavy cap drops more);
    every frame bit-equal with the plain versions;
 12. route times: both route kernels alone, the card's own time and one
-   call by CUDA events, beside their plain versions and bounds, and the
-   three frames of each view by CUDA events;
+   call by CUDA events, beside the walk then the resolve kernels, their
+   plain versions and bounds, with the share of (warp, slot) pairs the
+   cover boxes skip in the fused walk and in each tile-raster pass (the
+   three kernels share one banded walk, ``render/csrc/tile_walk.cuh``);
+   then the frames of each view by CUDA events: tiled, fused, flat,
+   tiled again;
 13. gather kernel vs plain: the u8 row gather against its plain version,
    exactly equal, on the shade-parts probe's inputs (u8[524288, 16] at
    1920x1080 rows) and on random cases (row counts that are no power of
@@ -314,15 +322,18 @@ def walk_bound(counts, pack) -> tuple[float, str]:
     return bound_ms(4 * n + 40 * walked + 8 * n * 4096, RASTER_OPS * pairs)
 
 
-def walk_skip_share(counts, pack, tiles_x: int,
+def walk_skip_share(counts, pack, tiles_x: int, tile_ids=None,
                     rows: int = WALK_WARP_ROWS) -> float:
     """The share of (warp footprint, walked used slot) pairs whose cover box
-    misses the footprint of 32 x ``rows`` pixels: the walk kernel's skipped
-    work, from the plain cover boxes."""
+    misses the footprint of 32 x ``rows`` pixels: the banded walk's skipped
+    work, from the plain cover boxes.  Row i of ``pack`` lies over screen
+    tile ``tile_ids[i]`` (default i)."""
     from banggameengine_tpu_torch.render import raster_walk as rwk
 
     box = rwk.cover_boxes(pack)                        # [tiles, K, 4]
-    t = torch.arange(pack.shape[0], device=pack.device)[:, None, None]
+    if tile_ids is None:
+        tile_ids = torch.arange(pack.shape[0], device=pack.device)
+    t = tile_ids.to(torch.int64)[:, None, None]
     wx0 = (t % tiles_x) * 128 + torch.arange(0, 128, 32,
                                              device=pack.device) + 0.5
     wy0 = (t // tiles_x) * 32 + torch.arange(0, 32, rows,
@@ -333,6 +344,16 @@ def walk_skip_share(counts, pack, tiles_x: int,
     walked = ((torch.arange(pack.shape[1], device=pack.device)[None]
                < counts[:, None]) & (pack[..., 9] > 0))
     return float(miss[walked].float().mean())
+
+
+def tile_skip_share(args) -> float:
+    """:func:`walk_skip_share` of a full-carry raster pass (its arguments:
+    tile_idx, x, y, z, oid, cb1, cb2, ok, tiles_x), which walks every slot
+    of each listed tile."""
+    tile_idx, x, y, z, _, _, _, ok, tiles_x = args
+    counts = torch.full_like(tile_idx, ok.shape[1])
+    return walk_skip_share(counts, kernel_cases.carry_pack(x, y, z, ok),
+                           tiles_x, tile_ids=tile_idx)
 
 
 def resolve_bound(slot, table) -> tuple[float, str]:
@@ -793,6 +814,18 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
              (counts, pack, table, tiles_x)),
             (f"random, {n_t} tiles, K {k}, depth-only",
              (counts, pack, None, tiles_x))]
+    edge_counts, edge_pack = (torch.as_tensor(a, device=dev)
+                              for a in kernel_cases.walk_edge_case())
+    edge_table = torch.as_tensor(rng.standard_normal(
+        (edge_pack.shape[0], 40, edge_pack.shape[1])).astype(np.float32),
+        device=dev)
+    edge_name = ("edge rows (zero area, corners on pixel centres, slivers, "
+                 "huge triangles, ties), 13 tiles, K 272")
+    fused_cases += [(f"{edge_name}, KL 272",
+                     (edge_counts, edge_pack, edge_table, 5)),
+                    (f"{edge_name}, depth-only",
+                     (edge_counts, edge_pack, None, 5))]
+    line_r, line_c = kernel_cases.WALK_LINE_PIXEL
     fused_err = 0.0
     for name, (counts, pack, tables, tiles_x) in fused_cases:
         dep_k, slot_k, res_k = rr.cuda_raster_resolve_tiles(counts, pack,
@@ -807,6 +840,10 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
               f"fused {name}: depth or slot differs from the plain version")
         check(torch.equal(dep_k, dep_w) and torch.equal(slot_k, slot_w),
               f"fused {name}: depth or slot differs from the walk kernel's")
+        if name.startswith("edge"):
+            check(int(slot_k[kernel_cases.WALK_LINE_TILE,
+                             line_r * 128 + line_c]) == 0,
+                  f"fused {name}: the zero-area line lost its pixel")
         if tables is None:
             check(res_k is None, f"fused {name}: planes without tables")
             what, also = "depth and slot", "the walk kernel"
@@ -833,7 +870,10 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
         ("random, 64 listed of 510 tiles, K 272",
          random_tile_case(64, 272, 15, seed=8, device=dev)),
         ("random, 37 listed tiles, K 13",
-         random_tile_case(37, 13, 15, seed=9, device=dev))]
+         random_tile_case(37, 13, 15, seed=9, device=dev)),
+        (f"{edge_name} as full-carry arguments, listed shuffled",
+         tuple(torch.as_tensor(a, device=dev) if i < 8 else a
+               for i, a in enumerate(kernel_cases.tile_edge_case())))]
     tile_err = 0.0
     for name, (*args, tiles_x) in tile_cases:
         out_k = rt.cuda_raster_tiles(*args, tiles_x)
@@ -843,6 +883,18 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
                                out_k, out_p):
             tile_err = max(tile_err, float((a - b).abs().max()))
             check(torch.equal(a, b), f"tile raster {name}: {plane} differs")
+        if name.startswith("edge"):
+            order = args[0].long()
+            dep_w, slot_w = rwk.cuda_raster_walk(edge_counts, edge_pack,
+                                                 tiles_x)
+            item = int((args[0] == kernel_cases.WALK_LINE_TILE).nonzero()[0,
+                                                                         0])
+            check(torch.equal(out_k[4].flatten(1), slot_w[order])
+                  and torch.equal(out_k[0].flatten(1), dep_w[order]),
+                  f"tile raster {name}: depth or slot differs from the "
+                  f"walk kernel's on the same rows")
+            check(int(out_k[4][item, line_r, line_c]) == 0,
+                  f"tile raster {name}: the zero-area line lost its pixel")
         print(f"[route-kernel-vs-plain] tile raster {name}: depth, tri_id, "
               f"b1, b2 and slot exactly equal ({args[7].shape[0]} tiles x "
               f"{args[7].shape[1]} slots, {int((out_k[4] >= 0).sum())} "
@@ -950,7 +1002,10 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
         t[name] = {k: device_ms(f) for k, f in runs.items()}
         t[name].update({f"{k}_host": median_ms(f) for k, f in runs.items()},
                        fused_b=fused_bound(counts, pack, tables),
-                       tile_b=tile_bound([light[:-1], heavy[:-1]]))
+                       tile_b=tile_bound([light[:-1], heavy[:-1]]),
+                       fused_skip=walk_skip_share(counts, pack, tiles_x),
+                       light_skip=tile_skip_share(light),
+                       heavy_skip=tile_skip_share(heavy))
         if name == "showcase":
             t[name].update(
                 fused_plain=median_ms(
@@ -963,14 +1018,16 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
         r = t[name]
         print(f"[times] {name} {RENDER_W}x{RENDER_H}, device time (one call "
               f"by events, host work included): fused walk + resolve alone "
-              f"{r['fused']:.4f} ({r['fused_host']:.4f}) ms, walk then "
+              f"{r['fused']:.4f} ({r['fused_host']:.4f}) ms, its cover boxes "
+              f"skip {r['fused_skip']:.4f} of (warp, slot) pairs; walk then "
               f"resolve kernels {r['split']:.4f} ({r['split_host']:.4f}) "
               f"ms, bound {r['fused_b'][0]:.4f} ms ({r['fused_b'][1]}); tile"
               f" raster light pass ({tuple(light[7].shape)}) "
-              f"{r['light']:.4f} ({r['light_host']:.4f}) ms, heavy pass "
-              f"({tuple(heavy[7].shape)}) {r['heavy']:.4f} "
-              f"({r['heavy_host']:.4f}) ms, bound of both "
-              f"{r['tile_b'][0]:.4f} ms ({r['tile_b'][1]}) {card}")
+              f"{r['light']:.4f} ({r['light_host']:.4f}) ms, skip "
+              f"{r['light_skip']:.4f}, heavy pass ({tuple(heavy[7].shape)}) "
+              f"{r['heavy']:.4f} ({r['heavy_host']:.4f}) ms, skip "
+              f"{r['heavy_skip']:.4f}, bound of both {r['tile_b'][0]:.4f} ms "
+              f"({r['tile_b'][1]}) {card}")
     r = t["showcase"]
     print(f"[times] showcase plain versions: fused {r['fused_plain']:.3f} ms,"
           f" tile raster light {r['light_plain']:.3f} ms, heavy "
@@ -1137,10 +1194,21 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
             print(f"[profile] trace of {lib} alone at the probe's shape "
                   f"{card}:")
             ts.trace_and_summarize(fn, (), os.path.join(tmp, lib))
-        s = ts.trace_and_summarize(lambda: gr.gather_rows_u8(table, idx), (),
-                                   os.path.join(tmp, "gather"))
-    found = [e for e in s["kernels"] if "gather_rows_kernel" in e["name"]]
-    check(len(found) == 1 and found[0]["count"] == 1,
+        # a trace of a few microseconds of work now and then records the
+        # kernel in 2 of its 3 executions (as it did index_select's once):
+        # trace it again, up to 3 times in all, and print each miss; the
+        # time per launch is taken over the launches the trace recorded
+        for attempt in range(3):
+            s = ts.trace_and_summarize(
+                lambda: gr.gather_rows_u8(table, idx), (),
+                os.path.join(tmp, f"gather{attempt}"))
+            found = [e for e in s["kernels"]
+                     if "gather_rows_kernel" in e["name"]]
+            if len(found) == 1 and found[0]["count"] == 1:
+                break
+            print(f"[profile] trace {attempt + 1} of the gather alone "
+                  f"recorded {found}; tracing again")
+    check(len(found) == 1 and 0 < found[0]["count"] <= 1,
           f"trace of the gather alone: {found}")
     g = found[0]
     b_ms, b_by = psp.gather_bound(table, idx)

@@ -277,6 +277,52 @@ def test_raster_resolve_equals_plain(device, n_tiles, k_pad, kl, c,
         assert res_k is None
 
 
+@pytest.mark.parametrize("with_tables", [True, False])
+def test_raster_resolve_edge_case_equals_plain(device, with_tables):
+    """The walk's edge rows through the fused kernel, which skips slots
+    by the same cover boxes: depth and slot equal to the plain version and
+    to the walk kernel, the zero-area line keeps its pixel outside its
+    box; the planes equal to the plain version and the resolve kernel."""
+    counts, pack = (torch.as_tensor(a, device=device)
+                    for a in kernel_cases.walk_edge_case())
+    rng = np.random.default_rng(3)
+    table = (torch.as_tensor(rng.standard_normal(
+        (pack.shape[0], 40, pack.shape[1])).astype(np.float32),
+        device=device) if with_tables else None)
+    dep_k, slot_k, res_k = rr.raster_resolve_tiles(counts, pack, table, 5)
+    dep_p, slot_p, res_p = rr.raster_resolve_tiles_reference(counts, pack,
+                                                             table, 5)
+    dep_w, slot_w = rwk.raster_walk(counts, pack, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(slot_k, slot_p) and torch.equal(dep_k, dep_p)
+    assert torch.equal(slot_k, slot_w) and torch.equal(dep_k, dep_w)
+    r, c = kernel_cases.WALK_LINE_PIXEL
+    assert int(slot_k[kernel_cases.WALK_LINE_TILE, r * 128 + c]) == 0
+    if with_tables:
+        assert torch.equal(res_k, res_p)
+        assert torch.equal(res_k, rsv.resolve_tiles_wide(slot_w, table))
+    else:
+        assert res_k is None
+
+
+def test_raster_resolve_wide_table_equals_plain(device):
+    """A table of 8,000 channels (more than a block's shared memory could
+    stage) resolves equal to the plain version: the kernel reads the
+    winners' entries from the table itself."""
+    counts, pack = _walk_case(2, 8, 0, 2, device)
+    counts = counts.clamp(0, 8)
+    pack[..., 9] = 1.0
+    table = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2, 8000, 8)).astype(np.float32), device=device)
+    dep_k, slot_k, res_k = rr.raster_resolve_tiles(counts, pack, table, 2)
+    dep_p, slot_p, res_p = rr.raster_resolve_tiles_reference(counts, pack,
+                                                             table, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(slot_k, slot_p) and torch.equal(dep_k, dep_p)
+    assert res_k.shape == (8000, 2, 4096) and torch.equal(res_k, res_p)
+    assert bool((slot_k >= 0).any())
+
+
 def _tile_kernel_case(n, k, tiles_x, seed, device):
     """Random triangles over n listed tiles (a random subset of a
     tiles_x-wide grid), ok = 0 on some rows, random ids and corners."""
@@ -313,14 +359,35 @@ def test_raster_tiles_equals_plain(device, n, k, tiles_x):
     assert bool((out_k[4] >= 0).any())
 
 
+def test_raster_tiles_edge_case_equals_plain(device):
+    """The walk's edge rows as full-carry arguments over 13 tiles listed in
+    a shuffled order: all five planes equal to the plain version, depth
+    and slot to the walk kernel's on the same rows, and the zero-area
+    line keeps its pixel outside its box."""
+    *args, tiles_x = (torch.as_tensor(a, device=device) if i < 8 else a
+                      for i, a in enumerate(kernel_cases.tile_edge_case()))
+    out_k = rt.raster_tiles(*args, tiles_x)
+    out_p = rt.raster_tiles_reference(*args, tiles_x)
+    counts, pack = (torch.as_tensor(a, device=device)
+                    for a in kernel_cases.walk_edge_case())
+    dep_w, slot_w = rwk.raster_walk(counts, pack, tiles_x)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("depth", "tri", "b1", "b2", "slot"), out_k,
+                          out_p):
+        assert torch.equal(a, b), name
+    order = args[0].long()
+    assert torch.equal(out_k[4].flatten(1), slot_w[order])
+    assert torch.equal(out_k[0].flatten(1), dep_w[order])
+    item = int((args[0] == kernel_cases.WALK_LINE_TILE).nonzero()[0, 0])
+    r, c = kernel_cases.WALK_LINE_PIXEL
+    assert int(out_k[4][item, r, c]) == 0
+
+
 def test_route_kernels_reject_bad_input(device):
     counts, pack = _walk_case(2, 8, 0, 2, device)
     with pytest.raises(ValueError):
         rr.raster_resolve_tiles(counts, pack,
                                 torch.zeros((3, 4, 5), device=device), 2)
-    with pytest.raises(ValueError):          # more table than shared memory
-        rr.raster_resolve_tiles(counts, pack,
-                                torch.zeros((2, 8000, 8), device=device), 2)
     *args, tx = _tile_kernel_case(3, 8, 2, 0, device)
     with pytest.raises(ValueError):
         rt.raster_tiles(args[0].long(), *args[1:], tx)

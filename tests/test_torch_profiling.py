@@ -289,8 +289,8 @@ def test_measure_needs_a_tensor_and_device_sync_ignores_the_cpu():
 
 def _hand_made_trace(path, warm_up):
     """Two executions: kernels a, b (overlapping), a, a copy; host ops.
-    With ``warm_up``, a traced warm-up before them, as
-    ``trace_and_summarize`` makes it."""
+    With ``warm_up``, a traced warm-up before them and a cool-down after
+    them, as ``trace_and_summarize`` makes them."""
     def x(cat, name, ts_, dur, pid=0):
         return {"ph": "X", "cat": cat, "name": name, "ts": ts_, "dur": dur,
                 "pid": pid, "tid": 7}
@@ -311,6 +311,12 @@ def _hand_made_trace(path, warm_up):
         x("user_annotation", "execution 1", 25.0, 25.0, pid=1),
         corr(x("cuda_runtime", "cudaLaunchKernel", 2.0, 0.5, pid=1), 3),
         corr(x("kernel", "c", -1.0, 1.0), 3),
+        # the cool-down: its kernel "z" placed by its launch at +51 though
+        # the card's clock puts it at +44, inside the window
+        x("user_annotation", "cool-down", 50.0, 10.0, pid=1),
+        corr(x("cuda_runtime", "cudaLaunchKernel", 51.0, 1.0, pid=1), 5),
+        corr(x("kernel", "z", 44.0, 3.0), 5),
+        x("cpu_op", "sync", 53.0, 5.0, pid=1),
     ] if warm_up else []
     events += [
         {"ph": "M", "name": "process_name", "pid": 0, "args": {}},
@@ -363,7 +369,7 @@ def test_trace_of_a_cpu_program(tmp_path):
     assert s["window_ms"] > 0 and s["gaps"][0]["ms"] > 0
     names = {e.get("name") for e in ts.load_trace(str(tmp_path))}
     assert {"warm-up", "execution 0", "execution 1", "execution 2",
-            "aten::matmul"} <= names
+            "cool-down", "aten::matmul"} <= names
     with pytest.raises(RuntimeError):
         prof.stop_trace()
 

@@ -303,23 +303,38 @@ def test_walk_degenerate_rows_match_pallas_interpret():
     assert (slot[0] == -1).all() and (slot[2] >= 128).any()
 
 
-@pytest.mark.parametrize("case", ["edge", "random", "showcase"])
+@pytest.mark.parametrize("case", ["edge", "random", "showcase",
+                                  "showcase_light", "showcase_heavy"])
 def test_walk_cover_boxes_hold_every_covered_pixel(case):
-    """The walk kernel skips a slot for a warp whose pixels all lie outside
-    the slot's cover box; no pixel centre outside the box may be covered
-    (the bound is proved in csrc/raster_walk.cu).  Checked here on every
-    (pixel, used slot) pair with the plain coverage test."""
+    """The banded walk (the walk kernel, the fused kernel and the tile
+    raster) skips a slot for a warp whose pixels all lie outside the
+    slot's cover box; no pixel centre outside the box may be covered (the
+    bound is proved in csrc/tile_walk.cuh).  Checked here on every (pixel,
+    used slot) pair with the plain coverage test, on walk packs and on the
+    full-carry raster's light and heavy passes of the showcase, whose
+    listed tiles' pixel centres are those of their screen tiles."""
+    tile_ids = None
     if case == "edge":
         counts, pack = kernel_cases.walk_edge_case()
         tiles_x = 5
     elif case == "random":
         counts, pack = _random_pack(11, 272, seed=5, tiles_x=4)
         tiles_x = 4
-    else:
+    elif case == "showcase":
         _, _, counts, pack, tiles_x = _walk_inputs()
+    else:
+        clip, tri_valid, _, _ = _setup(W, H)
+        b = rz._bin_frame(torch.as_tensor(clip), torch.as_tensor(tri_valid),
+                          W, H, 2048)
+        tile_ids, x, y, z, _, _, _, ok, tiles_x = (
+            rz._light_pass(b) if case == "showcase_light"
+            else rz._heavy_pass(b))
+        pack = kernel_cases.carry_pack(x, y, z, ok)
     pack = torch.as_tensor(pack)
+    if tile_ids is None:
+        tile_ids = torch.arange(pack.shape[0])
     box = cover_boxes(pack)
-    px, py = pixel_centres(torch.arange(pack.shape[0]), tiles_x)
+    px, py = pixel_centres(tile_ids, tiles_x)
     px, py = px[:, None], py[:, None]                  # [tiles, 1, 4096]
     covered = 0
     for base in range(0, pack.shape[1], 8):
@@ -338,6 +353,8 @@ def test_walk_cover_boxes_hold_every_covered_pixel(case):
     if case == "edge":                # zero-area rows keep the whole plane
         whole = torch.isinf(box[..., 0])[used]
         assert bool(whole.any()) and not bool(whole.all())
+    elif case == "showcase_light":    # its 48 locals hold larger triangles
+        assert float(narrow) > 0.75
     else:
         assert float(narrow) > 0.9
 

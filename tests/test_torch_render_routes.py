@@ -33,9 +33,12 @@ from banggameengine_tpu.render.raster_pallas import raster_tiles_pallas
 from banggameengine_tpu.render.raster_resolve_pallas import (
     raster_resolve_tiles_pallas,
 )
-from banggameengine_tpu.render.resolve_pallas import resolve_tiles_pallas
+from banggameengine_tpu.render.resolve_pallas import (
+    resolve_tiles_pallas,
+    resolve_tiles_pallas_wide,
+)
 from banggameengine_tpu.scene.build import RenderScene as JaxRenderScene
-from banggameengine_tpu_torch import convert
+from banggameengine_tpu_torch import convert, kernel_cases
 from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render.pipeline import make_render_fn
 from banggameengine_tpu_torch.render.raster_resolve import (
@@ -46,8 +49,9 @@ from banggameengine_tpu_torch.render.raster_tile import (
     raster_tiles,
     raster_tiles_reference,
 )
-from banggameengine_tpu_torch.render.raster_walk import PACK_CH
+from banggameengine_tpu_torch.render.raster_walk import PACK_CH, raster_walk
 from banggameengine_tpu_torch.render.resolve import (
+    resolve_tiles_wide,
     resolve_tiles_wide_reference,
 )
 from banggameengine_tpu_torch.scene.synthetic import build_showcase_render
@@ -252,6 +256,32 @@ def test_raster_tiles_matches_pallas_interpret(case):
     assert (tid[slot < 0] == -1).all() and (b1[slot < 0] == 0).all()
 
 
+def test_raster_tiles_edge_case_matches_pallas_interpret():
+    """The walk's edge rows (zero-area lines, corners on pixel centres,
+    slivers, huge triangles, ties) as full-carry arguments over 13 tiles
+    listed in a shuffled order: every edge function, depth and
+    barycentric is exact in f32, so the plain version (and the CUDA
+    kernel, held to it on the card, which skips slots by their cover
+    boxes) equals the Pallas kernel exactly, and its depth and slot equal
+    the walk's on the same rows."""
+    *args, tiles_x = kernel_cases.tile_edge_case()
+    out_j = [np.asarray(a) for a in raster_tiles_pallas(
+        *map(jnp.asarray, args), tiles_x, interpret=True)]
+    out = raster_tiles_reference(*map(torch.as_tensor, args), tiles_x)
+    for name, a, a_j in zip(("depth", "tri_id", "b1", "b2", "slot"), out,
+                            out_j):
+        np.testing.assert_array_equal(a.numpy(), a_j, err_msg=name)
+    item = int(np.flatnonzero(args[0] == kernel_cases.WALK_LINE_TILE)[0])
+    r, c = kernel_cases.WALK_LINE_PIXEL
+    assert int(out[4][item, r, c]) == 0
+    counts, pack = kernel_cases.walk_edge_case()
+    dep_w, slot_w = raster_walk(torch.as_tensor(counts),
+                                torch.as_tensor(pack), tiles_x)
+    order = torch.as_tensor(args[0]).long()
+    assert torch.equal(out[4].reshape(len(order), -1), slot_w[order])
+    assert torch.equal(out[0].reshape(len(order), -1), dep_w[order])
+
+
 def _dense_scene():
     """A 1280x288 frame of 10 x 9 tiles where 80 tiles hold 60 small local
     triangles each (equal counts, more than 48) and the rest 20: more than
@@ -404,6 +434,46 @@ def test_resolve_closes_the_fixed_width_pallas_kernel(n_tiles, c, kl):
                                        torch.as_tensor(table))
     assert (slot >= 128).any() and out.shape == (c, n_tiles, 4096)
     np.testing.assert_array_equal(out.numpy(), np.asarray(out_j))
+
+
+@pytest.mark.parametrize("kernel", ["resolve", "fused"])
+def test_one_hot_resolve_spreads_an_unselected_inf(kernel):
+    """The reference's one-hot resolve contracts each 128-slot chunk of a
+    tile's table, and 0 * inf is NaN: one inf in a slot that no pixel
+    selects turns that tile's whole channel to NaN.  The port's gather
+    (and its fused kernel, held to it on the card) returns the selected
+    entries, finite (ROADMAP §3)."""
+    rng = np.random.default_rng(21)
+    counts, pack = _random_pack(2, 16, seed=21, tiles_x=2)
+    counts[:] = 16
+    pack[..., 9] = 1.0
+    pack[:, 5, 9] = 0.0                  # slot 5 is unused: nobody wins it
+    table = rng.standard_normal((2, 6, 16)).astype(np.float32)
+    table[1, 2, 5] = np.inf
+    t = torch.as_tensor
+    if kernel == "resolve":
+        _, slot = raster_walk(t(counts), t(pack), 2)
+        slot = slot.numpy()
+        out_j = resolve_tiles_pallas_wide(
+            jnp.asarray(slot), jnp.asarray(table),
+            jnp.asarray(slot.max(axis=1)), interpret=True)
+        out = resolve_tiles_wide(t(slot), t(table))
+    else:
+        _, slot_j, out_j = raster_resolve_tiles_pallas(
+            jnp.asarray(counts), jnp.asarray(pack), jnp.asarray(table),
+            px=4096, tile_w=128, tiles_x=2, interpret=True)
+        _, slot, out = raster_resolve_tiles(t(counts), t(pack), t(table), 2)
+        slot = slot.numpy()
+        np.testing.assert_array_equal(slot, np.asarray(slot_j))
+    out_j, out = np.asarray(out_j), out.numpy()
+    assert (slot[1] >= 0).any() and not (slot == 5).any()
+    assert np.isnan(out_j[2, 1]).all()   # the whole tile's channel
+    assert np.isfinite(out).all()
+    np.testing.assert_array_equal(
+        out, resolve_tiles_wide_reference(t(slot), t(table)).numpy())
+    finite = np.ones(out_j.shape, bool)
+    finite[2, 1] = False                 # everything else agrees
+    np.testing.assert_array_equal(out[finite], out_j[finite])
 
 
 def test_route_wrappers_reject_bad_input():
