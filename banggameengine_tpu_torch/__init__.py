@@ -6,12 +6,15 @@ the host-side modules it needs (physics config, hierarchy levels, the
 procedural scene builder) are copied, because the JAX package imports
 ``jax`` on any import of any of its modules.
 
-The slice ported so far is the single-world stress tick
-(``engine.make_multi_step_fn(static, n, broadphase="allpairs")``): the
-Morton-sorted all-pairs AABB broadphase (a CUDA kernel,
-``physics/csrc/neighbor_lists.cu``), the transposed box contact pipeline,
-the warm-started Jacobi solver, integration, trigger diffing and the world
-matrices.  Module paths mirror the JAX package's.
+The physics slices ported so far are the single-world stress tick
+(``engine.make_multi_step_fn(static, n, broadphase="allpairs")``: the
+Morton-sorted all-pairs AABB broadphase as a CUDA kernel,
+``physics/csrc/neighbor_lists.cu``) and the flat many-world step
+(``parallel.make_flat_many_world_step``: neighbor lists fixed at build
+time, the planar character step), both on the transposed box contact
+pipeline, the warm-started Jacobi solver, integration, trigger diffing
+and the world matrices; the render slices live in ``render/``.  Module
+paths mirror the JAX package's.
 
 Float32 matrix products must stay in full f32 (the warm-start match and
 one-hot moves carry payload rows): the port never enables TF32.

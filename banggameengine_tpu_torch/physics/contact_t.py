@@ -9,8 +9,9 @@ Every intermediate is ``[slots, N]`` with the body axis last, as in the
 JAX module, and the math is the same expression for expression, so the two
 agree to f32 rounding.
 
-Not ported yet: the capsule slots (``shape_type=``) and the block-diagonal
-lane-roll partner read (``block_size=``); both raise NotImplementedError.
+Not ported yet: the capsule slots (``shape_type=``), which raise
+NotImplementedError.  The block-diagonal lane-roll partner read
+(``block_size=``) is the gather here (see :func:`solve_contacts_t`).
 
 Compaction: where the JAX module moves the c-th valid candidate by a sum
 of one-hot selects, this one finds the candidate's row with a stable sort
@@ -446,11 +447,16 @@ def solve_contacts_t(
     previous-step contacts: applied up front and used to seed the
     accumulators.  ``momentum`` is the heavy-ball factor over the lambda
     iterates.
+
+    ``block_size``/``block_shifts`` declare a block-diagonal scene (the
+    flat many-world step).  They are accepted for the JAX signature's sake
+    and change nothing: the JAX route reads partners by lane rolls over
+    the shift set, which it states equal to the gather for every pair
+    slot, and the port reads every partner by the gather.  Ground slots
+    differ: the rolls read 0.0 there and the gather body 0, and every
+    consumer masks them on ``is_static``.
     """
-    if block_size is not None or block_shifts:
-        raise NotImplementedError(
-            "solve_contacts_t(block_size=...): the lane-roll partner read "
-            "is not ported yet (ROADMAP queue 1, item 8)")
+    del block_size, block_shifts  # every route reads partners by gather
     vx, vy, vz = vel.unbind(1)
     wx, wy, wz = ang.unbind(1)
     px, py, pz = pos.unbind(1)

@@ -1,17 +1,26 @@
-"""Physics step orchestration: one fixed step of the stress route.
+"""Physics step orchestration: one fixed step of the tick.
 
 Counterpart of ``banggameengine_tpu/physics/step.py``: :func:`scene_census`,
-the all-pairs route of :func:`physics_step` (the JAX package's
-``broadphase="pallas"``, ``step.py:277-393``) and :func:`_finish_step`.
-Per step: gravity; Morton sort; all-pairs AABB broadphase (the CUDA kernel
-on the card); box contacts and the warm-started Jacobi solve in sorted
-space; semi-implicit Euler integration; trigger overlap diff.
+two routes of :func:`physics_step` and :func:`_finish_step`.  Per step: the
+planar character step (when a character is in use); gravity; box contacts
+and the warm-started Jacobi solve; semi-implicit Euler integration; the
+trigger overlap diff.  The routes differ in where the contacts' neighbor
+lists come from:
 
-Not ported yet, and refused with NotImplementedError: the other broadphase
-routes (``dense``, ``grid``, the flat many-world ``static``) and scenes with
-a character in use.  Left out, since no caller sets them: the JAX step's
-``warm_start=False``, ``trigger_mode="shape"`` and ``solver_momentum``
-options (the port runs their defaults).
+- ``"allpairs"``, the JAX package's ``"pallas"`` route (``step.py:277-393``):
+  Morton sort, then the all-pairs AABB broadphase (the CUDA kernel on the
+  card), the contact phase in sorted space;
+- ``"static"`` (``step.py:394-491``): neighbor lists fixed when the scene
+  was built (the flat many-world step, :mod:`parallel.manyworld`), in
+  original id order, with the world ``group`` masking the characters'
+  obstacles and the triggers.
+
+Not ported yet, and refused with NotImplementedError: the ``dense`` and
+``grid`` routes, characters without ``char_candidates`` (the per-slot
+character step) and solid capsules on the static route.  Left out, since
+no caller sets them: the JAX step's ``warm_start=False``,
+``trigger_mode="shape"`` and ``solver_momentum`` options (the port runs
+their defaults).
 
 No step synchronises with the host: every count stays a tensor.
 """
@@ -23,7 +32,9 @@ import dataclasses
 import torch
 
 from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.ecs.transform import scatter_rows
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+from banggameengine_tpu_torch.physics import character as chr_mod
 from banggameengine_tpu_torch.physics import contact_t
 from banggameengine_tpu_torch.physics import shapes as sh_mod
 from banggameengine_tpu_torch.physics import triggers as tg
@@ -32,6 +43,7 @@ from banggameengine_tpu_torch.state import (
     BODY_KINEMATIC,
     COMP_CHARACTER,
     COMP_COLLIDER,
+    SHAPE_BOX,
     SHAPE_CAPSULE,
     InputFrame,
     StaticScene,
@@ -77,6 +89,11 @@ def physics_step(
     any_char: bool | None = None,
     enable_capsule: bool | None = None,
     any_trig: bool | None = None,
+    group: torch.Tensor | None = None,
+    static_neighbors: tuple | None = None,
+    char_candidates: torch.Tensor | None = None,
+    solver_block_size: int | None = None,
+    solver_block_shifts: tuple | None = None,
 ) -> tuple[WorldState, StepEvents]:
     """One fixed physics step, ``(WorldState, InputFrame, StaticScene) ->
     (WorldState, StepEvents)``.
@@ -84,34 +101,50 @@ def physics_step(
     ``broadphase="allpairs"`` is the JAX package's ``"pallas"`` route: the
     whole contact phase runs in Morton-sorted space, and the all-pairs AABB
     broadphase (:func:`broadphase_kernel.neighbor_lists_aabb`) builds at
-    most ``min(max_neighbors, 8)`` partners per body.  The contact cache
+    most ``min(max_neighbors, 8)`` partners per body.  Box-only: scenes
+    with solid capsules raise ValueError, as in the JAX package.
+
+    ``broadphase="static"`` takes ``static_neighbors=(idx int32[N, K],
+    valid bool[N, K])``, partners fixed at build time; ``group`` int32[N]
+    confines each character and trigger to its own group (world), and
+    ``solver_block_size``/``solver_block_shifts`` are passed on to
+    :func:`contact_t.solve_contacts_t`.
+
+    Characters step by the planar step over their ``char_candidates``
+    int32[C, K] obstacle ids.  The InputFrame's fields may be scalars or
+    [C] vectors, one entry per character slot.  The contact cache
     warm-starts the solver, and triggers use AABB overlap, as the JAX
-    step's defaults do.  Box-only: scenes with solid capsules raise
-    ValueError, as in the JAX package.
+    step's defaults do.
     """
-    del inp  # read only by the character step, which is not ported yet
-    if broadphase != "allpairs":
+    if broadphase not in ("allpairs", "static"):
         raise NotImplementedError(
-            f"broadphase={broadphase!r} is not ported; only 'allpairs' (the "
-            "JAX package's 'pallas' route) is. See ROADMAP queue 1, item 8 "
-            "('static') and item 16 ('dense', 'grid')")
+            f"broadphase={broadphase!r} is not ported; 'allpairs' (the JAX "
+            "package's 'pallas' route) and 'static' are. See ROADMAP queue "
+            "1, item 16 ('dense', 'grid')")
     if any_char is None or enable_capsule is None or any_trig is None:
         census = scene_census(static)
         any_char = census["any_char"] if any_char is None else any_char
         enable_capsule = (census["enable_capsule"] if enable_capsule is None
                           else enable_capsule)
         any_trig = census["any_trig"] if any_trig is None else any_trig
-    if any_char:
+    if any_char and char_candidates is None:
         raise NotImplementedError(
-            "scenes with a character in use are not ported yet: the "
-            "character step waits for ROADMAP queue 1, item 6")
-    if enable_capsule:
+            "a character without char_candidates needs the per-slot "
+            "character step, which is not ported yet: ROADMAP queue 1, "
+            "item 6")
+    if enable_capsule and broadphase == "allpairs":
         raise ValueError(
             "broadphase='allpairs' is the box-only stress pipeline; this "
             "scene has solid capsules")
+    if enable_capsule:
+        raise NotImplementedError(
+            "solid capsules need the capsule slots of box_contacts_t, "
+            "which are not ported yet: ROADMAP queue 1, item 5")
+    if broadphase == "static" and static_neighbors is None:
+        raise ValueError(
+            "broadphase='static' requires static_neighbors=(idx, valid)")
 
     dt = static.fixed_dt
-    n = state.capacity
     alive = state.alive
     has_collider = (state.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
     is_dynamic = (static.body_type == BODY_DYNAMIC) & alive
@@ -121,7 +154,16 @@ def physics_step(
     pos = state.pos
     quat = state.quat
 
-    # gravity on dynamic bodies: only the y component changes
+    # 1. characters: kinematic capsules with ghost semantics
+    if any_char:
+        pos, char_vel_y, char_on_ground = _step_characters(
+            state, inp, static, pos, quat, alive & has_collider,
+            char_candidates, group)
+    else:
+        char_vel_y, char_on_ground = state.char_vel_y, state.char_on_ground
+
+    # 2. rigid bodies: gravity on dynamic bodies (only y changes), then the
+    # contact phase
     gdt = static.gravity * dt
     zero = torch.zeros_like(gdt)
     vel = torch.where(is_dynamic[:, None],
@@ -133,6 +175,106 @@ def physics_step(
     # solid = participates in the contact solver (characters are ghosts)
     solid = alive & has_collider & ~is_char
 
+    if broadphase == "allpairs":
+        vel, ang, feat, imp, overflow = _contacts_allpairs(
+            state, static, pos, quat, vel, ang, solid, is_dynamic,
+            solver_iterations, max_neighbors)
+    else:
+        vel, ang, feat, imp, overflow = _contacts_static(
+            state, static, pos, quat, vel, ang, solid, is_dynamic,
+            solver_iterations, static_neighbors, solver_block_size,
+            solver_block_shifts)
+    return _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
+                        char_on_ground, moving, alive, has_collider, dt,
+                        any_trig, contact_feat=feat, contact_imp=imp,
+                        contact_overflow=overflow, group=group)
+
+
+def _step_characters(state, inp, static, pos, quat, obstacle_base,
+                     char_candidates, group):
+    """The planar character step over static per-slot candidates
+    (``step.py:166-239``): returns pos with the characters' new centres,
+    and the new ``char_vel_y`` and ``char_on_ground``."""
+    c_slots = static.num_char_slots
+    char_ent = static.char_entity
+    safe_ce = char_ent.clamp_min(0).to(torch.int64)
+    cand = char_candidates.to(torch.int64)               # [C, K]
+    ob_c = obstacle_base[cand] & (cand != safe_ce[:, None])
+    if group is not None:
+        ob_c = ob_c & (group[cand] == group[safe_ce][:, None])
+    cand_t = cand.T                                      # [K, C]
+    # the candidates' attributes in one channel-major gather: [10, K, C]
+    cg = torch.cat([pos.T, quat.T, static.shape_size.T])[:, cand_t]
+    ctype = static.shape_type[cand_t]
+    ob_t = ob_c.T
+    b_is_box = (ctype == SHAPE_BOX) & ob_t
+    b_is_cap = (ctype == SHAPE_CAPSULE) & ob_t
+
+    def per_vec(v):
+        # a scalar input drives every slot; a [C] input one slot each
+        return v if v.dim() else v.expand(c_slots)
+
+    centres = pos[safe_ce]
+    vel_y0 = state.char_vel_y[safe_ce]
+    npx, npy, npz, new_vy, new_ground = chr_mod.step_characters_t(
+        centres[:, 0], centres[:, 1], centres[:, 2],
+        vel_y0, state.char_on_ground[safe_ce],
+        static.char_radius, static.char_half_height,
+        static.char_walk_speed, static.char_jump_impulse,
+        per_vec(inp.move_forward), per_vec(inp.move_right),
+        per_vec(inp.jump), per_vec(inp.sprint), per_vec(inp.cam_yaw),
+        cg[0], cg[1], cg[2], cg[3], cg[4], cg[5], cg[6],
+        b_is_box, b_is_cap, cg[7], cg[8], cg[9],
+        static.gravity, static.fixed_dt, static.step_height,
+        static.max_slope_cos,
+    )
+    valid = (char_ent >= 0) & state.alive[safe_ce]
+    new_centres = torch.where(valid[:, None],
+                              torch.stack([npx, npy, npz], dim=1), centres)
+    pos = scatter_rows(pos, char_ent, new_centres)
+    char_vel_y = scatter_rows(state.char_vel_y, char_ent,
+                              torch.where(valid, new_vy, vel_y0))
+    char_on_ground = scatter_rows(
+        state.char_on_ground, char_ent,
+        torch.where(valid, new_ground, state.char_on_ground[safe_ce]))
+    return pos, char_vel_y, char_on_ground
+
+
+def _warm_start(c_feat, cache_feat, cache_imp):
+    """Cached impulses [C, 3, N] of this step's contacts ``c_feat`` [C, N],
+    matched by feature id against ``cache_feat`` [CB, N] / ``cache_imp``
+    [CB, 3, N].  The match is a one-hot select (feature ids are unique per
+    row), so summing its products moves each cached impulse exactly."""
+    eq = ((c_feat[:, None, :] == cache_feat[None, :, :])
+          & (c_feat >= 0)[:, None, :]).to(torch.float32)       # [C, CB, N]
+    return (eq[:, :, None, :] * cache_imp[None]).sum(dim=1)
+
+
+def _solve(body, cache, pos, quat, vel, ang, contacts, c_feat, dt,
+           solver_iterations, **block):
+    """The warm-started solve of both routes, over their rows (sorted or
+    not): ``body`` = the rows' (inv_mass, inv_inertia_body, friction,
+    restitution), ``cache`` = their contact cache (feature ids [CB, N],
+    impulses [CB, 3, N]).  Returns (vel, ang, contact_feat [N, C],
+    contact_imp [N, C, 3])."""
+    inv_m, inertia, fric, rest = body
+    c_valid = contacts[8]
+    warm = _warm_start(c_feat, *cache)
+    vel, ang, (ln, lt1, lt2) = contact_t.solve_contacts_t(
+        vel, ang, pos, quat, inv_m, inertia, *contacts, fric, rest, dt,
+        iterations=solver_iterations, ground_friction=GROUND_FRICTION,
+        warm=warm.unbind(1), return_lambdas=True, momentum=SOLVER_MOMENTUM,
+        **block)
+    imp = torch.where(c_valid.T[..., None],
+                      torch.stack([ln.T, lt1.T, lt2.T], dim=-1), 0.0)
+    feat = torch.where(c_valid, c_feat, -1).T                  # [N, C]
+    return vel, ang, feat, imp
+
+
+def _contacts_allpairs(state, static, pos, quat, vel, ang, solid,
+                       is_dynamic, solver_iterations, max_neighbors):
+    """Broadphase, contacts and solve in Morton-sorted space."""
+    n = state.capacity
     # The whole contact phase runs in Morton-sorted space.  The sort must
     # be stable: tied keys are common (57 of 10,000 at step 0 of the stress
     # scene), and the tie order fixes the neighbor lists.
@@ -156,8 +298,6 @@ def physics_step(
     pos_s, quat_s = sf[:, 6:9], sf[:, 9:13]
     vel_s, ang_s = sf[:, 13:16], sf[:, 16:19]
     half_s = sf[:, 19:22]
-    inv_m_s, inertia_s = sf[:, 22], sf[:, 23:26]
-    fric_s, rest_s = sf[:, 26], sf[:, 27]
     dyn_s, layer_s, mask_s = sf[:, 28:31].contiguous().view(
         torch.int32).unbind(1)
 
@@ -165,39 +305,52 @@ def physics_step(
         sf[:, 0:3], sf[:, 3:6], dyn_s, layer_s, mask_s,
         max_neighbors=min(max_neighbors, 8))
     ground_ok_s = (dyn_s > 0) & static.ground_enabled
-    (c_prt, c_ptx, c_pty, c_ptz, c_nx, c_ny, c_nz, c_dep, c_valid,
-     contact_overflow, c_feat) = contact_t.box_contacts_t(
+    *contacts, overflow, c_feat = contact_t.box_contacts_t(
         pos_s, quat_s, half_s, nl.idx, nl.valid, ground_ok_s,
         budget=CONTACT_BUDGET, orig_id=order)
     # the cache lives in ORIGINAL id space (stable across the per-step
-    # re-sort): gather to sorted space, match features, gather back.  The
-    # match is a one-hot select (feature ids are unique per row), so
-    # summing its products moves each cached impulse exactly.
-    cache_feat_s = state.contact_feat[order].T                  # [CB, N]
-    cache_imp_s = state.contact_imp[order].permute(1, 2, 0)     # [CB, 3, N]
-    eq = ((c_feat[:, None, :] == cache_feat_s[None, :, :])
-          & (c_feat >= 0)[:, None, :]).to(torch.float32)       # [C, CB, N]
-    warm = (eq[:, :, None, :] * cache_imp_s[None]).sum(dim=1)   # [C, 3, N]
-    vel_s, ang_s, (ln, lt1, lt2) = contact_t.solve_contacts_t(
-        vel_s, ang_s, pos_s, quat_s, inv_m_s, inertia_s,
-        c_prt, c_ptx, c_pty, c_ptz, c_nx, c_ny, c_nz, c_dep,
-        c_valid, fric_s, rest_s, dt, iterations=solver_iterations,
-        ground_friction=GROUND_FRICTION, warm=warm.unbind(1),
-        return_lambdas=True, momentum=SOLVER_MOMENTUM)
-    imp_s = torch.where(c_valid.T[..., None],
-                        torch.stack([ln.T, lt1.T, lt2.T], dim=-1), 0.0)
-    feat_s = torch.where(c_valid, c_feat, -1).T                  # [N, C]
+    # re-sort): gather to sorted space, match features, gather back
+    vel_s, ang_s, feat_s, imp_s = _solve(
+        (sf[:, 22], sf[:, 23:26], sf[:, 26], sf[:, 27]),
+        (state.contact_feat[order].T,                        # [CB, N]
+         state.contact_imp[order].permute(1, 2, 0)),         # [CB, 3, N]
+        pos_s, quat_s, vel_s, ang_s, contacts, c_feat, static.fixed_dt,
+        solver_iterations)
     out = torch.cat([vel_s, ang_s], dim=1)[inv_order]
-    return _finish_step(state, static, pos, quat, out[:, 0:3], out[:, 3:6],
-                        moving, alive, has_collider, dt, any_trig,
-                        contact_feat=feat_s[inv_order],
-                        contact_imp=imp_s[inv_order],
-                        contact_overflow=contact_overflow)
+    return (out[:, 0:3], out[:, 3:6], feat_s[inv_order], imp_s[inv_order],
+            overflow)
 
 
-def _finish_step(state, static, pos, quat, vel, ang, moving, alive,
-                 has_collider, dt, any_trig, contact_feat, contact_imp,
-                 contact_overflow) -> tuple[WorldState, StepEvents]:
+def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
+                     solver_iterations, static_neighbors, block_size,
+                     block_shifts):
+    """Contacts and solve over neighbor lists fixed at build time, in
+    original id order (no sort: the flat many-world's world blocks are
+    contiguous already)."""
+    n = state.capacity
+    nb_idx, nb_valid = static_neighbors
+    both = solid & state.alive
+    # the partners' validity: the JAX route's select over the shift set
+    # reads the same entries as this gather
+    nb_ok = nb_valid & both[nb_idx.to(torch.int64)] & both[:, None]
+    ground_ok = is_dynamic & solid & static.ground_enabled
+    *contacts, overflow, c_feat = contact_t.box_contacts_t(
+        pos, quat, static.shape_size, nb_idx, nb_ok, ground_ok,
+        budget=CONTACT_BUDGET,
+        orig_id=torch.arange(n, dtype=torch.int32, device=pos.device))
+    vel, ang, feat, imp = _solve(
+        (static.inv_mass, static.inv_inertia_body, static.friction,
+         static.restitution),
+        (state.contact_feat.T, state.contact_imp.permute(1, 2, 0)),
+        pos, quat, vel, ang, contacts, c_feat, static.fixed_dt,
+        solver_iterations, block_size=block_size, block_shifts=block_shifts)
+    return vel, ang, feat, imp, overflow
+
+
+def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
+                 char_on_ground, moving, alive, has_collider, dt, any_trig,
+                 contact_feat, contact_imp, contact_overflow,
+                 group=None) -> tuple[WorldState, StepEvents]:
     """Shared step tail: integrate, triggers, state assembly."""
     # semi-implicit Euler for dynamic AND kinematic bodies (kinematic
     # velocity is host-driven and persists until changed)
@@ -216,6 +369,10 @@ def _finish_step(state, static, pos, quat, vel, ang, moving, alive,
             pos, quat, static.shape_type, static.shape_size,
             static.layer, static.mask, alive, has_collider,
         )
+        if group is not None:
+            # a trigger sees only its own group's (world's) entities
+            safe_te = static.trig_entity.clamp_min(0).to(torch.int64)
+            overlap = overlap & (group[safe_te][:, None] == group[None, :])
     else:
         overlap = torch.zeros_like(state.trigger_overlap)
     enter, stay, exit_, new_overlap, new_active = tg.diff_events(
@@ -228,6 +385,8 @@ def _finish_step(state, static, pos, quat, vel, ang, moving, alive,
         quat=quat,
         lin_vel=vel,
         ang_vel=ang,
+        char_vel_y=char_vel_y,
+        char_on_ground=char_on_ground,
         trigger_overlap=new_overlap,
         trigger_active=new_active,
         time=state.time + dt,

@@ -16,7 +16,9 @@ more execution and a sync; the summary gives, per execution of the 3:
   meanwhile.
 
 Programs: ``stress`` (one 50-step dispatch of the 10k-box world from its
-200-step state), ``frame_tiled``, ``frame_fused``, ``frame_flat`` and
+200-step state), ``manyworld`` (one 50-step dispatch of the flat
+many-world step, 1,000 worlds of 8 boxes, a character and a trigger, from
+their 200-step state), ``frame_tiled``, ``frame_fused``, ``frame_flat`` and
 ``depth`` (the showcase at 1920x1080, as ``profile_render``), ``tick``
 (``make_frame_fn`` on the 10k-box world from its 200-step state, seen by the
 tick camera).  Under the profiler every host op costs more than without it,
@@ -24,6 +26,7 @@ so the busy share it shows is a lower bound of the untraced one.
 
     python3 -m banggameengine_tpu_torch.scripts.trace_summary frame_tiled [OUTDIR]
     python3 -m banggameengine_tpu_torch.scripts.trace_summary tick --device cpu --small
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary manyworld
     python3 -m banggameengine_tpu_torch.scripts.trace_summary --parse PATH [REPS]
 
 ``PATH`` is an exported Chrome trace or a directory of them (the newest is
@@ -44,6 +47,11 @@ import torch
 
 from banggameengine_tpu_torch import convert
 from banggameengine_tpu_torch.engine import make_multi_step_fn
+from banggameengine_tpu_torch.parallel.manyworld import (
+    make_flat_many_world_step,
+    replicate_input,
+    replicate_state,
+)
 from banggameengine_tpu_torch.render.camera import Camera
 from banggameengine_tpu_torch.render.pipeline import (
     make_frame_fn,
@@ -70,8 +78,8 @@ TOP = 10
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 CUDA_API = "cuda_"     # the categories of host-side CUDA API calls
-PROGRAMS = ("stress", "frame_tiled", "frame_fused", "frame_flat", "depth",
-            "tick")
+PROGRAMS = ("stress", "manyworld", "frame_tiled", "frame_fused",
+            "frame_flat", "depth", "tick")
 MAX_NEIGHBORS = 8
 FIRST_EXECUTION = "execution 0"
 COOL_DOWN = "cool-down"
@@ -92,11 +100,29 @@ def _stress_state(device, small: bool):
     return state, static, inp, run
 
 
+def _manyworld_state(device, small: bool):
+    """The flat many-world dispatch (``small``: 4 worlds, 5 steps; else
+    1,000 worlds, 50 steps) and its arguments after 4 dispatches: the
+    batched state and a zero input."""
+    worlds, steps = (4, 5) if small else (1000, 50)
+    state, static = build_falling_boxes(8, with_character=True,
+                                        with_trigger=True, device=device)
+    run = make_flat_many_world_step(static, worlds, state.comp_mask,
+                                    num_steps=steps)
+    bstate = replicate_state(state, worlds)
+    binp = replicate_input(InputFrame.zero(device), worlds)
+    for _ in range(4):
+        bstate = run(bstate, binp)
+    return run, (bstate, binp)
+
+
 def build(name: str, device="cuda", small: bool = False):
     """The program ``name`` as (function, its arguments on ``device``)."""
     if name == "stress":
         state, _, inp, run = _stress_state(device, small)
         return run, (state, inp)
+    if name == "manyworld":
+        return _manyworld_state(device, small)
     if name == "tick":
         state, static, inp, _ = _stress_state(device, small)
         width, height = (profile_render.SMALL_WH if small
@@ -284,7 +310,7 @@ def main(argv=None) -> dict:
     ap.add_argument("outdir", nargs="?")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true",
-                    help="a 128x64 frame, 64 boxes (CPU-cheap)")
+                    help="a 128x64 frame, 64 boxes, 4 worlds (CPU-cheap)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     fn, fn_args = build(args.program, device, args.small)

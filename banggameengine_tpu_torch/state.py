@@ -140,13 +140,15 @@ class StaticScene:
 
 @dataclasses.dataclass
 class InputFrame:
-    """One tick of player/camera input."""
+    """One tick of player/camera input: scalars drive every character
+    slot; [C] vectors one slot each (the flat many-world step's [W]
+    batch, one row per world)."""
 
-    move_forward: Tensor  # f32[]
-    move_right: Tensor    # f32[]
-    jump: Tensor          # bool[]
-    sprint: Tensor        # bool[]
-    cam_yaw: Tensor       # f32[]
+    move_forward: Tensor  # f32[] or f32[C]
+    move_right: Tensor    # f32[] or f32[C]
+    jump: Tensor          # bool[] or bool[C]
+    sprint: Tensor        # bool[] or bool[C]
+    cam_yaw: Tensor       # f32[] or f32[C]
 
     @staticmethod
     def zero(device: torch.device | str = "cuda") -> "InputFrame":

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-Drives ``banggameengine_tpu_torch`` through its four slices, the
+Drives ``banggameengine_tpu_torch`` through its five slices, the
 10,000-box stress tick, the shaded 1080p frame, its fused and full-carry
-routes, and the profiling path, and checks them.  Phases, one line each:
+routes, the profiling path and the flat many-world step, and checks
+them.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the six kernels for sm_90a, all at once
@@ -98,7 +99,20 @@ routes, and the profiling path, and checks them.  Phases, one line each:
    ``scripts/trace_summary`` on ``frame_tiled`` and ``tick`` (kernels,
    launches, busy share, longest gaps) and on the gather alone; the
    gather kernel and its two library calls by the card's own time.  Every
-   timer is ``banggameengine_tpu_torch/utils/profiling.py``'s.
+   timer is ``banggameengine_tpu_torch/utils/profiling.py``'s;
+15. the many-world slice, no hand kernel on it:
+   ``parallel.make_flat_many_world_step`` at 1,000 worlds of 8 boxes, a
+   character and a trigger (16,000 entities in one flat world): 200 steps
+   in 4 dispatches of 50 with zero input and again with per-world input
+   (seeded), no host synchronisation and no hand-kernel launch; the
+   states finite and above the ground; the zero-input worlds bit-equal
+   to world 0, the per-world characters apart; 50 one-step dispatches
+   bit-equal to one 50-step dispatch; a 4-world run against the JAX
+   package's flat step with per-world inputs
+   (``tests/data/flat4_jax_golden.json``: floats within the bars it
+   stores, bools exact); world-steps/s by CUDA events (2 warm-up, median
+   of 5), the peak memory, and one flat step's device time by part
+   (characters, contacts + solve, integrate + the trigger planes).
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -134,7 +148,7 @@ import time
 import numpy as np
 import torch
 
-from banggameengine_tpu_torch import kernel_cases
+from banggameengine_tpu_torch import convert, kernel_cases
 from banggameengine_tpu_torch.kernel_cases import (
     recorded_render_inputs,
     render_kernel_modules,
@@ -144,6 +158,7 @@ from banggameengine_tpu_torch.scene.synthetic import (
     TICK_CAMERA_POS,
     TICK_CAMERA_YAW_PITCH,
 )
+from banggameengine_tpu_torch.state import FEAT_STRIDE
 from banggameengine_tpu_torch.utils.profiling import (
     bound_ms,
     measure_device_trials,
@@ -192,6 +207,11 @@ SKY = (0x88, 0xAA, 0xFF, 0xFF)
 # fuses multiply-adds; the card's inverse and rsqrt round differently)
 FRAME_OFF_SHARE = 1e-3
 DEPTH_ATOL = 1e-6
+MW_WORLDS = 1000
+MW_SCENE = dict(num_bodies=8, with_character=True, with_trigger=True)
+MW_CHAR_ROW = 8      # build_falling_boxes' slots: boxes, character, trigger
+MW_SEED = 7          # the per-world inputs
+MW_GOLDEN = os.path.join(DATA, "flat4_jax_golden.json")
 
 
 class SmokeFailure(AssertionError):
@@ -1236,6 +1256,241 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
                                dev_ms["advanced_index"])}]
 
 
+def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
+    """Phase 15: the flat many-world step at 1,000 worlds of 8 boxes, a
+    character and a trigger (no hand kernel on this path)."""
+    from banggameengine_tpu_torch.parallel.manyworld import (
+        make_flat_many_world_step, replicate_input, replicate_state)
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import shapes
+    from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
+    from banggameengine_tpu_torch.scripts import gather_rows as gr
+    from banggameengine_tpu_torch.state import SHAPE_BOX, InputFrame
+
+    # ---- 15. the many-world slice ---------------------------------------
+    state1, static1 = build_falling_boxes(**MW_SCENE, device=dev)
+    t0 = time.perf_counter()
+    run = make_flat_many_world_step(static1, w, state1.comp_mask,
+                                    num_steps=STEPS_PER_DISPATCH)
+    one = make_flat_many_world_step(static1, w, state1.comp_mask)
+    build_s = time.perf_counter() - t0
+    bstate0 = replicate_state(state1, w)
+    zero_inp = replicate_input(InputFrame.zero(dev), w)
+    rng = np.random.default_rng(MW_SEED)
+    drive = InputFrame(
+        move_forward=torch.as_tensor(
+            rng.uniform(0.5, 1.0, w).astype(np.float32), device=dev),
+        move_right=torch.zeros(w, device=dev),
+        jump=torch.as_tensor(rng.random(w) < 0.3, device=dev),
+        sprint=torch.as_tensor(rng.random(w) < 0.3, device=dev),
+        cam_yaw=torch.as_tensor(
+            rng.uniform(-np.pi, np.pi, w).astype(np.float32), device=dev))
+    box = (static1.shape_type == SHAPE_BOX) & state1.alive
+    flat_box = box.repeat(w)
+
+    def checked(bs, what: str) -> float:
+        for field in ("pos", "quat", "lin_vel", "ang_vel", "char_vel_y"):
+            check(bool(torch.isfinite(getattr(bs, field)).all()),
+                  f"{what}: {field} not finite")
+        corners = shapes.box_corners(
+            bs.pos.reshape(-1, 3), bs.quat.reshape(-1, 4),
+            static1.shape_size.repeat(w, 1))
+        lowest = float(corners[flat_box][..., 1].min())
+        check(lowest > -0.08,
+              f"{what}: a box corner went through the ground: {lowest}")
+        return lowest
+
+    # the run: 200 steps, 4 dispatches of 50, no host sync, no hand kernel
+    bk.neighbor_lists_aabb.launches = 0
+    gr.gather_rows_u8.launches = 0
+    reset_launch_counts()
+    steps = DISPATCHES * STEPS_PER_DISPATCH
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")   # a host sync in a step raises
+    try:
+        state = bstate0
+        for _ in range(DISPATCHES):
+            state = run(state, zero_inp)
+        driven = bstate0
+        for i in range(DISPATCHES):
+            driven = run(driven, drive)
+            if i == 1:
+                driven_mid = driven    # step 100: boxes touch at 109-112
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    slice_s = time.perf_counter() - t0
+    hand = (bk.neighbor_lists_aabb.launches + gr.gather_rows_u8.launches
+            + sum(launch_counts().values()))
+    check(hand == 0, f"the many-world path launched {hand} hand kernels")
+    lowest = checked(state, "zero input")
+    check(state.step_idx.tolist() == [steps] * w,
+          "step_idx not in lockstep")
+    _, events = one.flat_step(one.flatten(state), zero_inp)
+    grounded = int(state.char_on_ground[:, MW_CHAR_ROW].sum())
+    print(f"[manyworld] {w} worlds x {static1.capacity} entities "
+          f"({w * static1.capacity} in one flat world; 8 boxes, a "
+          f"character and a trigger each), factory built in {build_s:.2f} s; "
+          f"{steps} steps in {DISPATCHES} dispatches of "
+          f"{STEPS_PER_DISPATCH}, zero input, then again with per-world "
+          f"input ({slice_s:.1f} s wall for both, no host sync, no hand "
+          f"kernel launched): state finite, lowest box corner "
+          f"{lowest:.4f} > -0.08, characters on the ground {grounded} of "
+          f"{w}, contact_overflow of step {steps + 1}: "
+          f"{int(events.contact_overflow)}")
+
+    # isolation: worlds driven by the same input equal world 0 bit for bit
+    def bits(a):     # [W, ...] -> the bytes of each world's entries
+        return np.ascontiguousarray(a).reshape(a.shape[0], -1).view(np.uint8)
+
+    for name, a in convert.world_state_to_numpy(state).items():
+        check(bool((bits(a) == bits(a[:1])).all()),
+              f"zero input: worlds differ from world 0 in {name}")
+    # per-world input: the characters went their own ways
+    lowest_d = checked(driven, "per-world input")
+    chars = driven.pos[:, MW_CHAR_ROW]
+    apart = int(((chars[1:] - chars[0]).abs().amax(dim=1) > 0.5).sum())
+    check(apart >= 0.99 * (w - 1),
+          f"per-world input: only {apart} characters left world 0's")
+    spread = float(chars[:, [0, 2]].std())
+    print(f"[manyworld] zero input: every field of every world bit-equal "
+          f"to world 0; per-world input (move_forward in [0.5, 1], yaw "
+          f"uniform, jump and sprint on 30 %): {apart} of {w - 1} "
+          f"characters more than 0.5 from world 0's, xz spread {spread:.2f}, "
+          f"lowest box corner {lowest_d:.4f}, on the ground "
+          f"{int(driven.char_on_ground[:, MW_CHAR_ROW].sum())}")
+
+    # dispatch boundaries: 50 one-step dispatches equal one 50-step one,
+    # over steps 101-150, where pair features cross the seams
+    mid = 2 * STEPS_PER_DISPATCH
+    pair_seams = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s1 = driven_mid
+        for _ in range(STEPS_PER_DISPATCH):
+            s1 = one(s1, drive)
+            pair_seams += (s1.contact_feat >= FEAT_STRIDE).any()
+        s50 = run(driven_mid, drive)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    a1 = convert.world_state_to_numpy(s1)
+    for name, a in convert.world_state_to_numpy(s50).items():
+        check(a.dtype == a1[name].dtype
+              and np.array_equal(bits(a), bits(a1[name])),
+              f"dispatch boundaries: {name} differs")
+    pair_seams = int(pair_seams)
+    check(pair_seams > 0, "dispatch boundaries: no pair feature crossed a "
+          "seam")
+    ground = int(((s1.contact_feat >= 0)
+                  & (s1.contact_feat < FEAT_STRIDE)).sum())
+    print(f"[manyworld] steps {mid + 1}-{mid + STEPS_PER_DISPATCH} with "
+          f"per-world input: {STEPS_PER_DISPATCH} one-step dispatches "
+          f"bit-equal to one {STEPS_PER_DISPATCH}-step dispatch in every "
+          f"field; pair features in the cache at {pair_seams} of the "
+          f"seams, ground features {ground} at the end")
+
+    # the JAX golden: 4 worlds with per-world inputs
+    with open(MW_GOLDEN) as f:
+        golden = json.load(f)
+    g1, gst = build_falling_boxes(**golden["scene"], device=dev)
+    gw = golden["worlds"]
+    gstep = make_flat_many_world_step(gst, gw, g1.comp_mask)
+    ginp = InputFrame(**{
+        k: torch.tensor(v, dtype=torch.bool if k in ("jump", "sprint")
+                        else torch.float32, device=dev)
+        for k, v in golden["inputs"].items()})
+    gs = replicate_state(g1, gw)
+    for i in range(1, golden["steps"][-1] + 1):
+        gs = gstep(gs, ginp)
+        rec = golden["at"].get(str(i))
+        if rec is None:
+            continue
+        got = convert.world_state_to_numpy(gs)
+        errs = {}
+        for name in golden["float_fields"]:
+            errs[name] = float(np.abs(got[name] - np.asarray(
+                rec[name], np.float32)).max())
+        for name in golden["bool_fields"]:
+            check(np.array_equal(got[name], np.asarray(rec[name], bool)),
+                  f"4 worlds: {name} differs from JAX at step {i}")
+        print(f"[reference] 4 worlds vs the JAX flat step at step {i}: "
+              f"{', '.join(golden['bool_fields'])} equal; max |port - JAX| "
+              + ", ".join(f"{k} {v:.3g} (< {golden['atol'][str(i)][k]:g})"
+                          for k, v in errs.items()))
+        for name, err in errs.items():
+            check(err < golden["atol"][str(i)][name],
+                  f"4 worlds: |{name} - JAX| = {err} at step {i}")
+
+    # the time: world-steps/s, 2 warm-up dispatches, median of 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**20
+    times, _ = measure_trials_chained(run, state, zero_inp, calls=1,
+                                      warmup=2, trials=5)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = statistics.median(times) * 1e3
+    rate = w * STEPS_PER_DISPATCH / (ms / 1e3)
+    print(f"[times] many-world {w} worlds, {STEPS_PER_DISPATCH} steps per "
+          f"dispatch: {rate:.0f} world-steps/s ({ms:.1f} ms/dispatch, "
+          f"median of 5 after 2 warm-up; dispatches "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
+          f"{rate / w:.2f} steps/s), peak memory {peak:.0f} MiB "
+          f"({peak - before:.0f} MiB over the {before:.0f} MiB allocated "
+          f"before) {card}")
+    parts = manyworld_parts(one, static1, state1.comp_mask, state, zero_inp)
+    print(f"[times] one flat step at {w} worlds, device time by part "
+          f"(trace_summary: the card busy, ms per execution; launches): "
+          + ", ".join(f"{k} {v['busy_ms']:.3f} ms ({v['launches']:g})"
+                      for k, v in parts.items())
+          + f" {card}")
+
+
+def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
+    """``trace_summary``'s summary of one flat step and of its parts,
+    called as the step calls them on its flattened 200-step state: the
+    character step, the box contacts with the solve, and the integration
+    with the trigger sweep over the ``[W*T, W*B]`` planes.  (A step
+    queues far more launches than the card's launch queue holds, so a
+    window held behind a sleep kernel cannot time it: the trace's kernel
+    intervals do.)"""
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+    from banggameengine_tpu_torch.parallel.manyworld import _flat_static
+    from banggameengine_tpu_torch.physics import step as ps
+    from banggameengine_tpu_torch.state import (
+        BODY_DYNAMIC, BODY_KINEMATIC, COMP_CHARACTER, COMP_COLLIDER)
+
+    fst, nb_idx, nb_val, group, cand, shifts = _flat_static(
+        static1, state.alive.shape[0], comp_mask)
+    fs = one.flatten(state)
+    alive = fs.alive
+    has_col = (fs.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
+    dyn = (fst.body_type == BODY_DYNAMIC) & alive
+    moving = dyn | ((fst.body_type == BODY_KINEMATIC) & alive)
+    solid = alive & has_col & ((fs.comp_mask & COMP_CHARACTER) == 0)
+    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    fns = {
+        "whole step": lambda: one.flat_step(fs, inp)[0].pos,
+        "characters": lambda: ps._step_characters(
+            fs, inp, fst, fs.pos, fs.quat, alive & has_col, cand,
+            group)[0],
+        "contacts + solve": lambda: ps._contacts_static(
+            fs, fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel, solid, dyn,
+            10, (nb_idx, nb_val), static1.capacity, shifts)[0],
+        "integrate + triggers": lambda: ps._finish_step(
+            fs, fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel,
+            fs.char_vel_y, fs.char_on_ground, moving, alive, has_col,
+            fst.fixed_dt, True, fs.contact_feat, fs.contact_imp, zero,
+            group=group)[0].trigger_overlap,
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, fn in fns.items():
+            print(f"[profile] trace_summary of {k}, one flat step:")
+            out[k] = ts.trace_and_summarize(fn, (), os.path.join(
+                tmp, k.replace(" ", "_")))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1455,6 +1710,7 @@ def main() -> int:
     render, views = render_phases(dev, card, state, static, build_s[1:])
     routes = route_phases(dev, card, views)
     profiling = profiling_phases(dev, card, build_s[5])
+    manyworld_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

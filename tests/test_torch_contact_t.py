@@ -132,10 +132,14 @@ def test_unported_options_raise(sorted_scene):
             *(_t(s[k]) for k in ("pos", "quat", "half", "nb_idx", "nb_valid",
                                  "ground_valid")),
             shape_type=torch.ones(len(s["pos"]), dtype=torch.int8))
+    # the block-diagonal partner read is ported: the port reads partners by
+    # the gather on every route, so block_size changes nothing
+    # (tests/test_torch_manyworld.py holds it against the JAX block route)
     contacts = _contacts(s, contact_t, _t, with_feat=False)
-    with pytest.raises(NotImplementedError, match="lane-roll"):
-        contact_t.solve_contacts_t(
-            *(_t(s[k]) for k in ("vel", "ang", "pos", "quat", "inv_m",
+    args = [*(_t(s[k]) for k in ("vel", "ang", "pos", "quat", "inv_m",
                                  "inertia")),
             *contacts[:9], _t(s["friction"]), _t(s["restitution"]),
-            _t(s["dt"]), block_size=8)
+            _t(s["dt"])]
+    block = contact_t.solve_contacts_t(*args, block_size=8)
+    gather = contact_t.solve_contacts_t(*args)
+    assert all(torch.equal(a, b) for a, b in zip(block, gather))

@@ -380,6 +380,9 @@ def test_trace_programs_build_and_run(name):
     out = fn(*args)
     if name == "stress":
         assert int(out.step_idx) == int(args[0].step_idx) + 5
+    elif name == "manyworld":
+        assert out.pos.shape == (4, 16, 3)
+        assert out.step_idx.tolist() == [25] * 4
     elif name == "tick":
         state, frame, _ = out
         assert tuple(frame.shape) == prr.SMALL_WH[::-1] + (4,)

@@ -139,10 +139,15 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="character"):
         make_step_fn(static, broadphase="allpairs")(state,
                                                     InputFrame.zero("cpu"))
-    for route in ("dense", "grid", "static", "pallas"):
+    for route in ("dense", "grid", "pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_step_fn(static, broadphase=route, any_char=False)(
                 state, InputFrame.zero("cpu"))
+    # the static route is ported (tests/test_torch_manyworld.py); it needs
+    # its neighbor lists
+    with pytest.raises(ValueError, match="static_neighbors"):
+        make_step_fn(static, broadphase="static", any_char=False)(
+            state, InputFrame.zero("cpu"))
 
 
 def test_capsule_scene_is_refused():
