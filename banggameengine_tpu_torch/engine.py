@@ -1,15 +1,17 @@
 """Engine step: physics, then the world-matrix refresh.
 
 Counterpart of ``banggameengine_tpu/engine.py``: :func:`engine_step`,
-:func:`visual_positions` and the step factories :func:`make_step_fn` and
-:func:`make_multi_step_fn`.  The JAX package jits its steps and scans the
-multi-step; here the steps run eagerly, and :func:`make_multi_step_fn` is a
-Python loop of ``num_steps`` steps inside one call.  Nothing in a step
+:func:`visual_positions` and the step factories :func:`make_step_fn`,
+:func:`make_hot_reloadable_step_fn`, :func:`make_multi_step_fn` and
+:func:`make_step_fn_with_events`.  The JAX package jits its steps and scans
+the multi-steps; here the steps run eagerly, and a multi-step is a Python
+loop of ``num_steps`` steps inside one call.  Nothing in a step
 synchronises with the host, so the card runs ahead of the Python loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable
 
@@ -70,6 +72,29 @@ def make_step_fn(
         **{**scene_census(static), **physics_kwargs})
 
 
+def make_hot_reloadable_step_fn(
+    solver_iterations: int = 10,
+) -> Callable[[WorldState, InputFrame, StaticScene],
+              tuple[WorldState, StepEvents]]:
+    """A step that takes the static scene as an argument of each call, so
+    a config hot reload (the reference's mtime-polled ``physics.json``
+    reload, ``PhysicsSystem.cpp:216-324``) passes a rebuilt scene.  No
+    census is read from a scene that may change, so every stage runs, as
+    in the JAX package's traced-scene step: the character sweep, the
+    capsule slots and the trigger sweep (on the default route, the same
+    result as a step that skips them where they are dead)."""
+    return functools.partial(
+        engine_step, solver_iterations=solver_iterations,
+        any_char=True, enable_capsule=True, any_trig=True)
+
+
+def stack_events(events: list[StepEvents]) -> StepEvents:
+    """Per-step events stacked on a new leading [num_steps] axis."""
+    return StepEvents(**{
+        f.name: torch.stack([getattr(e, f.name) for e in events])
+        for f in dataclasses.fields(StepEvents)})
+
+
 def make_multi_step_fn(
     static: StaticScene,
     num_steps: int,
@@ -84,5 +109,25 @@ def make_multi_step_fn(
         for _ in range(num_steps):
             state, _events = step(state, inp)
         return state
+
+    return run
+
+
+def make_step_fn_with_events(
+    static: StaticScene,
+    num_steps: int,
+    solver_iterations: int = 10,
+    **physics_kwargs,
+) -> Callable[[WorldState, InputFrame], tuple[WorldState, StepEvents]]:
+    """Like :func:`make_multi_step_fn`, but returns the per-step events
+    too, each field with a leading [num_steps] axis."""
+    step = make_step_fn(static, solver_iterations, **physics_kwargs)
+
+    def run(state: WorldState, inp: InputFrame):
+        events = []
+        for _ in range(num_steps):
+            state, ev = step(state, inp)
+            events.append(ev)
+        return state, stack_events(events)
 
     return run

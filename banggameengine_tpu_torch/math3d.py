@@ -35,6 +35,12 @@ def quat_mul(a: Tensor, b: Tensor) -> Tensor:
     )
 
 
+def quat_conj(q: Tensor) -> Tensor:
+    """Conjugate (the inverse of a unit quaternion): (-x, -y, -z, w),
+    made on the tensor's device (no host copy inside a step)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
 def _cross(u: Tensor, v: Tensor) -> Tensor:
     u, v = torch.broadcast_tensors(u, v)
     return torch.linalg.cross(u, v, dim=-1)

@@ -16,8 +16,12 @@ formulas are the JAX module's expression for expression.  The three
 capsule sample spheres run as one ``[3, K, C]`` block, the same elementwise
 operations on each, in the JAX module's slot order.
 
-Not ported: the per-slot ``step_character``, which only the routes without
-``char_candidates`` call (ROADMAP queue 1, item 6).
+The JAX module's per-slot ``step_character`` (every entity of the world,
+vmapped one slot at a time) needs no form of its own: the step passes
+every entity as the candidates of every slot.  Its contact order is the
+same (sample spheres against each box, the core segment against each
+capsule, the end spheres against the ground), so the deepest contact
+breaks ties the same way.
 """
 
 from __future__ import annotations

@@ -1,26 +1,27 @@
 """Physics step orchestration: one fixed step of the tick.
 
 Counterpart of ``banggameengine_tpu/physics/step.py``: :func:`scene_census`,
-two routes of :func:`physics_step` and :func:`_finish_step`.  Per step: the
-planar character step (when a character is in use); gravity; box contacts
-and the warm-started Jacobi solve; semi-implicit Euler integration; the
-trigger overlap diff.  The routes differ in where the contacts' neighbor
-lists come from:
+three routes of :func:`physics_step` and :func:`_finish_step`.  Per step:
+the characters (when a slot is in use); gravity; contacts and the
+warm-started Jacobi solve; semi-implicit Euler integration; the trigger
+overlap diff.  The routes differ in where the contacts come from:
 
+- ``"dense"`` (the default, ``step.py:492-623``): the all-pairs AABB
+  broadphase compacted to neighbor lists, the ``[..., 3]``-minor
+  narrowphase manifolds (boxes and solid capsules) and the unified solver
+  (:mod:`solver`);
 - ``"allpairs"``, the JAX package's ``"pallas"`` route (``step.py:277-393``):
   Morton sort, then the all-pairs AABB broadphase (the CUDA kernel on the
-  card), the contact phase in sorted space;
+  card), the transposed box contacts in sorted space; box-only;
 - ``"static"`` (``step.py:394-491``): neighbor lists fixed when the scene
   was built (the flat many-world step, :mod:`parallel.manyworld`), in
   original id order, with the world ``group`` masking the characters'
-  obstacles and the triggers.
+  obstacles and the triggers; box-only here (ROADMAP item 5).
 
-Not ported yet, and refused with NotImplementedError: the ``dense`` and
-``grid`` routes, characters without ``char_candidates`` (the per-slot
-character step) and solid capsules on the static route.  Left out, since
-no caller sets them: the JAX step's ``warm_start=False``,
-``trigger_mode="shape"`` and ``solver_momentum`` options (the port runs
-their defaults).
+Characters step by the planar step over static ``char_candidates`` where
+given, else by the same planar step with every entity as the
+candidates of every slot (the JAX package's per-slot step).  The ``grid``
+route is not ported (ROADMAP item 16).
 
 No step synchronises with the host: every count stays a tensor.
 """
@@ -36,13 +37,19 @@ from banggameengine_tpu_torch.ecs.transform import scatter_rows
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import character as chr_mod
 from banggameengine_tpu_torch.physics import contact_t
+from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics import shapes as sh_mod
+from banggameengine_tpu_torch.physics import solver as sv
 from banggameengine_tpu_torch.physics import triggers as tg
+from banggameengine_tpu_torch.physics.broadphase import (
+    build_neighbor_lists_dense,
+)
 from banggameengine_tpu_torch.state import (
     BODY_DYNAMIC,
     BODY_KINEMATIC,
     COMP_CHARACTER,
     COMP_COLLIDER,
+    FEAT_STRIDE,
     SHAPE_BOX,
     SHAPE_CAPSULE,
     InputFrame,
@@ -84,8 +91,9 @@ def physics_step(
     inp: InputFrame,
     static: StaticScene,
     solver_iterations: int = SOLVER_ITERATIONS,
-    broadphase: str = "allpairs",
+    broadphase: str = "dense",
     max_neighbors: int = 16,
+    trigger_mode: str = "aabb",
     any_char: bool | None = None,
     enable_capsule: bool | None = None,
     any_trig: bool | None = None,
@@ -97,6 +105,11 @@ def physics_step(
 ) -> tuple[WorldState, StepEvents]:
     """One fixed physics step, ``(WorldState, InputFrame, StaticScene) ->
     (WorldState, StepEvents)``.
+
+    ``broadphase="dense"`` prunes all pairs by their AABBs to at most
+    ``min(max_neighbors, 8)`` partners per body, then runs the narrowphase
+    (with the capsule slots when the census finds a solid capsule) and
+    :func:`solver.solve_contacts_unified`.
 
     ``broadphase="allpairs"`` is the JAX package's ``"pallas"`` route: the
     whole contact phase runs in Morton-sorted space, and the all-pairs AABB
@@ -110,36 +123,38 @@ def physics_step(
     ``solver_block_size``/``solver_block_shifts`` are passed on to
     :func:`contact_t.solve_contacts_t`.
 
-    Characters step by the planar step over their ``char_candidates``
-    int32[C, K] obstacle ids.  The InputFrame's fields may be scalars or
-    [C] vectors, one entry per character slot.  The contact cache
-    warm-starts the solver, and triggers use AABB overlap, as the JAX
-    step's defaults do.
+    Characters step by the planar step over ``char_candidates`` int32[C,
+    K] obstacle ids where given, else over every entity.  The
+    InputFrame's fields may be scalars or [C] vectors, one entry per
+    character slot.  Every route warm-starts the solver from the contact
+    cache and refreshes it, with the heavy-ball factor
+    ``SOLVER_MOMENTUM`` (the JAX step's defaults; its ``warm_start``,
+    ``solver_sor`` and ``solver_momentum`` options are not ported).
+    ``trigger_mode`` is ``"aabb"`` (Bullet's ghost pairs) or ``"shape"``
+    (exact overlap).  ``any_char``, ``enable_capsule`` and ``any_trig`` are the census's;
+    None reads the scene to the host (a step factory does that once).
     """
-    if broadphase not in ("allpairs", "static"):
+    if broadphase not in ("dense", "allpairs", "static"):
         raise NotImplementedError(
-            f"broadphase={broadphase!r} is not ported; 'allpairs' (the JAX "
-            "package's 'pallas' route) and 'static' are. See ROADMAP queue "
-            "1, item 16 ('dense', 'grid')")
+            f"broadphase={broadphase!r} is not ported; 'dense', 'allpairs' "
+            "(the JAX package's 'pallas' route) and 'static' are. The "
+            "'grid' route is ROADMAP item 16")
+    if trigger_mode not in ("aabb", "shape"):
+        raise ValueError(f"unknown trigger_mode {trigger_mode!r}")
     if any_char is None or enable_capsule is None or any_trig is None:
         census = scene_census(static)
         any_char = census["any_char"] if any_char is None else any_char
         enable_capsule = (census["enable_capsule"] if enable_capsule is None
                           else enable_capsule)
         any_trig = census["any_trig"] if any_trig is None else any_trig
-    if any_char and char_candidates is None:
-        raise NotImplementedError(
-            "a character without char_candidates needs the per-slot "
-            "character step, which is not ported yet: ROADMAP queue 1, "
-            "item 6")
     if enable_capsule and broadphase == "allpairs":
         raise ValueError(
             "broadphase='allpairs' is the box-only stress pipeline; this "
-            "scene has solid capsules")
-    if enable_capsule:
+            "scene has solid capsules: use broadphase='dense'")
+    if enable_capsule and broadphase == "static":
         raise NotImplementedError(
-            "solid capsules need the capsule slots of box_contacts_t, "
-            "which are not ported yet: ROADMAP queue 1, item 5")
+            "solid capsules on the static route need the capsule slots of "
+            "box_contacts_t, which are not ported yet: ROADMAP item 5")
     if broadphase == "static" and static_neighbors is None:
         raise ValueError(
             "broadphase='static' requires static_neighbors=(idx, valid)")
@@ -175,7 +190,11 @@ def physics_step(
     # solid = participates in the contact solver (characters are ghosts)
     solid = alive & has_collider & ~is_char
 
-    if broadphase == "allpairs":
+    if broadphase == "dense":
+        vel, ang, feat, imp, overflow = _contacts_dense(
+            state, static, pos, quat, vel, ang, solid, is_dynamic,
+            max_neighbors, enable_capsule, solver_iterations)
+    elif broadphase == "allpairs":
         vel, ang, feat, imp, overflow = _contacts_allpairs(
             state, static, pos, quat, vel, ang, solid, is_dynamic,
             solver_iterations, max_neighbors)
@@ -187,18 +206,26 @@ def physics_step(
     return _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                         char_on_ground, moving, alive, has_collider, dt,
                         any_trig, contact_feat=feat, contact_imp=imp,
-                        contact_overflow=overflow, group=group)
+                        contact_overflow=overflow, group=group,
+                        trigger_mode=trigger_mode)
 
 
 def _step_characters(state, inp, static, pos, quat, obstacle_base,
                      char_candidates, group):
-    """The planar character step over static per-slot candidates
-    (``step.py:166-239``): returns pos with the characters' new centres,
-    and the new ``char_vel_y`` and ``char_on_ground``."""
+    """The planar character step (``step.py:127-239``) over static
+    per-slot candidates, or over every entity where none are given (the
+    JAX step's per-slot route): returns pos with the characters' new
+    centres, and the new ``char_vel_y`` and ``char_on_ground``, written
+    only for the slots in use (the JAX step also writes an empty slot's
+    row 0 back, ROADMAP §3)."""
     c_slots = static.num_char_slots
     char_ent = static.char_entity
     safe_ce = char_ent.clamp_min(0).to(torch.int64)
-    cand = char_candidates.to(torch.int64)               # [C, K]
+    if char_candidates is None:
+        n = pos.shape[0]
+        cand = torch.arange(n, device=pos.device).expand(c_slots, n)
+    else:
+        cand = char_candidates.to(torch.int64)           # [C, K]
     ob_c = obstacle_base[cand] & (cand != safe_ce[:, None])
     if group is not None:
         ob_c = ob_c & (group[cand] == group[safe_ce][:, None])
@@ -347,10 +374,84 @@ def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
     return vel, ang, feat, imp, overflow
 
 
+def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
+                    max_neighbors, enable_capsule, solver_iterations):
+    """The dense route (``step.py:492-623``): all-pairs AABB neighbor
+    lists, narrowphase manifolds of each surviving pair and the ground,
+    compaction to the per-body budget, the unified solve.  Rows are bodies
+    in id order, ``[N, C]``."""
+    n = state.capacity
+    layer_ok = (((static.layer[:, None] & static.mask[None, :]) != 0)
+                & ((static.layer[None, :] & static.mask[:, None]) != 0))
+    any_dyn = is_dynamic[:, None] | is_dynamic[None, :]
+    pair_mask = solid[:, None] & solid[None, :] & layer_ok & any_dyn
+    nl = build_neighbor_lists_dense(
+        pos, quat, static.shape_type, static.shape_size, pair_mask,
+        max_neighbors=min(max_neighbors, 8))
+    safe_j = nl.idx.clamp_min(0).to(torch.int64)
+
+    # the narrowphase on the surviving pairs only
+    p_point, p_normal, p_depth, p_gvalid = nf.pair_contacts(
+        pos[:, None], quat[:, None],
+        static.shape_type[:, None], static.shape_size[:, None],
+        pos[safe_j], quat[safe_j],
+        static.shape_type[safe_j], static.shape_size[safe_j],
+        enable_capsule=enable_capsule)
+    p_valid = p_gvalid & (p_depth > 0.0) & nl.valid[..., None]
+    g_point, g_normal, g_depth, g_gvalid = nf.ground_contacts(
+        pos, quat, static.shape_type, static.shape_size)
+    g_valid = (g_gvalid & (g_depth > 0.0) & (is_dynamic & solid)[:, None]
+               & static.ground_enabled)
+
+    # flatten, fold the ground in (partner -1), compact to the budget.
+    # Feature ids for the cache: (partner + 1) * FEAT_STRIDE + narrowphase
+    # slot k for pair contacts (k names a geometric feature: corner,
+    # SAT centre, capsule sample), the bare slot for ground contacts
+    k_pair = p_depth.shape[2]
+    m_pair = p_depth.shape[1] * k_pair
+    partner = nl.idx[:, :, None].expand(p_depth.shape)
+    slots = torch.arange(k_pair, dtype=torch.int32, device=pos.device)
+    ground_slots = torch.arange(nf.K_GROUND, dtype=torch.int32,
+                                device=pos.device)
+    all_b = torch.cat([partner.reshape(n, m_pair),
+                       torch.full((n, nf.K_GROUND), -1, dtype=torch.int32,
+                                  device=pos.device)], dim=1)
+    all_pt = torch.cat([p_point.reshape(n, m_pair, 3), g_point], dim=1)
+    all_n = torch.cat([p_normal.reshape(n, m_pair, 3), g_normal], dim=1)
+    all_d = torch.cat([p_depth.reshape(n, m_pair), g_depth], dim=1)
+    all_v = torch.cat([p_valid.reshape(n, m_pair), g_valid], dim=1)
+    all_f = torch.cat([((partner + 1) * FEAT_STRIDE + slots).reshape(
+        n, m_pair), ground_slots.expand(n, nf.K_GROUND)], dim=1)
+    c_b, c_pt, c_n, c_d, c_valid, overflow, c_f = sv.compact_contacts(
+        all_b, all_pt, all_n, all_d, all_v, CONTACT_BUDGET, feat=all_f)
+
+    safe_b = c_b.clamp_min(0).to(torch.int64)
+    static_side = c_b < 0
+    fric = static.friction[:, None]
+    c_mu = torch.where(static_side, fric * GROUND_FRICTION,
+                       fric * static.friction[safe_b])
+    c_e = torch.where(static_side, 0.0,
+                      static.restitution[:, None] * static.restitution[safe_b])
+    inv_i_w = sv.inv_inertia_world(quat, static.inv_inertia_body)
+    # the previous step's impulses by feature match: feature ids are
+    # unique within a row, so the masked sum moves one cached impulse
+    match = ((c_f[:, :, None] == state.contact_feat[:, None, :])
+             & (c_f >= 0)[:, :, None]).to(torch.float32)     # [N, C, C0]
+    warm = (match[..., None] * state.contact_imp[:, None]).sum(dim=2)
+    vel, ang, (ln, lt1, lt2) = sv.solve_contacts_unified(
+        vel, ang, pos, static.inv_mass, inv_i_w, c_b, c_pt, c_n, c_d,
+        c_valid, c_mu, c_e, static.fixed_dt, warm.unbind(-1),
+        SOLVER_MOMENTUM, iterations=solver_iterations)
+    imp = torch.where(c_valid[..., None], torch.stack([ln, lt1, lt2], dim=-1),
+                      0.0)
+    return vel, ang, c_f, imp, overflow
+
+
 def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                  char_on_ground, moving, alive, has_collider, dt, any_trig,
                  contact_feat, contact_imp, contact_overflow,
-                 group=None) -> tuple[WorldState, StepEvents]:
+                 group=None,
+                 trigger_mode: str = "aabb") -> tuple[WorldState, StepEvents]:
     """Shared step tail: integrate, triggers, state assembly."""
     # semi-implicit Euler for dynamic AND kinematic bodies (kinematic
     # velocity is host-driven and persists until changed)
@@ -360,10 +461,12 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
     vel = torch.where(moving[:, None], vel, 0.0)
     ang = torch.where(moving[:, None], ang, 0.0)
 
-    # triggers: AABB overlap (Bullet's ghost pairs); scenes with no trigger
-    # slot in use skip the sweep
+    # triggers: AABB overlap (Bullet's ghost pairs) or exact shape
+    # overlap; scenes with no trigger slot in use skip the sweep
     if any_trig:
-        overlap = tg.trigger_aabb_overlaps(
+        overlap_fn = (tg.trigger_aabb_overlaps if trigger_mode == "aabb"
+                      else tg.trigger_overlaps)
+        overlap = overlap_fn(
             static.trig_entity, static.trig_shape, static.trig_size,
             static.trig_layer, static.trig_mask, state.trigger_active,
             pos, quat, static.shape_type, static.shape_size,

@@ -1,17 +1,52 @@
-"""Trigger volumes: AABB overlap sets and Enter/Stay/Exit events.
+"""Trigger volumes: overlap sets and Enter/Stay/Exit events.
 
-Counterpart of ``trigger_aabb_overlaps`` and ``diff_events`` in
-``banggameengine_tpu/physics/triggers.py``.  The filter mirrors Bullet's
-group/mask test both ways: ``(trig_layer & other_mask) &&
-(other_layer & trig_mask)``; oneShot deactivation happens inside the step.
-The exact shape-overlap mode (``trigger_overlaps``) is not ported.
+Counterpart of ``banggameengine_tpu/physics/triggers.py``: the AABB mode
+(Bullet's ghost objects report broadphase pairs), the exact shape mode
+over :func:`narrowphase.boolean_overlap_pairs`, and the overlap diff.  The
+filter mirrors Bullet's group/mask test both ways: ``(trig_layer &
+other_mask) && (other_layer & trig_mask)``; oneShot deactivation happens
+inside the step.
 """
 
 from __future__ import annotations
 
 import torch
 
+from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics import shapes as sh
+
+
+def _valid(trig_entity, trig_layer, trig_mask, trigger_active, layer, mask,
+           alive, has_collision):
+    """The pairs a trigger may report: a slot in use and active, a live
+    entity with a collider, not the trigger's own entity, layers agreeing
+    both ways."""
+    n = alive.shape[0]
+    layer_ok = (((trig_layer[:, None] & mask[None, :]) != 0)
+                & ((layer[None, :] & trig_mask[:, None]) != 0))
+    ids = torch.arange(n, device=alive.device)
+    return ((trig_entity[:, None] >= 0)
+            & trigger_active[:, None]
+            & alive[None, :]
+            & has_collision[None, :]
+            & (trig_entity[:, None] != ids[None, :])
+            & layer_ok)
+
+
+def trigger_overlaps(
+    trig_entity, trig_shape, trig_size, trig_layer, trig_mask, trigger_active,
+    pos, quat, shape_type, size, layer, mask, alive, has_collision,
+):
+    """Exact shape overlap bool[T, N] of each trigger volume against each
+    entity's collision shape (box SAT, capsule distance)."""
+    safe_te = trig_entity.clamp_min(0).to(torch.int64)
+    overlap = nf.boolean_overlap_pairs(
+        pos[safe_te][:, None], quat[safe_te][:, None],
+        trig_shape.to(shape_type.dtype)[:, None], trig_size[:, None],
+        pos[None, :], quat[None, :], shape_type[None, :], size[None, :])
+    return overlap & _valid(trig_entity, trig_layer, trig_mask,
+                            trigger_active, layer, mask, alive,
+                            has_collision)
 
 
 def trigger_aabb_overlaps(
@@ -30,18 +65,9 @@ def trigger_aabb_overlaps(
     for j in range(3):
         overlap &= ((tmn[:, j][:, None] <= emx[:, j][None, :])
                     & (emn[:, j][None, :] <= tmx[:, j][:, None]))
-    layer_ok = (((trig_layer[:, None] & mask[None, :]) != 0)
-                & ((layer[None, :] & trig_mask[:, None]) != 0))
-    ids = torch.arange(n, device=pos.device)
-    valid = (
-        (trig_entity[:, None] >= 0)
-        & trigger_active[:, None]
-        & alive[None, :]
-        & has_collision[None, :]
-        & (trig_entity[:, None] != ids[None, :])
-        & layer_ok
-    )
-    return overlap & valid
+    return overlap & _valid(trig_entity, trig_layer, trig_mask,
+                            trigger_active, layer, mask, alive,
+                            has_collision)
 
 
 def diff_events(prev_overlap, now_overlap, trig_one_shot, trigger_active):

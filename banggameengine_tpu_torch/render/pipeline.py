@@ -21,7 +21,6 @@ other than ``"walk"`` and ``"tile"``, ``merged``/``pipelined`` ticks and
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import torch
@@ -36,7 +35,6 @@ from banggameengine_tpu_torch.render.shading import (
     shade_visibility_tiled,
 )
 from banggameengine_tpu_torch.scene.build import BuiltScene, RenderScene
-from banggameengine_tpu_torch.state import StepEvents
 
 Tensor = torch.Tensor
 
@@ -147,7 +145,7 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
     events gain a leading [substeps] axis.  ``call.update_static(static)``
     swaps the static scene.  ``donate`` has no counterpart in eager
     PyTorch (the input state is never written) and is ignored."""
-    from banggameengine_tpu_torch.engine import engine_step
+    from banggameengine_tpu_torch.engine import engine_step, stack_events
     from banggameengine_tpu_torch.physics.step import scene_census
 
     del donate
@@ -167,9 +165,7 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
             events.append(ev)
         if substeps == 1:
             return state, events[0]
-        return state, StepEvents(**{
-            f.name: torch.stack([getattr(e, f.name) for e in events])
-            for f in dataclasses.fields(StepEvents)})
+        return state, stack_events(events)
 
     def call(state, inp, view, proj, cam_pos, light=None):
         s2, ev = step(state, inp)

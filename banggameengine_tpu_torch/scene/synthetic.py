@@ -1,10 +1,11 @@
 """Procedural benchmark scenes (no asset files needed).
 
 Counterpart of ``banggameengine_tpu/scene/synthetic.py``
-:func:`build_falling_boxes`.  The scene is drawn with numpy from the same
-``default_rng(seed)`` in the same order, so one seed gives the same scene
-as the JAX builder: positions and every static field bit-equal, rotations
-equal to the last ulp of f32 sin/cos.
+:func:`build_falling_boxes` and :func:`build_demo_like`.  The scene is
+drawn with numpy from the same ``default_rng(seed)`` in the same order, so
+one seed gives the same scene as the JAX builder: positions and every
+static field bit-equal, rotations equal to the last ulp of f32 sin/cos
+(the demo world has no rotation: equal throughout).
 
 The render scenes have no JAX counterpart (the JAX package renders the
 demo scene from asset files): :func:`build_showcase_render` stands in for
@@ -31,6 +32,7 @@ from banggameengine_tpu_torch.scene.textures import (
 from banggameengine_tpu_torch.state import (
     BODY_DYNAMIC,
     BODY_KINEMATIC,
+    BODY_STATIC,
     COMP_CHARACTER,
     COMP_COLLIDER,
     COMP_RIGID_BODY,
@@ -192,6 +194,41 @@ def build_falling_boxes(
         pos=t(pos),
         quat=math3d.quat_from_euler_xyz(t(euler)),
     )
+    return state, static
+
+
+def build_demo_like(config: PhysicsConfig | None = None,
+                    device: torch.device | str = "cuda"
+                    ) -> tuple[WorldState, StaticScene]:
+    """The asset-free stand-in for the demo scene (the JAX builder's
+    ``build_demo_like``, the same poses as ``assets/scenes/demo.json``): the
+    capsule character at slot 0 (spawned at (0, 7, -5)), the checkpoint
+    trigger at slot 1 ((5, 1, 5), half size 1.5) and the static ground box
+    at slot 2 (half extents (50, 1, 50) at y = -0.01, friction 1)."""
+    state, static = build_falling_boxes(0, config=config,
+                                        with_character=True,
+                                        with_trigger=True, device=device)
+    gi = 2   # after the character (0) and the trigger (1)
+
+    def at(a, value):
+        a = a.clone()
+        a[gi] = torch.as_tensor(value, dtype=a.dtype)
+        return a
+
+    state = tree_replace(
+        state,
+        alive=at(state.alive, True),
+        comp_mask=at(state.comp_mask,
+                     COMP_TRANSFORM | COMP_COLLIDER | COMP_RIGID_BODY),
+        pos=at(state.pos, [0.0, -0.01, 0.0]))
+    static = tree_replace(
+        static,
+        body_type=at(static.body_type, BODY_STATIC),
+        shape_type=at(static.shape_type, SHAPE_BOX),
+        shape_size=at(static.shape_size, [50.0, 1.0, 50.0]),
+        friction=at(static.friction, 1.0),
+        layer=at(static.layer, 1),
+        mask=at(static.mask, -1))    # 0xFFFFFFFF as int32 bits
     return state, static
 
 

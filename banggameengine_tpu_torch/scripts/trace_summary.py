@@ -18,7 +18,11 @@ more execution and a sync; the summary gives, per execution of the 3:
 Programs: ``stress`` (one 50-step dispatch of the 10k-box world from its
 200-step state), ``manyworld`` (one 50-step dispatch of the flat
 many-world step, 1,000 worlds of 8 boxes, a character and a trigger, from
-their 200-step state), ``frame_tiled``, ``frame_fused``, ``frame_flat`` and
+their 200-step state), ``demo`` (one 100-step dispatch of the demo world,
+``build_demo_like``, on the default dense route, from its 480-step state:
+the character on the ground), ``dense`` (one 50-step dispatch of 200 boxes,
+a character and a trigger on the dense route with exact shape triggers,
+from their 300-step state), ``frame_tiled``, ``frame_fused``, ``frame_flat`` and
 ``depth`` (the showcase at 1920x1080, as ``profile_render``), ``tick``
 (``make_frame_fn`` on the 10k-box world from its 200-step state, seen by the
 tick camera).  Under the profiler every host op costs more than without it,
@@ -27,7 +31,13 @@ so the busy share it shows is a lower bound of the untraced one.
     python3 -m banggameengine_tpu_torch.scripts.trace_summary frame_tiled [OUTDIR]
     python3 -m banggameengine_tpu_torch.scripts.trace_summary tick --device cpu --small
     python3 -m banggameengine_tpu_torch.scripts.trace_summary manyworld
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary demo --device cpu --small
     python3 -m banggameengine_tpu_torch.scripts.trace_summary --parse PATH [REPS]
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary demo --device cpu --count-ops
+
+``--count-ops`` traces nothing: it counts the ATen ops one execution
+dispatches, views left out (each launches about one kernel on the card),
+on any device; the count does not depend on the device.
 
 ``PATH`` is an exported Chrome trace or a directory of them (the newest is
 read).  Without ``OUTDIR`` the trace goes to a new temporary directory.
@@ -62,6 +72,7 @@ from banggameengine_tpu_torch.scene.synthetic import (
     TICK_CAMERA_POS,
     TICK_CAMERA_YAW_PITCH,
     build_box_render,
+    build_demo_like,
     build_falling_boxes,
 )
 from banggameengine_tpu_torch.scripts import profile_render
@@ -78,8 +89,8 @@ TOP = 10
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 CUDA_API = "cuda_"     # the categories of host-side CUDA API calls
-PROGRAMS = ("stress", "manyworld", "frame_tiled", "frame_fused",
-            "frame_flat", "depth", "tick")
+PROGRAMS = ("stress", "manyworld", "demo", "dense", "frame_tiled",
+            "frame_fused", "frame_flat", "depth", "tick")
 MAX_NEIGHBORS = 8
 FIRST_EXECUTION = "execution 0"
 COOL_DOWN = "cool-down"
@@ -116,6 +127,30 @@ def _manyworld_state(device, small: bool):
     return run, (bstate, binp)
 
 
+def _dense_route_state(name: str, device, small: bool):
+    """The dense route's dispatch and its arguments, from the settled
+    state: ``demo`` 100 steps a dispatch after 480 (``small``: 5 after
+    20), ``dense`` 200 boxes with a character and a trigger, shape
+    triggers, 50 steps a dispatch after 300 (``small``: 12 boxes, 5 after
+    20)."""
+    if name == "demo":
+        state, static = build_demo_like(device=device)
+        steps, settle = (5, 20) if small else (100, 480)
+        kw = {}
+    else:
+        state, static = build_falling_boxes(
+            12 if small else 200, seed=1, with_character=True,
+            with_trigger=True, device=device)
+        steps, settle = (5, 20) if small else (50, 300)
+        kw = dict(trigger_mode="shape")
+    inp = InputFrame.zero(device)
+    run = make_multi_step_fn(static, steps, **kw)
+    for _ in range(settle // steps):
+        state = run(state, inp)
+    state = make_multi_step_fn(static, settle % steps, **kw)(state, inp)
+    return run, (state, inp)
+
+
 def build(name: str, device="cuda", small: bool = False):
     """The program ``name`` as (function, its arguments on ``device``)."""
     if name == "stress":
@@ -123,6 +158,8 @@ def build(name: str, device="cuda", small: bool = False):
         return run, (state, inp)
     if name == "manyworld":
         return _manyworld_state(device, small)
+    if name in ("demo", "dense"):
+        return _dense_route_state(name, device, small)
     if name == "tick":
         state, static, inp, _ = _stress_state(device, small)
         width, height = (profile_render.SMALL_WH if small
@@ -301,6 +338,23 @@ def trace_and_summarize(fn, args, outdir: str | None = None) -> dict:
     return parse_trace(path, REPS)
 
 
+def count_ops(fn, args) -> int:
+    """The ATen ops one execution of ``fn(*args)`` dispatches, views
+    left out."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count() as counter:
+        fn(*args)
+    return counter.n
+
+
 def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--parse"]:
@@ -310,10 +364,17 @@ def main(argv=None) -> dict:
     ap.add_argument("outdir", nargs="?")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true",
-                    help="a 128x64 frame, 64 boxes, 4 worlds (CPU-cheap)")
+                    help="a 128x64 frame, 64 boxes, 4 worlds, short "
+                         "dispatches (CPU-cheap)")
+    ap.add_argument("--count-ops", action="store_true",
+                    help="count one execution's ops instead of tracing")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     fn, fn_args = build(args.program, device, args.small)
+    if args.count_ops:
+        n = count_ops(fn, fn_args)
+        print(f"{args.program}: {n} ops per execution (views left out)")
+        return {"ops": n}
     return trace_and_summarize(fn, fn_args, args.outdir)
 
 

@@ -112,7 +112,30 @@ them.  Phases, one line each:
    (``tests/data/flat4_jax_golden.json``: floats within the bars it
    stores, bools exact); world-steps/s by CUDA events (2 warm-up, median
    of 5), the peak memory, and one flat step's device time by part
-   (characters, contacts + solve, integrate + the trigger planes).
+   (characters, contacts + solve, integrate + the trigger planes);
+16. the default route (``broadphase="dense"``: all-pairs AABB neighbor
+   lists, the narrowphase manifolds, the unified solver, the character
+   step against every entity), no hand kernel on it: ``build_demo_like``
+   (the character, the checkpoint trigger and the static ground box), 480
+   zero-input steps through ``make_multi_step_fn(static, 100)`` (4
+   dispatches and one of 80) and 360 steps sprinting toward the trigger
+   through ``make_step_fn_with_events`` (6 dispatches of 60), no host
+   synchronisation, no hand-kernel launch: the character's position
+   within the JAX golden's bar (``tests/data/demo_jax_golden.json``) after
+   the landing and every 60 walking steps, the trigger's Enter and Exit
+   on the golden's steps; demo steps/s by CUDA events over the settling
+   run's 100-step dispatches (the first the warm-up, the median of the
+   other 3); then 200 boxes and a character sprinting into an exact shape
+   trigger (``trigger_mode="shape"``) for 300 steps in 6 events
+   dispatches of 50, held to the same golden: trigger events exact at
+   every step, the character's position and on-ground flag every 50
+   steps, the boxes' positions every 50 steps through step 250, each
+   within the bar the golden stores; finite, every box above y = 0.2,
+   ``contact_overflow`` and the neighbor lists' ``nbr_overflow`` printed;
+   steps/s over those dispatches (the first the warm-up, the median of
+   5) and the peak memory; the 12-box world after 60 steps against the
+   golden; one demo step and one 200-box step traced (launches, device
+   time, busy share).
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -212,6 +235,11 @@ MW_SCENE = dict(num_bodies=8, with_character=True, with_trigger=True)
 MW_CHAR_ROW = 8      # build_falling_boxes' slots: boxes, character, trigger
 MW_SEED = 7          # the per-world inputs
 MW_GOLDEN = os.path.join(DATA, "flat4_jax_golden.json")
+DEMO_GOLDEN = os.path.join(DATA, "demo_jax_golden.json")
+DEMO_DISPATCH = 100   # bench_demo's steps per dispatch (bench.py:161)
+DEMO_CHAR = 0         # build_demo_like's slots: character, trigger, ground
+WALK_CHUNK = 60       # walking steps per events dispatch (the golden's grid)
+DENSE_FLOOR = 0.2     # every box's centre above it after the dense run
 
 
 class SmokeFailure(AssertionError):
@@ -308,6 +336,34 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for m, w, _, _ in render_kernel_modules().values():
         getattr(m, w).launches = 0
+
+
+def hand_launches() -> int:
+    """Launches of every hand kernel since the counts were last set to 0."""
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.scripts import gather_rows as gr
+
+    return (bk.neighbor_lists_aabb.launches + gr.gather_rows_u8.launches
+            + sum(launch_counts().values()))
+
+
+def reset_hand_launches() -> None:
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.scripts import gather_rows as gr
+
+    bk.neighbor_lists_aabb.launches = 0
+    gr.gather_rows_u8.launches = 0
+    reset_launch_counts()
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """A host synchronisation inside raises (CUDA sync debug mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 @contextlib.contextmanager
@@ -1261,10 +1317,8 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
     character and a trigger (no hand kernel on this path)."""
     from banggameengine_tpu_torch.parallel.manyworld import (
         make_flat_many_world_step, replicate_input, replicate_state)
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
-    from banggameengine_tpu_torch.scripts import gather_rows as gr
     from banggameengine_tpu_torch.state import SHAPE_BOX, InputFrame
 
     # ---- 15. the many-world slice ---------------------------------------
@@ -1301,13 +1355,10 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
         return lowest
 
     # the run: 200 steps, 4 dispatches of 50, no host sync, no hand kernel
-    bk.neighbor_lists_aabb.launches = 0
-    gr.gather_rows_u8.launches = 0
-    reset_launch_counts()
+    reset_hand_launches()
     steps = DISPATCHES * STEPS_PER_DISPATCH
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")   # a host sync in a step raises
-    try:
+    with no_host_sync():
         state = bstate0
         for _ in range(DISPATCHES):
             state = run(state, zero_inp)
@@ -1316,12 +1367,9 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
             driven = run(driven, drive)
             if i == 1:
                 driven_mid = driven    # step 100: boxes touch at 109-112
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
-    hand = (bk.neighbor_lists_aabb.launches + gr.gather_rows_u8.launches
-            + sum(launch_counts().values()))
+    hand = hand_launches()
     check(hand == 0, f"the many-world path launched {hand} hand kernels")
     lowest = checked(state, "zero input")
     check(state.step_idx.tolist() == [steps] * w,
@@ -1489,6 +1537,256 @@ def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
             out[k] = ts.trace_and_summarize(fn, (), os.path.join(
                 tmp, k.replace(" ", "_")))
     return out
+
+
+def _timed(fn, *args):
+    """``fn(*args)`` between two CUDA events, with no host sync: (its
+    result, the events); read the events' elapsed time after a sync."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    return out, (start, end)
+
+
+def _event_list(planes, first: int) -> list:
+    """[steps, T, N] event planes -> [[step, trigger slot, entity], ...],
+    steps counted from ``first`` (as the golden stores them)."""
+    return [[i + first, t, e] for i, t, e in planes.nonzero().tolist()]
+
+
+def dense_phase(dev, card: str) -> None:
+    """Phase 16: the JAX package's default route (``broadphase="dense"``)
+    on the demo world, the 200-box world and the 12-box world (no hand
+    kernel on this path).  Every rate is timed over the checked runs' own
+    dispatches (the port is eager: nothing compiles, so the first
+    dispatch alone is the warm-up), so no step runs only to be timed."""
+    from banggameengine_tpu_torch.engine import (
+        make_multi_step_fn, make_step_fn, make_step_fn_with_events)
+    from banggameengine_tpu_torch.physics.broadphase import (
+        build_neighbor_lists_dense)
+    from banggameengine_tpu_torch.scene.synthetic import (
+        build_demo_like, build_falling_boxes)
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+    from banggameengine_tpu_torch.state import (
+        BODY_DYNAMIC, COMP_CHARACTER, COMP_COLLIDER, InputFrame)
+
+    def input_frame(values: dict) -> InputFrame:
+        return InputFrame(**{
+            k: torch.tensor(v, dtype=torch.bool if k in ("jump", "sprint")
+                            else torch.float32, device=dev)
+            for k, v in values.items()})
+
+    # ---- 16. the demo world and the dense route ---------------------------
+    t_phase = time.perf_counter()
+    with open(DEMO_GOLDEN) as f:
+        golden = json.load(f)
+    gd = golden["demo"]
+    settle, walk_steps = gd["settle_steps"], gd["walk_steps"]
+    state0, static = build_demo_like(device=dev)
+    zero = InputFrame.zero(dev)
+    walk_inp = input_frame(gd["walk_input"])
+    run = make_multi_step_fn(static, DEMO_DISPATCH)
+    tail = make_multi_step_fn(static, settle % DEMO_DISPATCH)
+    walk = make_step_fn_with_events(static, WALK_CHUNK)
+
+    def char_err(s, step: int) -> float:
+        got = s.pos[DEMO_CHAR].cpu().numpy()
+        return float(np.abs(got - np.asarray(gd["char_pos"][str(step)],
+                                             np.float32)).max())
+
+    # the run: 480 zero-input steps, then 360 sprinting toward the trigger
+    reset_hand_launches()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        state, settle_events = state0, []
+        for _ in range(settle // DEMO_DISPATCH):
+            state, ev = _timed(run, state, zero)
+            settle_events.append(ev)
+        state = tail(state, zero)
+        settled = state
+        chunks = []
+        for _ in range(walk_steps // WALK_CHUNK):
+            state, events = walk(state, walk_inp)
+            chunks.append((state, events))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    hand = hand_launches()
+    check(hand == 0, f"the demo launched {hand} hand kernels")
+    rest = settled.pos[DEMO_CHAR].cpu().numpy()
+    err = char_err(settled, settle)
+    check(err < gd["atol"],
+          f"demo: character at {rest} after {settle} steps, |pos - JAX| "
+          f"{err}")
+    check(bool(settled.char_on_ground[DEMO_CHAR]),
+          "demo: the character is not on the ground")
+    errs, enter, leave = [err], [], []
+    for c, (s, ev) in enumerate(chunks):
+        at = settle + (c + 1) * WALK_CHUNK
+        errs.append(char_err(s, at))
+        check(errs[-1] < gd["atol"],
+              f"demo: |pos - JAX| = {errs[-1]} at step {at}")
+        first = at - WALK_CHUNK + 1
+        enter += (ev.trigger_enter[:, 0, DEMO_CHAR].nonzero()[:, 0]
+                  + first).tolist()
+        leave += (ev.trigger_exit[:, 0, DEMO_CHAR].nonzero()[:, 0]
+                  + first).tolist()
+    check(enter == gd["enter_steps"] and leave == gd["exit_steps"],
+          f"demo: trigger Enter at {enter}, Exit at {leave}; the JAX "
+          f"golden's {gd['enter_steps']}, {gd['exit_steps']}")
+    print(f"[demo] build_demo_like on the default route: {settle} "
+          f"zero-input steps ({settle // DEMO_DISPATCH} dispatches of "
+          f"{DEMO_DISPATCH} and one of {settle % DEMO_DISPATCH}), then "
+          f"{walk_steps} sprinting toward the trigger "
+          f"({walk_steps // WALK_CHUNK} events dispatches of {WALK_CHUNK}); "
+          f"{run_s:.1f} s wall, no host sync, no hand kernel launched")
+    print(f"[demo] the character rests at y = {rest[1]:.6f} on the ground "
+          f"box (on the ground: True); trigger Enter at step {enter}, Exit "
+          f"at {leave} (the JAX golden's {gd['enter_steps']}, "
+          f"{gd['exit_steps']}); max |pos - JAX| at steps {settle}, "
+          f"{settle + WALK_CHUNK}, ..., {settle + walk_steps}: "
+          f"{max(errs):.3g} (< {gd['atol']:g})")
+
+    # the rate: demo steps/s over the settling run's 100-step dispatches
+    # (bench_demo's size), the first the warm-up: the median of the rest
+    times = [a.elapsed_time(b) for a, b in settle_events[1:]]
+    demo_ms = statistics.median(times)
+    print(f"[times] demo: {DEMO_DISPATCH / (demo_ms / 1e3):.1f} steps/s "
+          f"({demo_ms:.2f} ms per {DEMO_DISPATCH}-step dispatch, median of "
+          f"the {len(times)} settling dispatches after the first; "
+          f"dispatches {', '.join(f'{t:.2f}' for t in times)} ms; real "
+          f"time is 120 steps/s) {card}")
+
+    # ---- the 200-box world on the dense route, exact shape triggers ------
+    gdn = golden["dense"]
+    every, dchar = gdn["every"], gdn["char"]
+    b0, bstatic = build_falling_boxes(**gdn["scene"], device=dev)
+    bwalk = input_frame(gdn["input"])
+    brun = make_step_fn_with_events(bstatic, every,
+                                    trigger_mode=gdn["trigger_mode"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**20
+    reset_hand_launches()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        bstate, bchunks = b0, []
+        for _ in range(gdn["steps"] // every):
+            (bstate, bev), tev = _timed(brun, bstate, bwalk)
+            bchunks.append((bstate, bev, tev))
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    hand = hand_launches()
+    check(hand == 0, f"the 200-box world launched {hand} hand kernels")
+    for field in ("pos", "quat", "lin_vel", "ang_vel", "char_vel_y"):
+        check(bool(torch.isfinite(getattr(bstate, field)).all()),
+              f"200 boxes: {field} not finite")
+    lowest = float(bstate.pos[:dchar, 1].min())
+    check(lowest > DENSE_FLOOR,
+          f"200 boxes: a box centre at y = {lowest} <= {DENSE_FLOOR}")
+    # against the JAX golden: events exact at every step, the character's
+    # position and on-ground flag every 50 steps, the boxes' positions
+    # every 50 steps through the golden's last held step
+    got_ev = {"enter": [], "exit": []}
+    char_errs, box_errs = [], []
+    for c, (s, ev, _) in enumerate(bchunks):
+        at = (c + 1) * every
+        got_ev["enter"] += _event_list(ev.trigger_enter, at - every + 1)
+        got_ev["exit"] += _event_list(ev.trigger_exit, at - every + 1)
+        pos = s.pos.cpu().numpy()
+        char_errs.append(float(np.abs(
+            pos[dchar] - np.asarray(gdn["char_pos"][str(at)],
+                                    np.float32)).max()))
+        check(char_errs[-1] < gdn["char_atol"],
+              f"200 boxes: the character's |pos - JAX| = {char_errs[-1]} "
+              f"at step {at}")
+        check(bool(s.char_on_ground[dchar])
+              == gdn["char_on_ground"][str(at)],
+              f"200 boxes: char_on_ground differs from JAX at step {at}")
+        if str(at) in gdn["box_pos"]:
+            box_errs.append(float(np.abs(
+                pos[:dchar] - np.asarray(gdn["box_pos"][str(at)],
+                                         np.float32)).max()))
+            check(box_errs[-1] < gdn["box_atol"],
+                  f"200 boxes: |pos - JAX| = {box_errs[-1]} at step {at}")
+    check(got_ev == {"enter": gdn["enter"], "exit": gdn["exit"]},
+          f"200 boxes: trigger events {got_ev}; the JAX golden's "
+          f"{gdn['enter']}, {gdn['exit']}")
+    landed = int((bstate.lin_vel[:dchar, 1].abs() < 0.05).sum())
+    overflow = max(int(ev.contact_overflow.max()) for _, ev, _ in bchunks)
+    alive = bstate.alive
+    has_col = (bstate.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
+    solid = alive & has_col & ((bstate.comp_mask & COMP_CHARACTER) == 0)
+    dyn = (bstatic.body_type == BODY_DYNAMIC) & alive
+    layer_ok = (((bstatic.layer[:, None] & bstatic.mask[None, :]) != 0)
+                & ((bstatic.layer[None, :] & bstatic.mask[:, None]) != 0))
+    nl = build_neighbor_lists_dense(
+        bstate.pos, bstate.quat, bstatic.shape_type, bstatic.shape_size,
+        solid[:, None] & solid[None, :] & layer_ok
+        & (dyn[:, None] | dyn[None, :]), max_neighbors=8)
+    print(f"[dense] {dchar} boxes, a character sprinting toward a shape "
+          f"trigger ({bstatic.capacity} entity slots) on the default "
+          f"route, trigger_mode='shape': {gdn['steps']} steps in "
+          f"{gdn['steps'] // every} events dispatches of {every} "
+          f"({dense_s:.1f} s wall, no host sync, no hand kernel): state "
+          f"finite, lowest box centre {lowest:.4f} > {DENSE_FLOOR}, "
+          f"{landed} boxes at rest (|v_y| < 0.05); trigger Enter "
+          f"{got_ev['enter']}, Exit {got_ev['exit']} ([step, trigger, "
+          f"entity], as the JAX golden's); character on the ground at "
+          f"steps {every}, ..., {gdn['steps']}: "
+          f"{[bool(s.char_on_ground[dchar]) for s, _, _ in bchunks]} (as "
+          f"the golden's); max |pos - JAX| every {every} steps: character "
+          f"{max(char_errs):.3g} (< {gdn['char_atol']:g}), boxes through "
+          f"step {gdn['box_last']} {max(box_errs):.3g} "
+          f"(< {gdn['box_atol']:g}); contact_overflow {overflow} (the most "
+          f"in a step), nbr_overflow {int(nl.nbr_overflow)} after step "
+          f"{gdn['steps']}")
+    times = [a.elapsed_time(b) for _, _, (a, b) in bchunks[1:]]
+    dense_ms = statistics.median(times)
+    print(f"[times] dense 200: {every / (dense_ms / 1e3):.1f} steps/s "
+          f"({dense_ms:.2f} ms per {every}-step events dispatch, median of "
+          f"the {len(times)} after the first; dispatches "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms), peak memory "
+          f"{peak:.1f} MiB ({peak - before:.1f} MiB over the {before:.1f} "
+          f"MiB allocated before the run) {card}")
+
+    # ---- the 12-box world against the JAX golden ---------------------------
+    gb = golden["boxes"]
+    s12, st12 = build_falling_boxes(**gb["scene"], device=dev)
+    step12 = make_step_fn(st12)
+    with no_host_sync():
+        for _ in range(gb["steps"]):
+            s12, _ = step12(s12, zero)
+    err12 = float(np.abs(s12.pos.cpu().numpy()
+                         - np.asarray(gb["pos"], np.float32)).max())
+    check(err12 < gb["atol"],
+          f"12 boxes: |pos - JAX| = {err12} after {gb['steps']} steps")
+    print(f"[reference] 12 boxes vs the JAX package's dense route after "
+          f"{gb['steps']} steps: max |pos - JAX| {err12:.3g} "
+          f"(< {gb['atol']:g})")
+
+    # ---- one step of each, traced: launches and device time --------------
+    one_demo = make_step_fn(static)
+    bstep = make_step_fn(bstatic, trigger_mode=gdn["trigger_mode"])
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[profile] trace_summary of one demo step:")
+        tr_demo = ts.trace_and_summarize(
+            lambda: one_demo(settled, zero)[0].pos, (),
+            os.path.join(tmp, "demo"))
+        print("[profile] trace_summary of one 200-box step:")
+        tr_dense = ts.trace_and_summarize(
+            lambda: bstep(bstate, bwalk)[0].pos, (),
+            os.path.join(tmp, "dense"))
+    for name, tr in (("demo", tr_demo), ("dense 200", tr_dense)):
+        print(f"[times] one {name} step, traced: {tr['launches']:g} launches, "
+              f"{tr['busy_ms']:.3f} ms of device time in a "
+              f"{tr['window_ms']:.3f} ms window (busy "
+              f"{100 * tr['busy_share']:.1f} %); top kernels: "
+              + "; ".join(f"{k['name'][:60]} {k['ms']:.4f} ms x{k['count']:g}"
+                          for k in tr["kernels"][:4]) + f" {card}")
+    print(f"[dense] phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1711,6 +2009,7 @@ def main() -> int:
     routes = route_phases(dev, card, views)
     profiling = profiling_phases(dev, card, build_s[5])
     manyworld_phase(dev, card)
+    dense_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

@@ -373,10 +373,20 @@ def test_unported_options_raise():
     fs = step.flatten(manyworld.replicate_state(state, 2))
     inp = manyworld.replicate_input(InputFrame.zero("cpu"), 2)
     nb = manyworld._flat_static(static, 2, state.comp_mask)[1:3]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        engine_step(fs, inp, step.flat_static, broadphase="static",
-                    static_neighbors=nb,
-                    **scene_census(step.flat_static))
+    # without char_candidates the characters take every entity as their
+    # candidates (item 6, ported): the same move as over the static
+    # candidates, to f32 rounding
+    _, _, _, group, cand, _ = manyworld._flat_static(static, 2,
+                                                     state.comp_mask)
+    per_slot, _ = engine_step(fs, inp, step.flat_static, broadphase="static",
+                              static_neighbors=nb, group=group,
+                              **scene_census(step.flat_static))
+    planar, _ = engine_step(fs, inp, step.flat_static, broadphase="static",
+                            static_neighbors=nb, group=group,
+                            char_candidates=cand,
+                            **scene_census(step.flat_static))
+    torch.testing.assert_close(per_slot.pos, planar.pos, atol=1e-5, rtol=0)
+    assert torch.equal(per_slot.char_on_ground, planar.char_on_ground)
     with pytest.raises(ValueError, match="static_neighbors"):
         engine_step(fs, inp, step.flat_static, broadphase="static",
                     any_char=False)

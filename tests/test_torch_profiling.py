@@ -28,7 +28,12 @@ import torch
 from jax.experimental import pallas as pl
 
 from banggameengine_tpu.utils import profiling as jprof
+from banggameengine_tpu_torch.engine import make_step_fn
 from banggameengine_tpu_torch.render.pipeline import make_render_fn
+from banggameengine_tpu_torch.scene.synthetic import (
+    build_demo_like,
+    build_falling_boxes,
+)
 from banggameengine_tpu_torch.scripts import gather_rows as gr
 from banggameengine_tpu_torch.scripts import profile_render as prr
 from banggameengine_tpu_torch.scripts import profile_shade_parts as psp
@@ -383,6 +388,11 @@ def test_trace_programs_build_and_run(name):
     elif name == "manyworld":
         assert out.pos.shape == (4, 16, 3)
         assert out.step_idx.tolist() == [25] * 4
+    elif name in ("demo", "dense"):
+        assert int(out.step_idx) == 25
+        assert out.pos.shape == ((8, 3) if name == "demo" else (16, 3))
+        char = 0 if name == "demo" else 12
+        assert float(out.pos[char, 1]) < 7.0        # the character falls
     elif name == "tick":
         state, frame, _ = out
         assert tuple(frame.shape) == prr.SMALL_WH[::-1] + (4,)
@@ -390,6 +400,23 @@ def test_trace_programs_build_and_run(name):
     else:
         w, h = prr.SMALL_WH
         assert tuple(out.shape) == ((h, w) if name == "depth" else (h, w, 4))
+
+
+@pytest.mark.parametrize("name", ["demo", "dense"])
+def test_count_ops_is_steps_times_one_step(name):
+    """A dispatch's op count is its steps times one step's: the dense
+    route dispatches the same ops whatever the state (no data-dependent
+    branch on the host)."""
+    fn, (state, inp) = ts.build(name, "cpu", small=True)
+    if name == "demo":
+        static, kw = build_demo_like(device="cpu")[1], {}
+    else:
+        static = build_falling_boxes(12, seed=1, with_character=True,
+                                     with_trigger=True, device="cpu")[1]
+        kw = dict(trigger_mode="shape")
+    n5 = ts.main([name, "--device", "cpu", "--small", "--count-ops"])["ops"]
+    assert n5 == ts.count_ops(fn, (state, inp)) > 0
+    assert n5 == 5 * ts.count_ops(make_step_fn(static, **kw), (state, inp))
 
 
 # ---- the frame stage timer ------------------------------------------------

@@ -136,10 +136,12 @@ def test_unported_routes_raise():
     state, static = jax_build_falling_boxes(8, with_character=True)
     state = convert.world_state_from_numpy(_np(state), "cpu")
     static = convert.static_scene_from_numpy(_np(static), "cpu")
-    with pytest.raises(NotImplementedError, match="character"):
-        make_step_fn(static, broadphase="allpairs")(state,
-                                                    InputFrame.zero("cpu"))
-    for route in ("dense", "grid", "pallas"):
+    # ported: a character without candidates (every entity its
+    # candidates, on every route) and the dense route, the default
+    for kw in (dict(broadphase="allpairs"), dict(broadphase="dense"), {}):
+        out, _ = make_step_fn(static, **kw)(state, InputFrame.zero("cpu"))
+        assert float(out.pos[8, 1]) < float(state.pos[8, 1])  # it falls
+    for route in ("grid", "pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_step_fn(static, broadphase=route, any_char=False)(
                 state, InputFrame.zero("cpu"))
