@@ -19,7 +19,11 @@ Morton-sorted all-pairs AABB broadphase as a CUDA kernel,
 time, the planar character step), the last two on the transposed box
 contact pipeline; all with the warm-started Jacobi solver, integration,
 trigger diffing and the world matrices.  The render slices live in
-``render/``.  Module paths mirror the JAX package's.
+``render/``.  The application shell (``app.Application``: scene files
+through ``scene.build_scene``, the fixed-step loop on the default path
+and the fused tick, input, the orbit camera, trigger events, raycasts,
+the interpolated frame; ``scripts.play_demo`` drives it headless) runs
+them together.  Module paths mirror the JAX package's.
 
 Float32 matrix products must stay in full f32 (the warm-start match and
 one-hot moves carry payload rows): the port never enables TF32.

@@ -1,7 +1,8 @@
 """Engine step: physics, then the world-matrix refresh.
 
 Counterpart of ``banggameengine_tpu/engine.py``: :func:`engine_step`,
-:func:`visual_positions` and the step factories :func:`make_step_fn`,
+:func:`visual_positions`, :func:`interpolated_world` and the step
+factories :func:`make_step_fn`,
 :func:`make_hot_reloadable_step_fn`, :func:`make_multi_step_fn` and
 :func:`make_step_fn_with_events`.  The JAX package jits its steps and scans
 the multi-steps; here the steps run eagerly, and a multi-step is a Python
@@ -17,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from banggameengine_tpu_torch import math3d
 from banggameengine_tpu_torch.ecs.transform import (
     scatter_rows,
     update_world_matrices,
@@ -58,6 +60,24 @@ def engine_step(
         static.parent, static.level_nodes, state.alive,
     )
     return tree_replace(state, world=world), events
+
+
+def interpolated_world(prev_state: WorldState, state: WorldState, alpha,
+                       static: StaticScene) -> torch.Tensor:
+    """World matrices f32[N, 4, 4] at a fraction ``alpha`` in [0, 1] of the
+    way from ``prev_state`` to ``state``, two consecutive fixed steps: the
+    reference renders Bullet's motion states interpolated by the
+    accumulator's remainder.  Positions lerp, rotations nlerp, and the
+    matrices are rebuilt with the characters' visual offsets.  ``alpha``
+    is a float or an f32 0-d tensor (one staged on the device keeps the
+    host out of the frame)."""
+    pos = prev_state.pos + (state.pos - prev_state.pos) * alpha
+    quat = math3d.quat_nlerp(prev_state.quat, state.quat, alpha)
+    interp = tree_replace(state, pos=pos, quat=quat)
+    return update_world_matrices(
+        visual_positions(interp, static), quat, state.scale,
+        static.parent, static.level_nodes, state.alive,
+    )
 
 
 def make_step_fn(

@@ -90,6 +90,14 @@ def quat_to_mat3(q: Tensor) -> Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def quat_nlerp(a: Tensor, b: Tensor, t) -> Tensor:
+    """Normalized linear interpolation with hemisphere correction (for the
+    small rotations between two fixed steps it matches slerp to float
+    precision).  ``t`` is a float or an f32 tensor that broadcasts."""
+    sign = torch.where((a * b).sum(dim=-1, keepdim=True) < 0.0, -1.0, 1.0)
+    return quat_normalize(a + (b * sign - a) * t)
+
+
 def quat_integrate(q: Tensor, omega: Tensor, dt: Tensor) -> Tensor:
     """Integrate unit quaternion by world angular velocity over dt:
     q' = normalize(q + 0.5 * dt * [omega, 0] * q), first order.

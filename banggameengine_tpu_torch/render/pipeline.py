@@ -1,11 +1,12 @@
 """Frame pipeline: cull -> transform -> visibility -> deferred shade.
 
 Counterpart of ``banggameengine_tpu/render/pipeline.py``: ``render_frame``
-(the depth-only frame and three shades), ``make_render_fn`` and
-``make_frame_fn`` (the interactive tick: engine step, then frame).
-PyTorch runs eagerly, so the factories bind arguments instead of
-compiling; nothing in a frame synchronises with the host, so the card
-runs ahead of the caller.
+(the depth-only frame and three shades), ``make_render_fn``,
+``make_interp_render_fn`` (the frame of a world interpolated between two
+fixed steps) and ``make_frame_fn`` (the interactive tick: engine steps,
+then frame).  PyTorch runs eagerly, so the factories bind arguments
+instead of compiling; nothing in a frame synchronises with the host, so
+the card runs ahead of the caller.
 
 Shades (``shade_mode``): ``"tiled"`` (the default: the walk, then the
 per-tile resolve), ``"fused"`` (the walk and the resolve in one kernel)
@@ -14,9 +15,8 @@ light/heavy full-carry raster).
 
 Not ported, and refused with NotImplementedError naming ROADMAP:
 ``wireframe=True`` (item 15), ``shade_mode="tiled"`` over the
-``"tile"`` raster (its row-gather fallback, queue 1), raster backends
-other than ``"walk"`` and ``"tile"``, ``merged``/``pipelined`` ticks and
-``make_interp_render_fn`` (item 14).
+``"tile"`` raster (its row-gather fallback, queue 1) and raster backends
+other than ``"walk"`` and ``"tile"``.
 """
 
 from __future__ import annotations
@@ -126,10 +126,27 @@ def make_render_fn(render_scene: RenderScene, width: int, height: int,
         raster_backend=raster_backend, shade_mode=shade_mode)
 
 
-def make_interp_render_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "make_interp_render_fn (interpolated motion states) is not ported: "
-        "ROADMAP item 14")
+def make_interp_render_fn(render_scene: RenderScene, width: int, height: int,
+                          bin_capacity: int = 512,
+                          return_depth: bool = False,
+                          wireframe: bool = False):
+    """A renderer of interpolated motion states:
+    ``call(prev_state, state, alpha, static, view, proj, cam_pos,
+    light=None)`` blends the two fixed-step states by ``alpha``
+    (:func:`~banggameengine_tpu_torch.engine.interpolated_world`), then
+    renders the blended world, in one call."""
+    from banggameengine_tpu_torch.engine import interpolated_world
+
+    render = make_render_fn(render_scene, width, height,
+                            bin_capacity=bin_capacity,
+                            return_depth=return_depth, wireframe=wireframe)
+
+    def call(prev_state, state, alpha, static, view, proj, cam_pos,
+             light=None):
+        world = interpolated_world(prev_state, state, alpha, static)
+        return render(world, view, proj, cam_pos, light)
+
+    return call
 
 
 def make_frame_fn(built: BuiltScene, width: int, height: int,
@@ -143,15 +160,18 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
     Returns ``call(state, inp, view, proj, cam_pos, light=None)
     -> (new_state, u8[H, W, 4], StepEvents)``; with ``substeps > 1`` the
     events gain a leading [substeps] axis.  ``call.update_static(static)``
-    swaps the static scene.  ``donate`` has no counterpart in eager
-    PyTorch (the input state is never written) and is ignored."""
+    swaps the static scene.
+
+    ``pipelined=True`` renders the world of the state passed in (one tick
+    of visual latency) and then steps.  The JAX package's ``merged`` and
+    ``merged_barrier`` compile step and frame into one program; eager
+    PyTorch has one order, step then frame, so they give the default
+    tick.  ``donate`` has no counterpart in eager PyTorch (the input state
+    is never written) and is ignored."""
     from banggameengine_tpu_torch.engine import engine_step, stack_events
     from banggameengine_tpu_torch.physics.step import scene_census
 
-    del donate
-    if pipelined or merged or merged_barrier:
-        raise NotImplementedError(
-            "the pipelined and merged ticks are not ported: ROADMAP item 14")
+    del donate, merged, merged_barrier
     kwargs = {**scene_census(built.static), **physics_kwargs}
     bound = {"st": built.static}
     render = make_render_fn(built.render, width, height,
@@ -168,6 +188,10 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
         return state, stack_events(events)
 
     def call(state, inp, view, proj, cam_pos, light=None):
+        if pipelined:
+            img = render(state.world, view, proj, cam_pos, light)
+            s2, ev = step(state, inp)
+            return s2, img, ev
         s2, ev = step(state, inp)
         return s2, render(s2.world, view, proj, cam_pos, light), ev
 

@@ -1,24 +1,67 @@
-"""Render scene container and its numpy packer.
+"""Scene build: a parsed scene file and its assets -> the device state.
 
-Counterpart of ``banggameengine_tpu/scene/build.py``: :class:`RenderScene`
-holds the same 21 fields as the JAX package's, as tensors, and
-:func:`pack_render_scene` reproduces the tail of the JAX package's
-``_build_render_scene`` (edge dedupe, padding the triangle count to a
-multiple of 128, power-of-two square texture pages, the ``[T, S, S, 16]``
-texel-quad pack and its channel-major ``[16, T*S*S]`` copy, entity AABBs)
-from an already-expanded triangle soup.  The scene-file parser and the
-asset loaders are not ported: the port's scenes are procedural
-(:mod:`banggameengine_tpu_torch.scene.synthetic`).
+Counterpart of ``banggameengine_tpu/scene/build.py``: :func:`build_scene`
+instantiates a :class:`~banggameengine_tpu_torch.scene.schema.SceneDesc`
+into the fixed-capacity arrays of :class:`StaticScene`, :class:`WorldState`
+and :class:`RenderScene` (the same 21 fields as the JAX package's, as
+tensors), with the same per-entity rules: component bits, clamped collider
+sizes, Bullet's box inertia (a capsule's through its enclosing box), the
+auto-attached ``"cj"`` character on the character layer, trigger and
+character slots, the level table padded for runtime lifecycle.  The
+initial quaternions and world matrices come from the port's ``math3d``
+and ``ecs/transform``.  The render scene's head (materials, MTL
+materials, texture ids, each entity's mesh expanded per submesh with its
+material resolved) feeds :func:`pack_render_scene`, the tail (edge
+dedupe, padding the triangle count to a multiple of 128, power-of-two
+square texture pages, the ``[T, S, S, 16]`` texel-quad pack and its
+channel-major ``[16, T*S*S]`` copy, entity AABBs), which the procedural
+scenes of :mod:`banggameengine_tpu_torch.scene.synthetic` share.
+
+Runtime entity CRUD (``BuiltScene.spawn``, ``despawn``, ``reparent``) is
+not ported: ROADMAP item 18.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
 
-from banggameengine_tpu_torch.state import StaticScene, WorldState
+from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.ecs.transform import (
+    compute_levels,
+    update_world_matrices,
+)
+from banggameengine_tpu_torch.physics.config import PhysicsConfig
+from banggameengine_tpu_torch.scene.obj_loader import MeshData
+from banggameengine_tpu_torch.scene.resources import ResourceManager
+from banggameengine_tpu_torch.scene.schema import MaterialDesc, SceneDesc
+from banggameengine_tpu_torch.state import (
+    BODY_DYNAMIC,
+    BODY_KINEMATIC,
+    BODY_STATIC,
+    COMP_CHARACTER,
+    COMP_COLLIDER,
+    COMP_MESH_RENDERER,
+    COMP_RIGID_BODY,
+    COMP_TRANSFORM,
+    COMP_TRIGGER,
+    LAYER_CHARACTER,
+    SHAPE_BOX,
+    SHAPE_CAPSULE,
+    StaticScene,
+    WorldState,
+    make_world_state,
+    tree_replace,
+)
+
+log = logging.getLogger("SceneBuild")
+
+_BODY_TYPE_MAP = {"static": BODY_STATIC, "dynamic": BODY_DYNAMIC,
+                  "kinematic": BODY_KINEMATIC}
+_SHAPE_MAP = {"box": SHAPE_BOX, "capsule": SHAPE_CAPSULE}
 
 Tensor = torch.Tensor
 
@@ -54,12 +97,32 @@ class RenderScene:
 
 @dataclasses.dataclass
 class BuiltScene:
-    """What ``make_frame_fn`` needs of a loaded scene (the JAX package's
-    ``BuiltScene`` without the host bookkeeping)."""
+    """Everything produced by one scene load (a host container).  The
+    procedural scenes fill only the first three fields."""
 
     static: StaticScene
     initial_state: WorldState
     render: RenderScene
+    logical_ids: dict[str, int] = dataclasses.field(default_factory=dict)
+    entity_names: list[str] = dataclasses.field(default_factory=list)
+    config: PhysicsConfig | None = None
+    counts: dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def find_entity(self, logical_id: str) -> int:
+        """-1 if absent (the reference's ``FindEntityByLogicalId``)."""
+        return self.logical_ids.get(logical_id, -1)
+
+    def spawn(self, state, **kwargs):
+        raise NotImplementedError(
+            "runtime spawn (ecs/lifecycle) is not ported: ROADMAP item 18")
+
+    def despawn(self, state, entity: int):
+        raise NotImplementedError(
+            "runtime despawn (ecs/lifecycle) is not ported: ROADMAP item 18")
+
+    def reparent(self, state, entity: int, new_parent) -> None:
+        raise NotImplementedError(
+            "runtime reparent (ecs/lifecycle) is not ported: ROADMAP item 18")
 
 
 def _dedupe_edges(v_pos: np.ndarray, v_entity: np.ndarray):
@@ -181,3 +244,384 @@ def pack_render_scene(
         ent_has_mesh=ent_has_mesh,
         edge_pos=edge_pos, edge_entity=edge_entity, edge_valid=edge_valid,
     )
+
+
+def _box_inertia_inv(mass: float, half: np.ndarray) -> np.ndarray:
+    e = 2.0 * half
+    i = mass / 12.0 * np.array(
+        [e[1] ** 2 + e[2] ** 2, e[0] ** 2 + e[2] ** 2, e[0] ** 2 + e[1] ** 2],
+        np.float64,
+    )
+    return np.where(i > 0, 1.0 / np.maximum(i, 1e-12), 0.0).astype(np.float32)
+
+
+def _capsule_inertia_inv(mass: float, radius: float,
+                         half_height: float) -> np.ndarray:
+    # Bullet approximates a capsule's inertia by its bounding box
+    half = np.array([radius, half_height + radius, radius], np.float64)
+    return _box_inertia_inv(mass, half)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)   # bit view: 0xFFFFFFFF -> -1
+    return torch.as_tensor(a, device=device)
+
+
+def build_scene(
+    desc: SceneDesc,
+    resources: ResourceManager,
+    config: PhysicsConfig | None = None,
+    capacity: int | None = None,
+    auto_character_id: str = "cj",
+    max_trigger_slots: int | None = None,
+    level_headroom: int = 2,
+    device: torch.device | str = "cuda",
+) -> BuiltScene:
+    """Instantiate a parsed scene into tensors on ``device``.
+
+    ``auto_character_id``: the reference attaches a character controller
+    to the entity with this logical id on scene load; None disables it."""
+    cfg = (config or PhysicsConfig()).sanitized()
+    ents = desc.entities
+    n_real = len(ents)
+    n = capacity or max(8, int(np.ceil(n_real / 8.0)) * 8)
+    if n < n_real:
+        raise ValueError(f"capacity {n} < {n_real} entities")
+
+    logical_ids: dict[str, int] = {}
+    names: list[str] = []
+    for i, e in enumerate(ents):
+        logical_ids[e.logical_id] = i
+        names.append(e.name)
+
+    alive = np.zeros(n, bool)
+    comp_mask = np.zeros(n, np.uint32)
+    pos = np.zeros((n, 3), np.float32)
+    euler = np.zeros((n, 3), np.float32)
+    scale = np.ones((n, 3), np.float32)
+    parent = np.full(n, -1, np.int32)
+
+    body_type = np.zeros(n, np.int8)
+    shape_type = np.zeros(n, np.int8)
+    shape_size = np.zeros((n, 3), np.float32)
+    inv_mass = np.zeros(n, np.float32)
+    inv_inertia = np.zeros((n, 3), np.float32)
+    friction = np.full(n, 0.5, np.float32)
+    restitution = np.zeros(n, np.float32)
+    layer = np.zeros(n, np.uint32)
+    mask = np.zeros(n, np.uint32)
+
+    triggers: list[int] = []
+    characters: list[int] = []
+
+    for i, e in enumerate(ents):
+        alive[i] = True
+        comp_mask[i] |= COMP_TRANSFORM
+        pos[i] = e.transform.position
+        euler[i] = e.transform.rotation_euler
+        scale[i] = e.transform.scale
+        if e.parent is not None:
+            parent[i] = logical_ids.get(e.parent, -1)
+            if parent[i] < 0:
+                log.warning("entity '%s' parent '%s' not found", e.logical_id, e.parent)
+
+        if e.collider is not None:
+            comp_mask[i] |= COMP_COLLIDER
+            st = _SHAPE_MAP.get(e.collider.shape, SHAPE_BOX)
+            shape_type[i] = st
+            # clamp tiny sizes as the reference's CreateShape does
+            sz = np.asarray(e.collider.size, np.float32).copy()
+            if st == SHAPE_BOX:
+                sz = np.maximum(sz, 0.01)
+            else:
+                sz[0] = max(sz[0], 0.01)
+                sz[1] = max(sz[1], 0.0)
+                sz[2] = 0.0
+            shape_size[i] = sz
+
+        if e.rigid_body is not None:
+            comp_mask[i] |= COMP_RIGID_BODY
+            bt = _BODY_TYPE_MAP.get(e.rigid_body.type, BODY_STATIC)
+            body_type[i] = bt
+            friction[i] = e.rigid_body.friction
+            restitution[i] = e.rigid_body.restitution
+            layer[i] = e.rigid_body.layer or 1
+            mask[i] = e.rigid_body.mask
+            if bt == BODY_DYNAMIC:
+                m = max(e.rigid_body.mass, 0.01)
+                inv_mass[i] = 1.0 / m
+                if shape_type[i] == SHAPE_BOX:
+                    inv_inertia[i] = _box_inertia_inv(m, shape_size[i])
+                elif shape_type[i] == SHAPE_CAPSULE:
+                    inv_inertia[i] = _capsule_inertia_inv(
+                        m, shape_size[i][0], shape_size[i][1]
+                    )
+        elif e.collider is not None:
+            # a collider without a body is static collision-only
+            body_type[i] = BODY_STATIC
+            layer[i] = 1
+            mask[i] = 0xFFFFFFFF
+
+        if e.trigger is not None:
+            comp_mask[i] |= COMP_TRIGGER
+            triggers.append(i)
+
+        if e.mesh_renderer is not None:
+            comp_mask[i] |= COMP_MESH_RENDERER
+
+        if e.character:
+            characters.append(i)
+
+    if auto_character_id and auto_character_id in logical_ids:
+        ci = logical_ids[auto_character_id]
+        if ci not in characters:
+            characters.append(ci)
+    for ci in characters:
+        comp_mask[ci] |= COMP_CHARACTER
+
+    t_slots = max_trigger_slots or max(1, len(triggers))
+    trig_entity = np.full(t_slots, -1, np.int32)
+    trig_shape = np.zeros(t_slots, np.int8)
+    trig_size = np.zeros((t_slots, 3), np.float32)
+    trig_layer = np.zeros(t_slots, np.uint32)
+    trig_mask = np.zeros(t_slots, np.uint32)
+    trig_one_shot = np.zeros(t_slots, bool)
+    trig_active0 = np.ones(t_slots, bool)
+    for s, ei in enumerate(triggers[:t_slots]):
+        tr = ents[ei].trigger
+        trig_entity[s] = ei
+        trig_shape[s] = _SHAPE_MAP.get(tr.shape, SHAPE_BOX)
+        trig_size[s] = tr.size
+        trig_layer[s] = tr.layer
+        trig_mask[s] = tr.mask
+        trig_one_shot[s] = tr.one_shot
+        trig_active0[s] = tr.active
+
+    c_slots = max(1, len(characters))
+    char_entity = np.full(c_slots, -1, np.int32)
+    for s, ei in enumerate(characters):
+        char_entity[s] = ei
+
+    # characters collide on the character layer, as ghosts
+    for ei in characters:
+        layer[ei] = LAYER_CHARACTER
+        mask[ei] = 0xFFFFFFFF
+        shape_type[ei] = SHAPE_CAPSULE
+        shape_size[ei] = (cfg.capsule_radius, cfg.capsule_height * 0.5, 0.0)
+        body_type[ei] = BODY_KINEMATIC
+
+    # the level table padded for runtime lifecycle: width to full capacity
+    # and depth by `level_headroom`, so entity CRUD never changes a shape
+    tight = compute_levels(parent, alive)
+    level_nodes = np.full(
+        (tight.shape[0] + max(level_headroom, 0), n), -1, np.int32
+    )
+    level_nodes[: tight.shape[0], : tight.shape[1]] = tight
+
+    def t(a):
+        return _tensor(a, device)
+
+    def f32(v, shape=()):
+        return torch.full(shape, v, dtype=torch.float32, device=device)
+
+    static = StaticScene(
+        parent=t(parent),
+        level_nodes=t(level_nodes),
+        body_type=t(body_type),
+        shape_type=t(shape_type),
+        shape_size=t(shape_size),
+        inv_mass=t(inv_mass),
+        inv_inertia_body=t(inv_inertia),
+        friction=t(friction),
+        restitution=t(restitution),
+        layer=t(layer),
+        mask=t(mask),
+        trig_entity=t(trig_entity),
+        trig_shape=t(trig_shape),
+        trig_size=t(trig_size),
+        trig_layer=t(trig_layer),
+        trig_mask=t(trig_mask),
+        trig_one_shot=t(trig_one_shot),
+        char_entity=t(char_entity),
+        char_radius=f32(cfg.capsule_radius, (c_slots,)),
+        char_half_height=f32(cfg.capsule_height * 0.5, (c_slots,)),
+        char_walk_speed=f32(cfg.walk_speed, (c_slots,)),
+        char_jump_impulse=f32(cfg.jump_impulse, (c_slots,)),
+        gravity=f32(cfg.gravity),
+        fixed_dt=f32(cfg.fixed_step),
+        step_height=f32(cfg.step_height),
+        max_slope_cos=f32(float(np.cos(np.deg2rad(cfg.max_slope_deg)))),
+        ground_enabled=torch.ones((), dtype=torch.bool, device=device),
+    )
+
+    state = make_world_state(n, t_slots, device=device)
+    state = tree_replace(
+        state,
+        alive=t(alive),
+        comp_mask=t(comp_mask),
+        pos=t(pos),
+        quat=math3d.quat_from_euler_xyz(t(euler)),
+        scale=t(scale),
+        trigger_active=t(trig_active0),
+    )
+    world = update_world_matrices(
+        state.pos, state.quat, state.scale, static.parent,
+        static.level_nodes, state.alive,
+    )
+    state = tree_replace(state, world=world)
+
+    arrays = _build_render_arrays(desc, resources, logical_ids, n)
+    render = RenderScene(**{k: t(v) for k, v in arrays.items()})
+
+    counts = {
+        "entities": n_real,
+        "transforms": n_real,
+        "mesh_renderers": int(sum(1 for e in ents if e.mesh_renderer)),
+        "colliders": int(sum(1 for e in ents if e.collider)),
+        "rigid_bodies": int(sum(1 for e in ents if e.rigid_body)),
+        "triggers": len(triggers),
+        "characters": len(characters),
+    }
+    log.info(
+        "[SceneLoader] scene built: %d entities, %d mesh renderers, "
+        "%d colliders, %d triggers, %d characters",
+        counts["entities"], counts["mesh_renderers"], counts["colliders"],
+        counts["triggers"], counts["characters"],
+    )
+    return BuiltScene(
+        static=static,
+        initial_state=state,
+        render=render,
+        logical_ids=logical_ids,
+        entity_names=names,
+        config=cfg,
+        counts=counts,
+    )
+
+
+def _build_render_arrays(
+    desc: SceneDesc,
+    resources: ResourceManager,
+    logical_ids: dict[str, int],
+    capacity: int,
+) -> dict[str, np.ndarray]:
+    """Expand every (entity, submesh) into a per-instance triangle soup
+    with baked material ids, the renderer's per-submesh resolution order
+    (override -> entity material -> mesh MTL material -> default), then
+    pack it with :func:`pack_render_scene`."""
+    mat_list: list[MaterialDesc] = []
+    mat_index: dict[str, int] = {}
+    tex_list: list[np.ndarray] = []
+    tex_index: dict[str, int] = {}
+
+    def add_texture(name_or_none: str | None) -> int:
+        if name_or_none is None:
+            key = "__white"
+            arr = resources.get_white_texture()
+        else:
+            key = name_or_none
+            path = desc.textures.get(name_or_none)
+            if path is None:
+                # a direct path (an MTL map_Kd's absolute path)
+                arr = (
+                    resources.load_texture(name_or_none)
+                    if name_or_none
+                    else resources.get_checker_texture()
+                )
+            else:
+                arr = resources.load_texture(path)
+        if key in tex_index:
+            return tex_index[key]
+        tex_index[key] = len(tex_list)
+        tex_list.append(arr)
+        return tex_index[key]
+
+    def add_material(m: MaterialDesc, tex_key: str | None) -> int:
+        key = m.name
+        if key in mat_index:
+            return mat_index[key]
+        mat_index[key] = len(mat_list)
+        mat_list.append(m)
+        add_texture(tex_key)
+        return mat_index[key]
+
+    # the default material first (id 0): white
+    add_material(resources.get_default_material(), None)
+    for name, m in desc.materials.items():
+        resources.load_material(m)
+        add_material(m, m.albedo_tex)
+
+    meshes: dict[str, MeshData] = {}
+    for name, md in desc.meshes.items():
+        mesh = resources.load_mesh(md.obj, md.mtl)
+        if mesh is not None:
+            meshes[name] = mesh
+
+    # per-MTL materials become entries too (the mesh-material fallback)
+    mtl_mat_ids: dict[tuple[str, int], int] = {}
+    for mesh_name, mesh in meshes.items():
+        for mi, mm in enumerate(mesh.materials):
+            mat = MaterialDesc(name=f"__mtl_{mesh_name}_{mi}_{mm.name}")
+            mat.base_tint = np.asarray([*mm.kd, 1.0], np.float32)
+            mtl_mat_ids[(mesh_name, mi)] = add_material(mat, mm.map_kd or None)
+
+    vp, vn, vuv, vent, trimat = [], [], [], [], []
+    for e in desc.entities:
+        mr = e.mesh_renderer
+        if mr is None:
+            continue
+        mesh = meshes.get(mr.mesh)
+        if mesh is None:
+            log.warning("entity '%s' references missing mesh '%s'", e.logical_id, mr.mesh)
+            continue
+        ei = logical_ids[e.logical_id]
+        ent_mat_id = mat_index.get(mr.material) if mr.material else None
+        for si, sm in enumerate(mesh.submeshes):
+            if si in mr.material_overrides and mr.material_overrides[si] in mat_index:
+                mid = mat_index[mr.material_overrides[si]]
+            elif ent_mat_id is not None:
+                mid = ent_mat_id
+            elif (mr.mesh, sm.material_index) in mtl_mat_ids:
+                mid = mtl_mat_ids[(mr.mesh, sm.material_index)]
+            else:
+                mid = 0
+            sl = slice(sm.start_index, sm.start_index + sm.index_count)
+            vp.append(mesh.positions[sl])
+            vn.append(mesh.normals[sl])
+            vuv.append(mesh.uvs[sl])
+            vent.append(np.full(sm.index_count, ei, np.int32))
+            trimat.append(np.full(sm.index_count // 3, mid, np.int32))
+
+    m_count = len(mat_list)
+    mat_tex = np.zeros(m_count, np.int32)
+    for name, idx in mat_index.items():
+        m = mat_list[idx]
+        if m.albedo_tex and m.albedo_tex in tex_index:
+            mat_tex[idx] = tex_index[m.albedo_tex]
+    # MTL materials registered their texture under the map_Kd path
+    for (mesh_name, mi), mid in mtl_mat_ids.items():
+        mm = meshes[mesh_name].materials[mi]
+        if mm.map_kd and mm.map_kd in tex_index:
+            mat_tex[mid] = tex_index[mm.map_kd]
+        else:
+            mat_tex[mid] = tex_index["__white"]
+    for name, m in desc.materials.items():
+        if m.albedo_tex is None and name in mat_index:
+            mat_tex[mat_index[name]] = tex_index["__white"]
+
+    def cat(parts, width, dtype):
+        return (np.concatenate(parts) if parts
+                else np.zeros((0, width) if width else 0, dtype))
+
+    return pack_render_scene(
+        cat(vp, 3, np.float32), cat(vn, 3, np.float32),
+        cat(vuv, 2, np.float32), cat(vent, 0, np.int32),
+        cat(trimat, 0, np.int32), tex_list,
+        np.stack([m.base_tint for m in mat_list]),
+        np.stack([m.uv_scale for m in mat_list]),
+        np.stack([np.asarray([m.shininess, m.spec_intensity], np.float32)
+                  for m in mat_list]),
+        np.stack([m.spec_color for m in mat_list]),
+        mat_tex, capacity)

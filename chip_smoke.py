@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-Drives ``banggameengine_tpu_torch`` through its five slices, the
-10,000-box stress tick, the shaded 1080p frame, its fused and full-carry
-routes, the profiling path and the flat many-world step, and checks
-them.  Phases, one line each:
+Drives ``banggameengine_tpu_torch`` through its slices, the 10,000-box
+stress tick, the shaded 1080p frame, its fused and full-carry routes, the
+profiling path, the flat many-world step, the default dense route and the
+application shell, and checks them.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the six kernels for sm_90a, all at once
@@ -135,7 +135,25 @@ them.  Phases, one line each:
    steps/s over those dispatches (the first the warm-up, the median of
    5) and the peak memory; the 12-box world after 60 steps against the
    golden; one demo step and one 200-box step traced (launches, device
-   time, busy share).
+   time, busy share);
+17. the application shell (``app.Application`` on the asset tree
+   ``tests/data/app_assets``, ``play_demo``'s scripted track), no hand
+   kernel of its own: the fused tick (``fused_tick=True``, 4 substeps
+   and a 1280x720 frame a display frame) through the whole 8-s track,
+   240 display frames, and the default path (a hot-reloadable step a
+   fixed step, with its events, orbit update and downward raycast, and
+   ``render_current_frame()``, interpolated, every display frame) through
+   the track's first ``APP_DEFAULT_SECONDS``; both held to the JAX
+   golden (``tests/data/app_jax_golden.json``): the bus's Enter/Exit on
+   the golden's display frames, the character within its bar after every
+   display frame, at rest at y = 2.94; the last fused frame within 1
+   level of the golden's 1280x720 frame on >= 99.9 % of pixels with the
+   sky mask equal elsewhere; the walk and the resolve launched once a
+   rendered frame; one state of each run rendered bit-equal with the
+   kernels and with their plain versions; display frames/s and fixed
+   steps/s of each path by the host clock, the host synchronisations a
+   display frame (CUDA sync debug mode "warn") and, from the run's last
+   frame traced, the launches and device time a display frame.
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -162,6 +180,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -240,6 +259,14 @@ DEMO_DISPATCH = 100   # bench_demo's steps per dispatch (bench.py:161)
 DEMO_CHAR = 0         # build_demo_like's slots: character, trigger, ground
 WALK_CHUNK = 60       # walking steps per events dispatch (the golden's grid)
 DENSE_FLOOR = 0.2     # every box's centre above it after the dense run
+APP_ASSETS = os.path.join(DATA, "app_assets")
+APP_GOLDEN = os.path.join(DATA, "app_jax_golden.json")
+APP_FRAMES = os.path.join(DATA, "app_jax_golden.npz")
+# the default path's run: the track's first 1.0 s (the character has landed
+# by frame 27; 2.5 s and 1.5 s took phase 17 over its 60 s on the H100),
+# frames after the first 5 timed
+APP_DEFAULT_SECONDS = 1.0
+APP_DEFAULT_WARMUP = 5
 
 
 class SmokeFailure(AssertionError):
@@ -1789,6 +1816,231 @@ def dense_phase(dev, card: str) -> None:
     print(f"[dense] phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _app_run(app, frames: int, fps: int, render: bool = False,
+             trace_dir: str | None = None):
+    """Drive ``app`` through the first ``frames`` display frames of
+    ``play_demo``'s track.  Returns the record the golden keeps (the
+    character, on-ground flag and step count after each frame, the bus's
+    Enter/Exit with their frames), each frame's wall seconds, the host
+    synchronisations the app made (CUDA sync debug mode "warn", counted
+    inside ``app.frame`` and ``render_current_frame`` only: the track's
+    own read of the character is not the app's), the last
+    ``render_current_frame()`` when ``render``, and the trace summary
+    (``scripts/trace_summary.py``) of the last frame, traced alone (each
+    frame starts with host work and ends in a blocking read, so no kernel
+    of it sits at the trace's edges), so no frame runs only to be traced
+    and the phase keeps within its 60 s."""
+    import warnings
+
+    from banggameengine_tpu_torch.app.events import TriggerEvent, TriggerPhase
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+    from banggameengine_tpu_torch.scripts.play_demo import apply_track
+    from banggameengine_tpu_torch.utils.profiling import (
+        device_sync, start_trace, stop_trace, trace_annotation)
+
+    cj = app.built.find_entity("cj")
+    rec = dict(char=[], on_ground=[], steps=[], events=[])
+
+    def on_event(e):
+        if e.phase is not TriggerPhase.STAY:
+            rec["events"].append([app.frame_count, e.phase.value,
+                                  e.trigger_entity, e.other_entity])
+
+    unsubscribe = app.bus.subscribe(TriggerEvent, on_event)
+    walls, syncs, img = [], 0, None
+    for i in range(frames):
+        apply_track(app, i, fps, cj)
+        if i == frames - 1:
+            start_trace(trace_dir)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, \
+                trace_annotation(ts.FIRST_EXECUTION if i == frames - 1
+                                 else "frame"):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                app.frame(real_dt=1.0 / fps)
+                if render:
+                    img = app.render_current_frame()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        walls.append(time.perf_counter() - t0)
+        syncs += sum("synchronizing" in str(w.message) for w in caught)
+        rec["char"].append(app.state.pos[cj].tolist())
+        rec["on_ground"].append(bool(app.state.char_on_ground[cj]))
+        rec["steps"].append(int(app.state.step_idx))
+    device_sync(app.state.pos)
+    t0 = time.perf_counter()
+    trace = ts.parse_trace(stop_trace(), 1)
+    trace["seconds"] = time.perf_counter() - t0
+    unsubscribe()
+    return rec, walls, syncs, img, trace
+
+
+def _app_check(name: str, rec: dict, g: dict, frames: int) -> float:
+    """Hold one app run to the JAX golden's first ``frames`` display
+    frames: events exact, the character within the bar, on-ground flags
+    and step counts equal; returns the largest |char - JAX|."""
+    gp = g[name]
+    events = [e for e in gp["events"] if e[0] < frames]
+    check(rec["events"] == events,
+          f"app ({name}): bus events {rec['events']}, the JAX golden's "
+          f"{events}")
+    err = float(np.abs(np.asarray(rec["char"], np.float32) - np.asarray(
+        gp["char"][:frames], np.float32)).max())
+    check(err < g["atol"], f"app ({name}): |char - JAX| = {err}")
+    check(rec["on_ground"] == gp["on_ground"][:frames],
+          f"app ({name}): char_on_ground differs from JAX")
+    check(rec["steps"] == gp["steps"][:frames],
+          f"app ({name}): fixed steps per display frame differ from JAX")
+    rest = rec["char"][min(frames, 2 * g["fps"]) - 1][1]   # landed by 1 s
+    check(abs(rest - g["rest_y"]) < 1e-4,
+          f"app ({name}): the character rests at y = {rest}")
+    return err
+
+
+def app_phase(dev, card: str) -> None:
+    """Phase 17: the application shell on the card (no hand kernel of its
+    own: the walk and the resolve render its frames).  The fused app at
+    1280x720 through play_demo's whole 8-s track, the default-path app
+    through its first ``APP_DEFAULT_SECONDS`` with
+    ``render_current_frame()`` (interpolated) every display frame; the
+    last frame of each run traced; both held to the JAX golden
+    (``tests/data/app_jax_golden.json``), the last fused frame to the
+    golden's 1280x720 frame, one state of each rendered bit-equal with the
+    kernels and with their plain versions."""
+    from banggameengine_tpu_torch.app.application import Application
+    from banggameengine_tpu_torch.render.pipeline import make_render_fn
+    from banggameengine_tpu_torch.render.shading import LightParams
+
+    t_phase = time.perf_counter()
+    with open(APP_GOLDEN) as f:
+        g = json.load(f)
+    gframes = np.load(APP_FRAMES)
+    fps = g["fps"]
+    width, height = g["full"]
+    os.environ.pop("BANG_ASSETS_DIR", None)
+
+    # ---- the fused tick through the whole track --------------------------
+    app = Application(assets_root=APP_ASSETS, width=width, height=height,
+                      fused_tick=True, device=dev)
+    frames = int(g["seconds"] * fps)
+    tmp = tempfile.mkdtemp(prefix="app_trace_")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec, walls, syncs, _, tr_f = _app_run(app, frames, fps,
+                                          trace_dir=os.path.join(tmp, "fused"))
+    fused_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["walk"] == frames and counts["resolve"] == frames,
+          f"app (fused): {counts} launches in {frames} rendered frames")
+    check(counts["fused"] == 0 and counts["tile"] == 0,
+          f"app (fused): other render kernels launched: {counts}")
+    err_f = _app_check("fused", rec, g, frames)
+    img = app.last_frame_image
+    ref = gframes["fused_full"]
+    check(img.shape == ref.shape == (height, width, 4),
+          f"app (fused): frame {img.shape}, golden {ref.shape}")
+    off = np.abs(img.astype(np.int32) - ref.astype(np.int32)).max(-1) > 1
+    sky_diff = ((img == SKY).all(-1) != (ref == SKY).all(-1)) & ~off
+    check(off.mean() <= FRAME_OFF_SHARE,
+          f"app (fused): {off.sum()} pixels differ from JAX by more than 1 "
+          f"level")
+    check(not sky_diff.any(),
+          f"app (fused): the sky differs from JAX at {sky_diff.sum()} pixels")
+    # the last state again, through the kernels and their plain versions
+    render = make_render_fn(app.built.render, width, height,
+                            bin_capacity=2048)
+    args = (app.state.world, app.camera.view_matrix("cpu").to(dev),
+            app.camera.proj_matrix(width / height, "cpu").to(dev),
+            torch.as_tensor(app.camera.position, device=dev),
+            LightParams.default(dev))
+    k_img = render(*args)
+    with plain_render_kernels():
+        p_img = render(*args)
+    check(torch.equal(k_img, p_img),
+          "app (fused): the last frame differs between the kernels and "
+          "their plain versions")
+    check(np.array_equal(k_img.cpu().numpy(), img),
+          "app (fused): the app's last frame is not the kernels' frame")
+    steady = walls[fps:-1]         # after the warm-up, before the trace
+    steady_steps = rec["steps"][-2] - rec["steps"][fps - 1]
+    print(f"[app] fused tick (Application(fused_tick=True), "
+          f"{width}x{height}): play_demo's {g['seconds']:g}-s track, "
+          f"{frames} display frames of {rec['steps'][0]} fixed steps "
+          f"({rec['steps'][-1]} steps), {fused_s:.1f} s (the last frame "
+          f"traced); bus events "
+          f"{rec['events']} ([frame, phase, trigger, other], as the JAX "
+          f"golden's); max |char - JAX| {err_f:.3g} (< {g['atol']:g}); the "
+          f"character rests at y = {rec['char'][2 * fps - 1][1]:.6f}; walk "
+          f"and resolve launched {counts['walk']} and {counts['resolve']} "
+          f"times in {frames} frames")
+    print(f"[app] fused: the last frame vs the JAX golden's {width}x{height}"
+          f" frame: {int(off.sum())} of {off.size} pixels off by more than "
+          f"1 level, {int((img != ref).any(-1).sum())} off at all, sky "
+          f"equal elsewhere; bit-equal with the kernels and with their "
+          f"plain versions, and to the app's own frame")
+    print(f"[times] app fused: {len(steady) / sum(steady):.2f} display "
+          f"frames/s, {steady_steps / sum(steady):.1f} fixed steps/s "
+          f"(frames {fps}..{frames - 2}, {1e3 * statistics.median(steady):.1f}"
+          f" ms median a frame); {syncs / frames:.2f} blocking host syncs a "
+          f"display frame ({syncs} in all) {card}")
+
+    # ---- the default path, rendering every display frame ----------------
+    dframes = int(APP_DEFAULT_SECONDS * fps)
+    dapp = Application(assets_root=APP_ASSETS, width=width, height=height,
+                       device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    drec, dwalls, dsyncs, dimg, tr_d = _app_run(
+        dapp, dframes, fps, render=True,
+        trace_dir=os.path.join(tmp, "default"))
+    default_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["walk"] == dframes and counts["resolve"] == dframes,
+          f"app (default): {counts} launches in {dframes} rendered frames")
+    err_d = _app_check("default", drec, g, dframes)
+    check(dimg.shape == (height, width, 4) and (dimg == SKY).all(-1).any(),
+          "app (default): no sky in the interpolated frame")
+    with plain_render_kernels():
+        p_dimg = dapp.render_current_frame()
+    check(np.array_equal(dimg, p_dimg),
+          "app (default): the interpolated frame differs between the "
+          "kernels and their plain versions")
+    dsteady = dwalls[APP_DEFAULT_WARMUP:-1]
+    dsteady_steps = drec["steps"][-2] - drec["steps"][APP_DEFAULT_WARMUP - 1]
+    steps_a_frame = drec["steps"][-1] / dframes
+    print(f"[app] default path (Application(), {width}x{height}): the first"
+          f" {APP_DEFAULT_SECONDS:g} s of the track, {dframes} display "
+          f"frames, each {steps_a_frame:g} hot-reloadable steps (events, "
+          f"orbit and raycast each step) and render_current_frame() "
+          f"(interpolated), {default_s:.1f} s (the last frame traced); "
+          f"bus events {drec['events']}"
+          f"; max |char - JAX| {err_d:.3g}; walk and resolve launched "
+          f"{counts['walk']} and {counts['resolve']} times; the last frame "
+          f"bit-equal with the plain versions")
+    print(f"[times] app default: {len(dsteady) / sum(dsteady):.2f} display "
+          f"frames/s, {dsteady_steps / sum(dsteady):.1f} "
+          f"fixed steps/s (frames {APP_DEFAULT_WARMUP}..{dframes - 2}, "
+          f"{1e3 * statistics.median(dsteady):.1f} ms median a frame); "
+          f"{dsyncs / dframes:.2f} blocking host syncs a display frame "
+          f"({dsyncs} in all) {card}")
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    for name, tr in (("fused", tr_f), ("default", tr_d)):
+        print(f"[times] app {name}, one display frame traced: "
+              f"{tr['launches']:g} launches, {tr['busy_ms']:.3f} ms of device"
+              f" time in a {tr['window_ms']:.3f} ms window (busy "
+              f"{100 * tr['busy_share']:.1f} %); top kernels: "
+              + "; ".join(f"{k['name'][:48]} {k['ms']:.4f} ms x{k['count']:g}"
+                          for k in tr["kernels"][:3]) + f" {card}")
+    print(f"[app] phase 17 took {time.perf_counter() - t_phase:.1f} s: the "
+          f"fused run {fused_s:.1f} (its trace's export and summary "
+          f"{tr_f['seconds']:.1f}), the default run {default_s:.1f} (its "
+          f"trace's {tr_d['seconds']:.1f}), the rest (loads, checks, plain "
+          f"frames) {time.perf_counter() - t_phase - fused_s - default_s:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2010,6 +2262,7 @@ def main() -> int:
     profiling = profiling_phases(dev, card, build_s[5])
     manyworld_phase(dev, card)
     dense_phase(dev, card)
+    app_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

@@ -139,3 +139,58 @@ def test_substeps_stack_events_and_update_static():
     s4, _, _ = ref(built.initial_state, inp, view, proj, cam_pos)
     assert torch.equal(s3.pos, s4.pos)
     assert not torch.equal(s3.pos, s0.pos)
+
+
+def test_pipelined_tick_matches_jax():
+    """``pipelined=True`` renders the world of the state passed in, then
+    steps: the frame is the pre-step world's, the state the same step's,
+    each against the JAX package's pipelined tick."""
+    state0, static0 = jax_build_falling_boxes(8, seed=2, spread=2.0)
+    built = _port_built(state0, static0)
+    view, proj, cam_pos = _camera()
+    jax_built = types.SimpleNamespace(
+        static=static0,
+        render=JaxRenderScene(**{
+            k: jnp.asarray(v) for k, v in
+            convert.render_scene_to_numpy(built.render).items()}))
+    jtick = jax_frame_fn(jax_built, 64, 32, donate=False, pipelined=True,
+                         broadphase="pallas")
+    js, jimg, _ = jtick(state0, JaxInputFrame.zero(), jnp.asarray(view),
+                        jnp.asarray(proj), jnp.asarray(cam_pos))
+    t = torch.as_tensor
+    tick = make_frame_fn(built, 64, 32, pipelined=True,
+                         broadphase="allpairs")
+    ts, timg, _ = tick(built.initial_state, InputFrame.zero("cpu"), t(view),
+                       t(proj), t(cam_pos))
+    ref = make_frame_fn(built, 64, 32, broadphase="allpairs")
+    s_ref, _, _ = ref(built.initial_state, InputFrame.zero("cpu"), t(view),
+                      t(proj), t(cam_pos))
+    assert torch.equal(ts.pos, s_ref.pos)
+    np.testing.assert_allclose(ts.pos.numpy(), np.asarray(js.pos),
+                               atol=FLOAT_TOL.get("pos", (1e-5, 0))[0])
+    off, sky_off = frame_agreement(timg.numpy(), np.array(jimg))
+    assert off <= 0.001 * 64 * 32 and sky_off == 0
+    from banggameengine_tpu_torch.render.pipeline import make_render_fn
+
+    pre = make_render_fn(built.render, 64, 32, bin_capacity=2048)(
+        built.initial_state.world, t(view), t(proj), t(cam_pos))
+    assert torch.equal(timg, pre)
+
+
+@pytest.mark.parametrize("flag", ["merged", "merged_barrier"])
+def test_merged_ticks_equal_the_default_order(flag):
+    """Eager PyTorch has one order, step then frame: the JAX package's
+    single-program ticks give the default tick bit for bit."""
+    state0, static0 = jax_build_falling_boxes(8, seed=2, spread=2.0)
+    built = _port_built(state0, static0)
+    view, proj, cam_pos = (torch.as_tensor(a) for a in _camera())
+    inp = InputFrame.zero("cpu")
+    outs = [make_frame_fn(built, 64, 32, substeps=2, broadphase="allpairs",
+                          **kw)(built.initial_state, inp, view, proj,
+                                cam_pos)
+            for kw in ({}, {flag: True})]
+    (s0, img0, ev0), (s1, img1, ev1) = outs
+    for f in dataclasses.fields(s0):
+        assert torch.equal(getattr(s0, f.name), getattr(s1, f.name)), f.name
+    assert torch.equal(img0, img1)
+    assert torch.equal(ev0.trigger_enter, ev1.trigger_enter)

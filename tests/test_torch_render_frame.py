@@ -30,8 +30,6 @@ from banggameengine_tpu.scene.build import RenderScene as JaxRenderScene
 from banggameengine_tpu_torch import convert
 from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render.pipeline import (
-    make_frame_fn,
-    make_interp_render_fn,
     make_render_fn,
     render_frame,
 )
@@ -159,30 +157,28 @@ def test_unported_options_raise():
     # the flat shade needs the full carry, which the walk does not keep
     with pytest.raises(ValueError, match="tile"):
         render_frame(*args, width=W, height=H, shade_mode="flat")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_interp_render_fn(rs, W, H)
-    for kw in (dict(pipelined=True), dict(merged=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_frame_fn(None, W, H, **kw)
 
 
 def test_port_imports_without_jax():
-    """The card's machine has no JAX: every module of the port imports
-    with ``jax`` and the JAX package blocked."""
+    """The card's machine has no JAX and no PIL: every module of the port
+    imports with ``jax``, the JAX package and ``PIL`` blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['banggameengine_tpu'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import banggameengine_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'banggameengine_tpu_torch.render.pipeline' in names\n"
+        "assert 'banggameengine_tpu_torch.app.application' in names\n"
+        "assert 'banggameengine_tpu_torch.physics.raycast' in names\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 40
 
 
 if __name__ == "__main__":
