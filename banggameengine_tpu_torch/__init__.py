@@ -23,7 +23,10 @@ trigger diffing and the world matrices.  The render slices live in
 through ``scene.build_scene``, the fixed-step loop on the default path
 and the fused tick, input, the orbit camera, trigger events, raycasts,
 the interpolated frame; ``scripts.play_demo`` drives it headless) runs
-them together.  Module paths mirror the JAX package's.
+them together, with its debug views (the line pass of the F1 wireframe
+and the F3 physics overlay, the HUD), run-time scene editing
+(``ecs.lifecycle``), checkpoints and the checked step (``utils``).
+Module paths mirror the JAX package's.
 
 Float32 matrix products must stay in full f32 (the warm-start match and
 one-hot moves carry payload rows): the port never enables TF32.

@@ -13,7 +13,8 @@ default path: one device step per fixed step, each followed by the
 events and the downward raycast; ``fused_tick=True``: up to 4 fixed steps
 and the shaded frame in one :func:`make_frame_fn` call);
 ``render_current_frame()`` renders the current state, interpolated
-between the last two fixed steps on the default path.  Hotkeys arrive
+between the last two fixed steps on the default path, with the physics
+overlay (F3) and, on request, the debug-text HUD.  Hotkeys arrive
 through the InputSystem so a scripted source can drive them (F1
 wireframe, F3 physics overlay, F5 scene reload, F9 stats, V vsync).
 
@@ -23,8 +24,7 @@ transfer each way where it can: the host values of a step or a frame
 non-blocking copy from a pinned staging row; what the host must read (the
 orbit target's world matrix and the trigger event planes each fixed
 step; the image of each fused frame) comes back in one blocking copy
-each.  Not ported (raising ``NotImplementedError``): the HUD text
-overlay and the physics debug overlay, ROADMAP item 15.
+each.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from banggameengine_tpu_torch.app.events import (
     dispatch_event_planes,
     event_planes,
 )
+from banggameengine_tpu_torch.app.hud import compose_hud, standard_hud_lines
 from banggameengine_tpu_torch.app.input import (
     ActionState,
     AxisBinding,
@@ -55,7 +56,9 @@ from banggameengine_tpu_torch.app.timing import Time
 from banggameengine_tpu_torch.engine import make_hot_reloadable_step_fn
 from banggameengine_tpu_torch.physics import raycast as rc
 from banggameengine_tpu_torch.physics.config import load_physics_config
+from banggameengine_tpu_torch.physics.debugdraw import collision_shape_lines
 from banggameengine_tpu_torch.render.camera import Camera
+from banggameengine_tpu_torch.render.lines import draw_lines
 from banggameengine_tpu_torch.render.pipeline import (
     make_frame_fn,
     make_interp_render_fn,
@@ -474,14 +477,11 @@ class Application:
         """uint8[H, W, 4] frame of the current state.  On the default
         path it renders the interpolated motion states: the accumulator's
         remainder blends the last two fixed steps, in the frame's own
-        call."""
-        if hud:
-            raise NotImplementedError(
-                "the HUD text overlay is not ported: ROADMAP item 15")
-        if self.physics_overlay:
-            raise NotImplementedError(
-                "the physics debug overlay (F3) is not ported: ROADMAP "
-                "item 15")
+        call.  With ``physics_overlay`` on (F3) the collision shapes of
+        the current state are drawn over it as lines, depth-tested
+        against the frame's own depth (the reference's debug-line pass,
+        ``Application.cpp:359-360``), before the one read of the image;
+        ``hud=True`` then draws the debug-text HUD on the host copy."""
         if self._render is None:
             self._render = {}
         prev = getattr(self, "_prev_state", None)
@@ -500,10 +500,17 @@ class Application:
         row = self._stage(values)
         view, proj, cam_pos, light = self._camera_from(row)
         if interp:
-            frame, _depth = self._render[key](
+            frame, depth = self._render[key](
                 prev, self.state, row[43], self.built.static, view, proj,
                 cam_pos, light)
         else:
-            frame, _depth = self._render[key](
+            frame, depth = self._render[key](
                 self.state.world, view, proj, cam_pos, light)
-        return frame.cpu().numpy()
+        if self.physics_overlay:
+            pts, cols, valid = collision_shape_lines(self.state,
+                                                     self.built.static)
+            frame = draw_lines(frame, depth, pts, cols, valid, view, proj)
+        out = frame.cpu().numpy()
+        if hud:
+            out = compose_hud(out, standard_hud_lines(self))
+        return out

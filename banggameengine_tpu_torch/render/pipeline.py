@@ -11,12 +11,14 @@ the card runs ahead of the caller.
 Shades (``shade_mode``): ``"tiled"`` (the default: the walk, then the
 per-tile resolve), ``"fused"`` (the walk and the resolve in one kernel)
 and ``"flat"`` (the row-gather shade over ``raster_backend="tile"``, the
-light/heavy full-carry raster).
+light/heavy full-carry raster).  ``wireframe=True`` (the app's F1) draws
+the scene's deduplicated mesh edges as true lines over the clear colour
+(:mod:`lines`) instead of shading.
 
 Not ported, and refused with NotImplementedError naming ROADMAP:
-``wireframe=True`` (item 15), ``shade_mode="tiled"`` over the
-``"tile"`` raster (its row-gather fallback, queue 1) and raster backends
-other than ``"walk"`` and ``"tile"``.
+``shade_mode="tiled"`` over the ``"tile"`` raster (its row-gather
+fallback, queue 1) and raster backends other than ``"walk"`` and
+``"tile"``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import torch
 from banggameengine_tpu_torch import math3d
 from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render.cull import entity_frustum_mask
+from banggameengine_tpu_torch.render.lines import draw_lines
 from banggameengine_tpu_torch.render.shading import (
+    CLEAR_COLOR,
     LightParams,
     shade_visibility,
     shade_visibility_fused,
@@ -61,11 +65,15 @@ def render_frame(
     ``shade_mode="fused"`` walks inside the fused kernel and ignores
     ``raster_backend``; ``"flat"`` needs ``raster_backend="tile"`` (the
     walk keeps no triangle ids); the depth-only frame takes either
-    backend."""
+    backend.  ``wireframe=True`` gives the line frame of
+    :func:`wireframe_frame` (its depth plane is all 1), and is ignored
+    with ``depth_only=True``."""
     rs = render_scene
-    if wireframe:
-        raise NotImplementedError(
-            "wireframe=True (the line pass) is not ported: ROADMAP item 15")
+    if wireframe and not depth_only:
+        frame = wireframe_frame(rs, world_mats, view, proj, width, height)
+        if return_depth:
+            return frame, torch.ones((height, width), device=frame.device)
+        return frame
     if shade_mode not in ("tiled", "fused", "flat"):
         raise ValueError(f"unknown shade_mode {shade_mode!r}")
     if light is None:
@@ -110,6 +118,26 @@ def render_frame(
     if return_depth:
         return frame, vis.depth
     return frame
+
+
+def wireframe_frame(render_scene: RenderScene, world_mats: Tensor,
+                    view: Tensor, proj: Tensor, width: int,
+                    height: int) -> Tensor:
+    """The F1 wireframe u8[H, W, 4]: every deduplicated mesh edge as a
+    white true line over the clear colour, depth-tested against nothing
+    (the reference's ``BGFX_DEBUG_WIREFRAME`` replaces fill with line
+    raster and, like bgfx's debug mode, removes no hidden lines)."""
+    rs = render_scene
+    device = world_mats.device
+    clear = [int(c * 255) for c in CLEAR_COLOR] + [255]
+    frame = torch.stack([torch.full((height, width), c, dtype=torch.uint8,
+                                    device=device) for c in clear], dim=-1)
+    wm = world_mats[rs.edge_entity.to(torch.int64)]            # [E, 4, 4]
+    pts = (torch.einsum("eij,ekj->eki", wm[:, :3, :3], rs.edge_pos)
+           + wm[:, None, :3, 3])
+    colors = torch.ones((rs.edge_pos.shape[0], 4), device=device)
+    return draw_lines(frame, torch.ones((height, width), device=device), pts,
+                      colors, rs.edge_valid, view, proj)
 
 
 def make_render_fn(render_scene: RenderScene, width: int, height: int,

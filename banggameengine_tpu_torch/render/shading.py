@@ -132,9 +132,12 @@ def _sample_bilinear_planar(textures, textures_quad_t, tex_id, tw, th, u, v):
 
 
 def _shade_core(get, b1, b2, pxc, pyc, ndc_z, background, width, height,
-                view, proj, textures, textures_quad_t, camera_pos, light):
+                view, proj, textures, textures_quad_t, camera_pos, light,
+                wireframe=False):
     """Component-form shading of every pixel.  ``get(c)`` returns the
-    pixel's channel ``c`` of the triangle table.  Returns (r, g, b, a)."""
+    pixel's channel ``c`` of the triangle table.  ``wireframe`` keeps
+    only the pixels near a triangle edge (the smallest barycentric under
+    0.05) and clears the rest.  Returns (r, g, b, a)."""
     b0 = 1.0 - b1 - b2
     w0 = b0 * get(_SPAN - 1)
     w1 = b1 * get(2 * _SPAN - 1)
@@ -191,6 +194,10 @@ def _shade_core(get, b1, b2, pxc, pyc, ndc_z, background, width, height,
            + spec[i] * s
            for i, tex in enumerate((tex_r, tex_g, tex_b))]  # white vertices
     alpha = tex_a * tint[3]
+    if wireframe:
+        on_edge = torch.minimum(torch.minimum(b0, b1), b2) < 0.05
+        rgb = [torch.where(on_edge, c, CLEAR_COLOR[i])
+               for i, c in enumerate(rgb)]
     rgb = [torch.where(background, CLEAR_COLOR[i], c)
            for i, c in enumerate(rgb)]
     alpha = torch.where(background, 1.0, alpha)
@@ -211,6 +218,7 @@ def shade_visibility(
     textures_quad_t: Tensor,
     camera_pos: Tensor, light: LightParams,
     vis_depth: Tensor, view: Tensor, proj: Tensor,
+    wireframe: bool = False,
 ) -> Tensor:
     """Flat deferred shade of the full-carry planes [H, W] -> u8[H, W, 4]:
     one channel-major row gather of the triangle table per pixel, by its
@@ -229,7 +237,7 @@ def shade_visibility(
     rgba = _shade_core(lambda c: a[c], vis_b1, vis_b2, pxc.expand(h, w),
                        pyc.expand(h, w), vis_depth, vis_tri_id < 0, w, h,
                        view, proj, textures, textures_quad_t, camera_pos,
-                       light)
+                       light, wireframe)
     return torch.stack([_to_u8(c) for c in rgba], dim=-1)
 
 
@@ -248,7 +256,7 @@ def _shade_tiled_tail(planes: Tensor, slot_p: Tensor, ndc_z: Tensor,
                       rb: int, tiles_y: int, tiles_x: int, width: int,
                       height: int, textures: Tensor, textures_quad_t: Tensor,
                       camera_pos: Tensor, light: LightParams, view: Tensor,
-                      proj: Tensor) -> Tensor:
+                      proj: Tensor, wireframe: bool = False) -> Tensor:
     """The tile-major shade both tiled shades share: the winning
     sub-triangle's barycentrics recomputed from its resolved raster rows at
     ``rb`` (in the raster's op order, then mapped to the original
@@ -275,7 +283,7 @@ def _shade_tiled_tail(planes: Tensor, slot_p: Tensor, ndc_z: Tensor,
 
     rgba = _shade_core(get, b1, b2, pxc, pyc, ndc_z, slot_p < 0, width,
                        height, view, proj, textures, textures_quad_t,
-                       camera_pos, light)
+                       camera_pos, light, wireframe)
     out = torch.stack([_to_u8(c) for c in rgba], dim=-1)    # [tiles, px, 4]
     return untile(out.reshape(n_tiles, TILE_H, TILE_W, 4), tiles_y, tiles_x,
                   height, width)
@@ -292,6 +300,7 @@ def shade_visibility_tiled(
     textures_quad_t: Tensor,
     camera_pos: Tensor, light: LightParams,
     view: Tensor, proj: Tensor,
+    wireframe: bool = False,
 ) -> Tensor:
     """Tile-major deferred shade -> u8[H, W, 4].
 
@@ -319,7 +328,7 @@ def shade_visibility_tiled(
     return _shade_tiled_tail(planes, slot_p, tiled.depth.reshape(n_tiles, -1),
                              tri_row_t.shape[0], n_tiles // tiles_x, tiles_x,
                              width, height, textures, textures_quad_t,
-                             camera_pos, light, view, proj)
+                             camera_pos, light, view, proj, wireframe)
 
 
 def shade_visibility_fused(
@@ -334,6 +343,7 @@ def shade_visibility_fused(
     camera_pos: Tensor, light: LightParams,
     view: Tensor, proj: Tensor,
     return_depth: bool = False,
+    wireframe: bool = False,
 ):
     """The tiled shade over the fused walk + resolve kernel: the depth and
     slot planes never leave the kernel between the walk and the resolve.
@@ -349,7 +359,7 @@ def shade_visibility_fused(
     frame = _shade_tiled_tail(planes, slot_p, depth_p, tri_row_t.shape[0],
                               prep.tiles_y, prep.tiles_x, width, height,
                               textures, textures_quad_t, camera_pos, light,
-                              view, proj)
+                              view, proj, wireframe)
     if not return_depth:
         return frame
     depth = untile(depth_p.reshape(-1, TILE_H, TILE_W), prep.tiles_y,

@@ -16,9 +16,8 @@ dedupe, padding the triangle count to a multiple of 128, power-of-two
 square texture pages, the ``[T, S, S, 16]`` texel-quad pack and its
 channel-major ``[16, T*S*S]`` copy, entity AABBs), which the procedural
 scenes of :mod:`banggameengine_tpu_torch.scene.synthetic` share.
-
-Runtime entity CRUD (``BuiltScene.spawn``, ``despawn``, ``reparent``) is
-not ported: ROADMAP item 18.
+``BuiltScene.spawn``, ``despawn`` and ``reparent`` edit the built scene at
+run time (:mod:`banggameengine_tpu_torch.ecs.lifecycle`).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.ecs import lifecycle
 from banggameengine_tpu_torch.ecs.transform import (
     compute_levels,
     update_world_matrices,
@@ -113,16 +113,17 @@ class BuiltScene:
         return self.logical_ids.get(logical_id, -1)
 
     def spawn(self, state, **kwargs):
-        raise NotImplementedError(
-            "runtime spawn (ecs/lifecycle) is not ported: ROADMAP item 18")
+        """Create an entity at run time; see :func:`ecs.lifecycle.spawn`.
+        Returns (new_state, entity_id); writes ``self.static`` in place."""
+        return lifecycle.spawn(self, state, **kwargs)
 
     def despawn(self, state, entity: int):
-        raise NotImplementedError(
-            "runtime despawn (ecs/lifecycle) is not ported: ROADMAP item 18")
+        """Destroy an entity at run time; returns the new WorldState."""
+        return lifecycle.despawn(self, state, entity)
 
     def reparent(self, state, entity: int, new_parent) -> None:
-        raise NotImplementedError(
-            "runtime reparent (ecs/lifecycle) is not ported: ROADMAP item 18")
+        """Re-attach an entity under a new parent (local transform kept)."""
+        lifecycle.reparent(self, state, entity, new_parent)
 
 
 def _dedupe_edges(v_pos: np.ndarray, v_entity: np.ndarray):

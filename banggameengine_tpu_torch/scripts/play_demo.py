@@ -6,12 +6,15 @@ scripted input track (idle 2 s while the character falls and lands, walk
 toward the checkpoint, sprint after 5 s, jump once a second from 6 s),
 prints the status and stats lines and the trigger events, and can write
 the frames as PNGs.  The default path is the fused interactive tick;
-``--no-fused`` keeps separate step and render calls (the frames are then
-rendered with the interpolated motion states).  The HUD text and the
-physics overlay are not ported (ROADMAP item 15), so ``--overlay`` is
-gone and recorded frames carry no HUD.
+``--no-fused`` keeps separate step and render calls.  ``--overlay`` turns
+the physics overlay (F3) on and takes the separate calls; there, and
+whenever ``--record`` is given on them, every display frame is rendered
+by ``render_current_frame(hud=True)``: the interpolated motion states,
+the overlay's lines and the debug-text HUD.
 
     python -m banggameengine_tpu_torch.scripts.play_demo --seconds 8
+    python -m banggameengine_tpu_torch.scripts.play_demo --overlay \\
+        --width 1280 --height 720 --seconds 2
     python -m banggameengine_tpu_torch.scripts.play_demo --device cpu \\
         --seconds 1 --width 128 --height 72 --record /tmp/frames
 
@@ -66,6 +69,9 @@ def main(argv=None) -> None:
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=360)
     p.add_argument("--record", default=None, help="PNG output directory")
+    p.add_argument("--overlay", action="store_true",
+                   help="physics debug overlay (F3) and the HUD; takes the "
+                        "separate step and render calls")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="drive the fused interactive tick (substeps + frame "
@@ -80,19 +86,21 @@ def main(argv=None) -> None:
     from banggameengine_tpu_torch.app.window import HeadlessWindow
 
     window = HeadlessWindow(args.width, args.height, record_dir=args.record)
+    # the overlay renders through the separate step and render calls
+    fused = args.fused and not args.overlay
     app = Application(assets_root=args.assets, width=args.width,
-                      height=args.height, fused_tick=args.fused,
+                      height=args.height, fused_tick=fused,
                       device=args.device)
+    app.physics_overlay = args.overlay
     cj = app.built.find_entity("cj")
     for i in range(int(args.seconds * args.fps)):
         apply_track(app, i, args.fps, cj)
         app.frame(real_dt=1.0 / args.fps)
-        if args.record:
-            if args.fused:
-                if app.last_frame_image is not None:
-                    window.present(app.last_frame_image)
-            else:
-                window.present(app.render_current_frame())
+        if fused:
+            if args.record and app.last_frame_image is not None:
+                window.present(app.last_frame_image)
+        elif args.record or args.overlay:
+            window.present(app.render_current_frame(hud=True))
 
     print(app.status_line())
     print(app.physics_stats())

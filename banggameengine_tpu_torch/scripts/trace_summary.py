@@ -25,7 +25,10 @@ a character and a trigger on the dense route with exact shape triggers,
 from their 300-step state), ``frame_tiled``, ``frame_fused``, ``frame_flat`` and
 ``depth`` (the showcase at 1920x1080, as ``profile_render``), ``tick``
 (``make_frame_fn`` on the 10k-box world from its 200-step state, seen by the
-tick camera).  Under the profiler every host op costs more than without it,
+tick camera), ``app`` and ``overlay`` (one display frame of the app on the
+default path at 1280x720, ``app.frame`` and ``render_current_frame``, from
+the first second of ``play_demo``'s track: ``overlay`` with the physics
+overlay (F3) and the HUD, ``play_demo --overlay``).  Under the profiler every host op costs more than without it,
 so the busy share it shows is a lower bound of the untraced one.
 
     python3 -m banggameengine_tpu_torch.scripts.trace_summary frame_tiled [OUTDIR]
@@ -34,6 +37,7 @@ so the busy share it shows is a lower bound of the untraced one.
     python3 -m banggameengine_tpu_torch.scripts.trace_summary demo --device cpu --small
     python3 -m banggameengine_tpu_torch.scripts.trace_summary --parse PATH [REPS]
     python3 -m banggameengine_tpu_torch.scripts.trace_summary demo --device cpu --count-ops
+    python3 -m banggameengine_tpu_torch.scripts.trace_summary overlay --device cpu --small --count-ops
 
 ``--count-ops`` traces nothing: it counts the ATen ops one execution
 dispatches, views left out (each launches about one kernel on the card),
@@ -90,7 +94,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation")
 CUDA_API = "cuda_"     # the categories of host-side CUDA API calls
 PROGRAMS = ("stress", "manyworld", "demo", "dense", "frame_tiled",
-            "frame_fused", "frame_flat", "depth", "tick")
+            "frame_fused", "frame_flat", "depth", "tick", "app", "overlay")
 MAX_NEIGHBORS = 8
 FIRST_EXECUTION = "execution 0"
 COOL_DOWN = "cool-down"
@@ -151,6 +155,32 @@ def _dense_route_state(name: str, device, small: bool):
     return run, (state, inp)
 
 
+def _app_frame(name: str, device, small: bool):
+    """One display frame of the app on the default path (``small``:
+    128x72) after the first second of ``play_demo``'s track (the
+    character landed); ``overlay`` with F3 and the HUD.  Each execution
+    advances the app by one display frame of the track's idle input."""
+    from banggameengine_tpu_torch.app.application import Application
+    from banggameengine_tpu_torch.scripts.play_demo import (
+        REPO_ASSETS, apply_track)
+
+    fps = 30
+    width, height = (128, 72) if small else (1280, 720)
+    app = Application(assets_root=REPO_ASSETS, width=width, height=height,
+                      device=device)
+    app.physics_overlay = name == "overlay"
+    cj = app.built.find_entity("cj")
+    for i in range(fps):
+        apply_track(app, i, fps, cj)
+        app.frame(real_dt=1.0 / fps)
+
+    def display_frame():
+        app.frame(real_dt=1.0 / fps)
+        return app.render_current_frame(hud=name == "overlay"), app.state
+
+    return display_frame, ()
+
+
 def build(name: str, device="cuda", small: bool = False):
     """The program ``name`` as (function, its arguments on ``device``)."""
     if name == "stress":
@@ -160,6 +190,8 @@ def build(name: str, device="cuda", small: bool = False):
         return _manyworld_state(device, small)
     if name in ("demo", "dense"):
         return _dense_route_state(name, device, small)
+    if name in ("app", "overlay"):
+        return _app_frame(name, device, small)
     if name == "tick":
         state, static, inp, _ = _stress_state(device, small)
         width, height = (profile_render.SMALL_WH if small

@@ -3,8 +3,9 @@
 
 Drives ``banggameengine_tpu_torch`` through its slices, the 10,000-box
 stress tick, the shaded 1080p frame, its fused and full-carry routes, the
-profiling path, the flat many-world step, the default dense route and the
-application shell, and checks them.  Phases, one line each:
+profiling path, the flat many-world step, the default dense route, the
+application shell and its overlays and runtime scene editing, and checks
+them.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the six kernels for sm_90a, all at once
@@ -153,7 +154,32 @@ application shell, and checks them.  Phases, one line each:
    kernels and with their plain versions; display frames/s and fixed
    steps/s of each path by the host clock, the host synchronisations a
    display frame (CUDA sync debug mode "warn") and, from the run's last
-   frame traced, the launches and device time a display frame.
+   frame traced, the launches and device time a display frame;
+18. the app's overlays and the runtime scene, no hand kernel of their
+   own: the default-path app at 1280x720 with the physics overlay (F3)
+   and ``render_current_frame(hud=True)`` every display frame through the
+   track's first ``OVERLAY_SECONDS`` (``play_demo --overlay``), held to
+   the app golden as phase 17's default run; the last frame's line pass
+   on the card against the same pass on the CPU (at most
+   ``LINE_OFF_SHARE`` of the line pixels differ), the app's F3 frame
+   equal to it and its HUD frame equal to the HUD composed on it,
+   bit-equal with the plain walk and resolve; one F1 frame (no raster
+   kernel); the walk and the resolve launched once a rendered frame;
+   display frames/s, blocking host syncs and, from the last frame traced,
+   launches and device time a display frame; the JAX app's inputs
+   (``tests/data/overlay_jax_golden.npz``) rendered at 128x32, plain, F3
+   and F1, each within 1 level of the JAX app's frame on >= 99.9 % of
+   pixels; then ``build_scene(capacity=16, max_trigger_slots=2)`` on the
+   app's tree: a crate spawned at (3, 5, 3), 300 hot-reloadable steps
+   with no host sync, its track within the JAX golden's bar
+   (``tests/data/lifecycle_jax_golden.json``) and at rest at y = 1.49; a
+   checkpoint of step 150 saved, loaded and run to step 300 bit-equal to
+   the uninterrupted run; the crate despawned, a trigger spawned into
+   its recycled id around the character and its Enter on the golden's
+   entity, a child reparented under a new parent; no static tensor's
+   storage or shape changed; the checked step passing on the healthy
+   state and raising on a NaN position with no host sync inside the
+   step.
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -166,7 +192,7 @@ TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
 inputs.  The line before the last is the kernel table as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the run exits non-zero and prints no result.  Without a CUDA device it
-exits 1.
+exits 1.  Phase 17 and phase 18 print their own times.
 
     python3 chip_smoke.py
 
@@ -178,6 +204,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -267,6 +294,16 @@ APP_FRAMES = os.path.join(DATA, "app_jax_golden.npz")
 # frames after the first 5 timed
 APP_DEFAULT_SECONDS = 1.0
 APP_DEFAULT_WARMUP = 5
+OVERLAY_GOLDEN = os.path.join(DATA, "overlay_jax_golden.npz")
+LIFECYCLE_GOLDEN = os.path.join(DATA, "lifecycle_jax_golden.json")
+# the overlay run: the track's first second (the least phase 18 asks),
+# frames after the first 5 timed
+OVERLAY_SECONDS = 1.0
+# the line pass on the card vs on the CPU, same inputs: differing pixels
+# at most this share of the line pixels (the card's matrix products may
+# round a sample across a pixel border)
+LINE_OFF_SHARE = 1e-3
+RESUME_AT = 150       # the runtime scene's checkpoint, of its 300 steps
 
 
 class SmokeFailure(AssertionError):
@@ -1817,7 +1854,7 @@ def dense_phase(dev, card: str) -> None:
 
 
 def _app_run(app, frames: int, fps: int, render: bool = False,
-             trace_dir: str | None = None):
+             trace_dir: str | None = None, hud: bool = False):
     """Drive ``app`` through the first ``frames`` display frames of
     ``play_demo``'s track.  Returns the record the golden keeps (the
     character, on-ground flag and step count after each frame, the bus's
@@ -1825,7 +1862,7 @@ def _app_run(app, frames: int, fps: int, render: bool = False,
     synchronisations the app made (CUDA sync debug mode "warn", counted
     inside ``app.frame`` and ``render_current_frame`` only: the track's
     own read of the character is not the app's), the last
-    ``render_current_frame()`` when ``render``, and the trace summary
+    ``render_current_frame(hud=hud)`` when ``render``, and the trace summary
     (``scripts/trace_summary.py``) of the last frame, traced alone (each
     frame starts with host work and ends in a blocking read, so no kernel
     of it sits at the trace's edges), so no frame runs only to be traced
@@ -1861,7 +1898,7 @@ def _app_run(app, frames: int, fps: int, render: bool = False,
             try:
                 app.frame(real_dt=1.0 / fps)
                 if render:
-                    img = app.render_current_frame()
+                    img = app.render_current_frame(hud=hud)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         walls.append(time.perf_counter() - t0)
@@ -2039,6 +2076,288 @@ def app_phase(dev, card: str) -> None:
           f"{tr_f['seconds']:.1f}), the default run {default_s:.1f} (its "
           f"trace's {tr_d['seconds']:.1f}), the rest (loads, checks, plain "
           f"frames) {time.perf_counter() - t_phase - fused_s - default_s:.1f}")
+
+
+def _golden_app(dev, gz):
+    """An app at the overlay golden's size holding the golden's inputs:
+    the state and the previous state, the accumulator, the camera (the JAX
+    app's after its track, so its frames are drawn from the same inputs
+    as the golden's)."""
+    from banggameengine_tpu_torch.app.application import Application
+
+    width, height = gz["base_small"].shape[1], gz["base_small"].shape[0]
+    app = Application(assets_root=APP_ASSETS, width=width, height=height,
+                      device=dev)
+
+    def state(prefix):
+        return convert.world_state_from_numpy(
+            {k[len(prefix):]: gz[k] for k in gz.files
+             if k.startswith(prefix)}, dev)
+
+    app.state, app._prev_state = state("state_"), state("prev_")
+    app._accumulator = float(gz["accumulator"])
+    app.camera.position = gz["cam_pos"].copy()
+    app.camera.set_yaw_pitch(*gz["cam_yaw_pitch"].tolist())
+    return app
+
+
+def _static_ids(static) -> dict:
+    return {f: (getattr(static, f).data_ptr(), tuple(getattr(static, f).shape))
+            for f in static.__dataclass_fields__}
+
+
+def overlay_phase(dev, card: str) -> None:
+    """Phase 18: the app's overlays and the runtime scene on the card (no
+    hand kernel of their own: the walk and the resolve render the
+    frames).  The default-path app at 1280x720 with the physics overlay
+    (F3) and the HUD through play_demo's first ``OVERLAY_SECONDS``, one F1
+    frame; the line pass against itself on the CPU, the golden's F3 and
+    F1 frames at 128x32 against the JAX app's
+    (``tests/data/overlay_jax_golden.npz``); the runtime scene (spawn,
+    300 hot-reloadable steps, despawn, a trigger in the recycled slot,
+    reparent) against ``tests/data/lifecycle_jax_golden.json`` with the
+    static tensors in place; a checkpoint's resume; the checked step."""
+    from banggameengine_tpu_torch.app.application import Application
+    from banggameengine_tpu_torch.app.hud import (
+        compose_hud, standard_hud_lines)
+    from banggameengine_tpu_torch.engine import make_hot_reloadable_step_fn
+    from banggameengine_tpu_torch.physics.config import load_physics_config
+    from banggameengine_tpu_torch.physics.debugdraw import (
+        collision_shape_lines)
+    from banggameengine_tpu_torch.render.lines import draw_lines
+    from banggameengine_tpu_torch.render.pipeline import make_interp_render_fn
+    from banggameengine_tpu_torch.render.shading import LightParams
+    from banggameengine_tpu_torch.scene.build import build_scene
+    from banggameengine_tpu_torch.scene.resources import ResourceManager
+    from banggameengine_tpu_torch.scene.schema import parse_scene_json
+    from banggameengine_tpu_torch.state import InputFrame
+    from banggameengine_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from banggameengine_tpu_torch.utils.debug import (
+        CheckError, make_checked_step_fn)
+
+    t_phase = time.perf_counter()
+    with open(APP_GOLDEN) as f:
+        g = json.load(f)
+    fps = g["fps"]
+    width, height = g["full"]
+    os.environ.pop("BANG_ASSETS_DIR", None)
+    tmp = tempfile.mkdtemp(prefix="overlay_")
+
+    # ---- the overlay app: default path, F3 and the HUD ------------------
+    frames = int(OVERLAY_SECONDS * fps)
+    app = Application(assets_root=APP_ASSETS, width=width, height=height,
+                      device=dev)
+    app.physics_overlay = True
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec, walls, syncs, img, tr = _app_run(
+        app, frames, fps, render=True, hud=True,
+        trace_dir=os.path.join(tmp, "trace"))
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["walk"] == frames and counts["resolve"] == frames,
+          f"overlay: {counts} launches in {frames} rendered frames")
+    check(counts["fused"] == 0 and counts["tile"] == 0,
+          f"overlay: other render kernels launched: {counts}")
+    err = _app_check("default", rec, g, frames)
+
+    # the last frame's line pass, on the card and on the CPU, same inputs
+    fixed = app.config.fixed_step
+    alpha = torch.tensor(min(max(app._accumulator / fixed, 0.0), 1.0),
+                         dtype=torch.float32, device=dev)
+    view = app.camera.view_matrix("cpu").to(dev)
+    proj = app.camera.proj_matrix(width / height, "cpu").to(dev)
+    cam = torch.as_tensor(app.camera.position, device=dev)
+    render = make_interp_render_fn(app.built.render, width, height,
+                                   bin_capacity=2048, return_depth=True)
+    base, depth = render(app._prev_state, app.state, alpha, app.built.static,
+                         view, proj, cam, LightParams.default(dev))
+    lines = collision_shape_lines(app.state, app.built.static)
+    on_card = draw_lines(base, depth, *lines, view, proj).cpu()
+    on_cpu = draw_lines(base.cpu(), depth.cpu(), *(t.cpu() for t in lines),
+                        view.cpu(), proj.cpu())
+    line_px = int((on_cpu != base.cpu()).any(-1).sum())
+    line_off = int((on_card != on_cpu).any(-1).sum())
+    check(line_px > 0, "overlay: the line pass drew nothing")
+    check(line_off <= LINE_OFF_SHARE * line_px,
+          f"overlay: the card's line pass differs from the CPU's at "
+          f"{line_off} of {line_px} line pixels")
+    f3 = app.render_current_frame()
+    check(np.array_equal(f3, on_card.numpy()),
+          "overlay: the app's F3 frame is not the line pass over its frame")
+    with_hud = app.render_current_frame(hud=True)
+    check(np.array_equal(with_hud, img)
+          and np.array_equal(with_hud,
+                             compose_hud(f3, standard_hud_lines(app))),
+          "overlay: the HUD frame is not the HUD composed on the F3 frame")
+    with plain_render_kernels():
+        plain_hud = app.render_current_frame(hud=True)
+    check(np.array_equal(plain_hud, with_hud),
+          "overlay: the HUD frame differs between the kernels and their "
+          "plain versions")
+    app.wireframe = True
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    f1 = app.render_current_frame(hud=True)
+    f1_ms = 1e3 * (time.perf_counter() - t0)
+    check(sum(launch_counts().values()) == 0,
+          "overlay: the F1 frame launched a raster kernel")
+    sky = (f1[..., :3] == SKY[:3]).all(-1)
+    check(sky.mean() > 0.5 and ((f1 == 255).all(-1) & ~sky).any(),
+          "overlay: the F1 frame is not white lines over the clear colour")
+    app.wireframe = False
+    steady = walls[APP_DEFAULT_WARMUP:-1]
+    steady_steps = rec["steps"][-2] - rec["steps"][APP_DEFAULT_WARMUP - 1]
+    print(f"[overlay] default path with F3 and the HUD "
+          f"(render_current_frame(hud=True)), {width}x{height}: the first "
+          f"{OVERLAY_SECONDS:g} s of play_demo's track, {frames} display "
+          f"frames, {run_s:.1f} s (the last frame traced); bus events "
+          f"{rec['events']}; max |char - JAX| {err:.3g}; walk and resolve "
+          f"launched {counts['walk']} and {counts['resolve']} times; the "
+          f"line pass on the card vs the CPU: {line_off} of {line_px} line "
+          f"pixels differ (<= {LINE_OFF_SHARE:g}); the app's F3 frame is "
+          f"the card's line pass, its HUD frame the HUD on it, bit-equal "
+          f"with the plain kernels; F1 frame {f1_ms:.1f} ms, no raster "
+          f"kernel")
+    print(f"[times] overlay app: {len(steady) / sum(steady):.2f} display "
+          f"frames/s, {steady_steps / sum(steady):.1f} fixed steps/s "
+          f"(frames {APP_DEFAULT_WARMUP}..{frames - 2}, "
+          f"{1e3 * statistics.median(steady):.1f} ms median a frame); "
+          f"{syncs / frames:.2f} blocking host syncs a display frame "
+          f"({syncs} in all); one display frame traced: "
+          f"{tr['launches']:g} launches, {tr['busy_ms']:.3f} ms of device "
+          f"time in a {tr['window_ms']:.3f} ms window (busy "
+          f"{100 * tr['busy_share']:.1f} %) {card}")
+
+    # ---- the golden's F3 and F1 frames at 128x32 -------------------------
+    gz = np.load(OVERLAY_GOLDEN)
+    small = _golden_app(dev, gz)
+    got = {"base_small": small.render_current_frame()}
+    small.physics_overlay = True
+    got["f3_small"] = small.render_current_frame()
+    small.physics_overlay = False
+    small.wireframe = True
+    got["f1_small"] = small.render_current_frame()
+    report = []
+    for k, frame in got.items():
+        ref = gz[k]
+        off = np.abs(frame.astype(np.int32)
+                     - ref.astype(np.int32)).max(-1) > 1
+        check(frame.shape == ref.shape and off.mean() <= FRAME_OFF_SHARE,
+              f"overlay: {k}: {int(off.sum())} pixels differ from JAX by "
+              f"more than 1 level")
+        report.append(f"{k[:2]} {int(off.sum())} off by > 1 level, "
+                      f"{int((frame != ref).any(-1).sum())} off at all")
+    lines_ref = (gz["f3_small"] != gz["base_small"]).any(-1)
+    lines_got = (got["f3_small"] != got["base_small"]).any(-1)
+    print(f"[overlay] the golden's inputs rendered at {small.width}x"
+          f"{small.height} vs the JAX app's frames (of "
+          f"{lines_ref.size} pixels): " + "; ".join(report)
+          + f"; line pixels {int(lines_got.sum())} (JAX "
+          f"{int(lines_ref.sum())}, {int((lines_got != lines_ref).sum())} "
+          f"differ)")
+
+    # ---- the runtime scene -------------------------------------------------
+    with open(LIFECYCLE_GOLDEN) as f:
+        lg = json.load(f)
+    built = build_scene(
+        parse_scene_json(os.path.join(APP_ASSETS, "scenes", "demo.json")),
+        ResourceManager(APP_ASSETS),
+        load_physics_config(os.path.join(APP_ASSETS, "config",
+                                         "physics.json")),
+        capacity=lg["capacity"], max_trigger_slots=lg["trigger_slots"],
+        device=dev)
+    ids = _static_ids(built.static)
+    step = make_hot_reloadable_step_fn()
+    zero = InputFrame.zero(dev)
+    t0 = time.perf_counter()
+    state, crate = built.spawn(built.initial_state, **lg["crate_spawn"])
+    track = []
+    with no_host_sync():
+        for k in range(1, lg["steps"] + 1):
+            state, _ = step(state, zero, built.static)
+            if k % lg["every"] == 0:
+                track.append(state.pos[crate])
+            if k == RESUME_AT:
+                mid = state
+    track = torch.stack(track).cpu().numpy()
+    run_steps_s = time.perf_counter() - t0
+    crate_err = float(np.abs(track - np.asarray(lg["crate_track"])).max())
+    rest = float(track[-1, 1])
+    check(crate == lg["crate"], f"runtime: crate id {crate}")
+    check(crate_err < lg["atol"], f"runtime: |crate - JAX| = {crate_err}")
+    check(abs(rest - lg["rest_y"]) < 0.05, f"runtime: the crate rests at "
+          f"y = {rest}")
+
+    # checkpoint at step RESUME_AT, resumed to the end: bit-equal
+    path = os.path.join(tmp, "mid")
+    save_checkpoint(path, mid, metadata={"step": RESUME_AT})
+    resumed, meta = load_checkpoint(path, device=dev)
+    check(meta == {"step": RESUME_AT} and resumed.pos.device == state.pos.device,
+          "checkpoint: metadata or device")
+    with no_host_sync():
+        for _ in range(lg["steps"] - RESUME_AT):
+            resumed, _ = step(resumed, zero, built.static)
+    for f in state.__dataclass_fields__:
+        check(torch.equal(getattr(resumed, f), getattr(state, f)),
+              f"checkpoint: the resumed run differs in {f}")
+
+    # despawn; a trigger in the recycled slot around the character
+    state = built.despawn(state, crate)
+    state, zone = built.spawn(state, **lg["zone_spawn"])
+    slot = int(torch.nonzero(built.static.trig_entity == zone)[0, 0])
+    state, ev = step(state, zero, built.static)
+    enter = torch.nonzero(ev.trigger_enter[slot])[:, 0].tolist()
+    check(zone == crate == lg["zone"] and slot == lg["zone_slot"],
+          f"runtime: the trigger took id {zone}, slot {slot}")
+    check(enter == lg["zone_enter"], f"runtime: trigger Enter of {enter}, "
+          f"the JAX golden's {lg['zone_enter']}")
+    state, anchor = built.spawn(state, **lg["anchor_spawn"])
+    state, gadget = built.spawn(state, **lg["gadget_spawn"])
+    built.reparent(state, gadget, "anchor")
+    state, _ = step(state, zero, built.static)
+    gw = state.world[gadget, :3, 3].cpu().numpy()
+    check([anchor, gadget] == [lg["anchor"], lg["gadget"]]
+          and np.abs(gw - np.asarray(lg["gadget_world"])).max() < 1e-5,
+          f"runtime: reparented child at {gw.tolist()}")
+    check(_static_ids(built.static) == ids,
+          "runtime: a static tensor changed storage or shape")
+
+    # the checked step: healthy, then a NaN position
+    checked = make_checked_step_fn(built.static)
+    bad_pos = state.pos.clone()
+    bad_pos[0, 0] = float("nan")
+    bad = dataclasses.replace(state, pos=bad_pos)
+    with no_host_sync():
+        err_ok, (s_ok, _) = checked(state, zero)
+        err_bad, _ = checked(bad, zero)
+    err_ok.throw()
+    message = None
+    try:
+        err_bad.throw()
+    except CheckError as e:
+        message = str(e)
+    step_no = int(s_ok.step_idx)
+    check(message == f"non-finite position at step {step_no} (`check` "
+          f"failed)", f"checked step: {message!r}")
+    rt_s = time.perf_counter() - t0
+    print(f"[runtime] build_scene(capacity={lg['capacity']}, "
+          f"max_trigger_slots={lg['trigger_slots']}): a crate spawned at "
+          f"{lg['crate_spawn']['pos']}, {lg['steps']} hot-reloadable steps "
+          f"(no host sync, {run_steps_s:.1f} s, "
+          f"{lg['steps'] / run_steps_s:.1f} steps/s): max |crate - JAX| "
+          f"{crate_err:.3g} (< {lg['atol']:g}), at rest y = {rest:.6f}; "
+          f"checkpoint at step {RESUME_AT} resumed {lg['steps'] - RESUME_AT} "
+          f"steps: bit-equal; despawned, the trigger took id {zone} and "
+          f"saw {enter} enter; the child reparented at {gw.tolist()}; no "
+          f"static tensor moved; the checked step passed, then raised "
+          f"{message!r} (no host sync in the step) {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[overlay] phase 18 took {time.perf_counter() - t_phase:.1f} s: "
+          f"the overlay run {run_s:.1f} (its trace's export and summary "
+          f"{tr['seconds']:.1f}), the runtime scene {rt_s:.1f}, the rest "
+          f"{time.perf_counter() - t_phase - run_s - rt_s:.1f}")
 
 
 def main() -> int:
@@ -2263,6 +2582,7 @@ def main() -> int:
     manyworld_phase(dev, card)
     dense_phase(dev, card)
     app_phase(dev, card)
+    overlay_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

@@ -347,16 +347,20 @@ def test_light_keys_and_hotkeys_match_jax(app_env):
 
 
 def test_unported_overlays_refuse(app_env):
+    """The overlays that once refused (ROADMAP item 15) now render: the
+    HUD, the physics overlay (F3) and the wireframe (F1) each give a frame
+    of the app's size that differs from the plain one."""
     app = Application(assets_root=ASSETS, width=64, height=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        app.render_current_frame(hud=True)
+    plain = app.render_current_frame()
+    frames = [app.render_current_frame(hud=True)]
     app.physics_overlay = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        app.render_current_frame()
+    frames.append(app.render_current_frame())
     app.physics_overlay = False
     app.wireframe = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        app.render_current_frame()
+    frames.append(app.render_current_frame())
+    for img in frames:
+        assert img.shape == plain.shape == (32, 64, 4)
+        assert img.dtype == np.uint8 and not np.array_equal(img, plain)
 
 
 def test_scene_and_config_reloads(app_env, tmp_path):

@@ -397,6 +397,9 @@ def test_trace_programs_build_and_run(name):
         state, frame, _ = out
         assert tuple(frame.shape) == prr.SMALL_WH[::-1] + (4,)
         assert int(state.step_idx) == 21
+    elif name in ("app", "overlay"):
+        img, state = out              # one display frame after the 1-s track
+        assert img.shape == (72, 128, 4) and int(state.step_idx) == 124
     else:
         w, h = prr.SMALL_WH
         assert tuple(out.shape) == ((h, w) if name == "depth" else (h, w, 4))

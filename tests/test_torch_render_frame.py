@@ -149,8 +149,7 @@ def test_unported_options_raise():
     cam = {k: torch.as_tensor(v) for k, v in _camera_arrays(sc).items()}
     args = (rs, torch.as_tensor(sc.world), cam["view"], cam["proj"],
             cam["cam_pos"])
-    for kw in (dict(wireframe=True), dict(raster_backend="xla"),
-               dict(raster_backend="auto"),
+    for kw in (dict(raster_backend="xla"), dict(raster_backend="auto"),
                dict(shade_mode="tiled", raster_backend="tile")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_frame(*args, width=W, height=H, **kw)

@@ -350,13 +350,27 @@ def test_build_scene_bookkeeping_matches_jax(builds):
 
 
 def test_runtime_crud_is_not_ported(builds):
+    """Runtime CRUD, once refused (ROADMAP item 18), now edits a built
+    scene (``tests/test_torch_lifecycle.py`` holds it to JAX): on a copy
+    of the build, a spawn takes the lowest free slot, a reparent moves
+    the hat to the root, a despawn frees the slot."""
     _, port_built, _, _ = builds
-    state = port_built.initial_state
-    for call in (lambda: port_built.spawn(state),
-                 lambda: port_built.despawn(state, 1),
-                 lambda: port_built.reparent(state, 3, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            call()
+    built = dataclasses.replace(
+        port_built, static=dataclasses.replace(port_built.static, **{
+            f.name: getattr(port_built.static, f.name).clone()
+            for f in dataclasses.fields(port_built.static)}),
+        logical_ids=dict(port_built.logical_ids),
+        entity_names=list(port_built.entity_names),
+        counts=dict(port_built.counts))
+    state = built.initial_state
+    state, crate = built.spawn(state, name="crate", pos=(0.0, 3.0, 0.0))
+    assert crate == 4 and bool(state.alive[crate])
+    assert built.find_entity("crate") == crate
+    built.reparent(state, 3, None)
+    assert int(built.static.parent[3]) == -1
+    state = built.despawn(state, crate)
+    assert not bool(state.alive[crate]) and built.find_entity("crate") == -1
+    assert int(port_built.static.parent[3]) == 0
 
 
 def test_resource_lookup_order_and_cache(tmp_path, monkeypatch):
