@@ -1,11 +1,11 @@
 """3D math: quaternions and 4x4 transforms.
 
-PyTorch counterpart of the functions of ``banggameengine_tpu/math3d.py``
-that the physics tick and the renderer call, with the same conventions:
-column-vector
-``float32[..., 4, 4]`` matrices, ``local = T @ R @ S``, Euler XYZ radians
-with ``R = Rz @ Ry @ Rx``, quaternions ``[x, y, z, w]``.  Every function
-broadcasts over leading batch dimensions.
+PyTorch counterpart of ``banggameengine_tpu/math3d.py``, with the same
+conventions: column-vector ``float32[..., 4, 4]`` matrices,
+``local = T @ R @ S``, Euler XYZ radians with ``R = Rz @ Ry @ Rx``,
+quaternions ``[x, y, z, w]``.  Every function broadcasts over leading
+batch dimensions.  Small matrix-vector products are multiplies and sums,
+so no matmul (TF32 or not) rounds them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,13 @@ from __future__ import annotations
 import torch
 
 Tensor = torch.Tensor
+
+
+def quat_identity(shape=(), device: torch.device | str = "cuda") -> Tensor:
+    """Identity quaternion, optionally batched to ``shape + (4,)``."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=torch.float32, device=device)
+    q[..., 3] = 1.0
+    return q
 
 
 def quat_normalize(q: Tensor, eps: float = 1e-12) -> Tensor:
@@ -55,6 +62,14 @@ def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
     return v + 2.0 * _cross(u, c1)
 
 
+def quat_from_axis_angle(axis: Tensor, angle: Tensor) -> Tensor:
+    """Rotation by ``angle`` radians about ``axis`` (normalised here)."""
+    norm = torch.sqrt((axis * axis).sum(dim=-1, keepdim=True))
+    axis = axis / norm.clamp_min(1e-12)
+    half = angle[..., None] * 0.5
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
+
+
 def quat_from_euler_xyz(euler: Tensor) -> Tensor:
     """Euler XYZ radians -> quaternion with R = Rz @ Ry @ Rx."""
     hx, hy, hz = euler[..., 0] * 0.5, euler[..., 1] * 0.5, euler[..., 2] * 0.5
@@ -90,6 +105,51 @@ def quat_to_mat3(q: Tensor) -> Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def quat_from_mat3(m: Tensor) -> Tensor:
+    """3x3 rotation matrix -> unit quaternion: Shepperd's method with the
+    four candidates selected branch-free."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def scale(x):
+        return torch.sqrt(x.clamp_min(1e-12)) * 2.0
+
+    s0 = scale(tr + 1.0)                       # trace dominant
+    q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0,
+                      0.25 * s0], -1)
+    s1 = scale(1.0 + m00 - m11 - m22)          # m00 dominant
+    q1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1,
+                      (m21 - m12) / s1], -1)
+    s2 = scale(1.0 - m00 + m11 - m22)          # m11 dominant
+    q2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2,
+                      (m02 - m20) / s2], -1)
+    s3 = scale(1.0 - m00 - m11 + m22)          # m22 dominant
+    q3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3,
+                      (m10 - m01) / s3], -1)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0,
+                    torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+    return quat_normalize(q)
+
+
+def euler_zyx_from_quat(q: Tensor) -> Tensor:
+    """Euler XYZ angles [ax, ay, az] of ``R = Rz @ Ry @ Rx`` (Bullet's
+    ``getEulerZYX``); near gimbal lock az is 0."""
+    m = quat_to_mat3(q)
+    ay = torch.asin(torch.clamp(-m[..., 2, 0], -1.0, 1.0))
+    near_gimbal = torch.cos(ay).abs() < 1e-6
+    ax = torch.where(near_gimbal,
+                     torch.atan2(-m[..., 1, 2], m[..., 1, 1]),
+                     torch.atan2(m[..., 2, 1], m[..., 2, 2]))
+    az = torch.where(near_gimbal, torch.zeros_like(ay),
+                     torch.atan2(m[..., 1, 0], m[..., 0, 0]))
+    return torch.stack([ax, ay, az], dim=-1)
+
+
 def quat_nlerp(a: Tensor, b: Tensor, t) -> Tensor:
     """Normalized linear interpolation with hemisphere correction (for the
     small rotations between two fixed steps it matches slerp to float
@@ -108,15 +168,45 @@ def quat_integrate(q: Tensor, omega: Tensor, dt: Tensor) -> Tensor:
     return quat_normalize(q + dq * dt[..., None])
 
 
+def mat_identity(shape=(), device: torch.device | str = "cuda") -> Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device).expand(
+        tuple(shape) + (4, 4))
+
+
 def mat_from_srt(scale: Tensor, quat: Tensor, pos: Tensor) -> Tensor:
     """Compose local = T @ R @ S from scale[...,3], quat[...,4], pos[...,3]."""
     r = quat_to_mat3(quat)
     return _affine(r * scale[..., None, :], pos)  # R @ diag(s): scale columns
 
 
+def mat_from_euler_srt(scale: Tensor, euler: Tensor, pos: Tensor) -> Tensor:
+    return mat_from_srt(scale, quat_from_euler_xyz(euler), pos)
+
+
 def mat_mul(a: Tensor, b: Tensor) -> Tensor:
     """f32 matrix product (TF32 stays off: see the package docstring)."""
     return torch.matmul(a, b)
+
+
+def _matvec3(a: Tensor, v: Tensor) -> Tensor:
+    """``einsum("...ij,...j->...i", a, v)`` as multiplies and a sum."""
+    return (a * v[..., None, :]).sum(dim=-1)
+
+
+def mat_transform_point(m: Tensor, p: Tensor) -> Tensor:
+    """Apply 4x4 ``m`` to the 3-vector point(s) ``p``."""
+    return _matvec3(m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def mat_transform_dir(m: Tensor, v: Tensor) -> Tensor:
+    return _matvec3(m[..., :3, :3], v)
+
+
+def mat_affine_inverse(m: Tensor) -> Tensor:
+    """Inverse of an affine TRS matrix (general 3x3 inverse +
+    translation)."""
+    inv_a = inverse(m[..., :3, :3])
+    return _affine(inv_a, -_matvec3(inv_a, m[..., :3, 3]))
 
 
 def inverse(m: Tensor) -> Tensor:
@@ -173,6 +263,20 @@ def mtx_proj(fovy_deg: float, aspect: float, near: float, far: float,
     m[2, 2] = a
     m[2, 3] = b
     m[3, 2] = 1.0
+    return m
+
+
+def mtx_ortho(left, right, bottom, top, near, far,
+              device: torch.device | str = "cuda") -> Tensor:
+    """Orthographic projection, depth in [0, 1] (D3D style)."""
+    m = torch.zeros((4, 4), dtype=torch.float32, device=device)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = 2.0 / (top - bottom)
+    m[2, 2] = 1.0 / (far - near)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    m[2, 3] = -near / (far - near)
+    m[3, 3] = 1.0
     return m
 
 

@@ -1,39 +1,174 @@
-"""Kinematic character controller: the planar many-character step.
+"""Kinematic character controller: the per-slot and the planar step.
 
-Counterpart of ``step_characters_t`` in
-``banggameengine_tpu/physics/character.py`` with its helpers
-``_qrot_comps`` and ``_box_local_comps``.  The controller reproduces the
-observable behaviour of the reference's ``btKinematicCharacterController``
+Counterpart of ``banggameengine_tpu/physics/character.py``: the per-slot
+``step_character`` with ``walk_velocity`` and ``_capsule_world_contacts``
+(its ``_entity_capsule_segments`` and ``_closest_seg`` are
+``shapes.capsule_segment`` and ``shapes.closest_segment_segment``, which
+broadcast a slot's segment against every entity's), and the planar
+``step_characters_t`` with its helpers ``_qrot_comps`` and
+``_box_local_comps``.  The controller reproduces the observable
+behaviour of the reference's ``btKinematicCharacterController``
 (``PhysicsSystem.cpp:709-846``): a camera-yaw-relative walk at
 ``walkSpeed`` (x1.8 sprinting), a jump only from the ground, gravity with
 the fall speed capped at 3|g|, a fixed number of depenetration passes
-against the candidate boxes, capsules and the ground plane (each lifting
-by at most ``stepHeight``), then a ground-support probe under the slope
-limit.  It is a ghost: it pushes only itself.
+against the boxes, capsules and the ground plane (each lifting by at most
+``stepHeight``), then a ground-support probe under the slope limit.  It
+is a ghost: it pushes only itself.
 
-Every tensor is a ``[K, C]`` or ``[C]`` plane, characters last, and the
-formulas are the JAX module's expression for expression.  The three
-capsule sample spheres run as one ``[3, K, C]`` block, the same elementwise
-operations on each, in the JAX module's slot order.
-
-The JAX module's per-slot ``step_character`` (every entity of the world,
-vmapped one slot at a time) needs no form of its own: the step passes
-every entity as the candidates of every slot.  Its contact order is the
-same (sample spheres against each box, the core segment against each
-capsule, the end spheres against the ground), so the deepest contact
-breaks ties the same way.
+The per-slot step runs every character slot against every entity of its
+world; where the JAX package vmaps the one-slot function over the slots,
+this one carries a leading slot axis ``[C, ...]`` through the same
+``[..., 3]``-minor expressions.  The planar step takes ``[K, C]``
+candidate planes, characters last (the flat many-world's static
+candidates), the JAX module's formulas expression for expression, with
+the three capsule sample spheres as one ``[3, K, C]`` block.  Both order
+their contacts the same way (sample spheres against each box, the core
+segment against each capsule, the end spheres against the ground), so
+the deepest contact breaks ties the same way, the first one winning as
+``jnp.argmax`` picks it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics.config import SPRINT_MULTIPLIER
+from banggameengine_tpu_torch.physics.shapes import (
+    capsule_segment,
+    closest_segment_segment,
+)
+from banggameengine_tpu_torch.state import SHAPE_BOX, SHAPE_CAPSULE
 
 Tensor = torch.Tensor
 
 DEPENETRATION_ITERS = 4
 CONTACT_TOLERANCE = 0.05   # ground-support probe distance
+
+
+def _norm(v: Tensor) -> Tensor:
+    """``jnp.linalg.norm(v, axis=-1)``."""
+    return torch.sqrt((v * v).sum(dim=-1))
+
+
+def _unit_y(like: Tensor) -> Tensor:
+    """(0, 1, 0) broadcast to ``like``'s shape, made on its device."""
+    y = torch.zeros_like(like)
+    y[..., 1] = 1.0
+    return y
+
+
+def walk_velocity(move_forward, move_right, cam_yaw, walk_speed, sprint):
+    """Horizontal walk velocity [..., 3] from the input axes, relative to
+    the camera's yaw (``HandleCharacterInput``, PhysicsSystem.cpp:790-846);
+    every argument [...]."""
+    fwd = math3d.yaw_pitch_forward(cam_yaw, torch.zeros_like(cam_yaw))
+    fwd = fwd * (1.0 - _unit_y(fwd))           # y = 0
+    fwd = fwd / _norm(fwd).clamp_min(1e-9)[..., None]
+    right = -math3d._cross(fwd, _unit_y(fwd))  # the reference's up x fwd
+    wish = fwd * move_forward[..., None] + right * move_right[..., None]
+    norm = _norm(wish)[..., None]
+    wish = torch.where(norm > 1e-6, wish / norm.clamp_min(1e-9), 0.0)
+    speed = walk_speed * torch.where(sprint, SPRINT_MULTIPLIER, 1.0)
+    return wish * speed[..., None]
+
+
+def _capsule_world_contacts(c_pos, radius, half_height, pos, quat,
+                            shape_type, size, obstacle_mask):
+    """Contacts of the upright capsule of each slot at ``c_pos`` [C, 3]
+    (``radius``, ``half_height`` [C]) against every entity [N] and the
+    ground plane: (normals [C, M, 3] pushing the capsule out, depths
+    [C, M], valid [C, M]), M = 3N + N + 2 in the order sample spheres x
+    boxes, core segment x capsules, end spheres x ground.
+    ``obstacle_mask`` is bool[C, N]."""
+    c = c_pos.shape[0]
+    n = pos.shape[0]
+    ts = (torch.arange(3, dtype=c_pos.dtype, device=c_pos.device)
+          * 0.5)[:, None]                                     # 0, 0.5, 1
+    axis = _unit_y(c_pos) * half_height[:, None]
+    lo = c_pos - axis
+    hi = c_pos + axis
+    samples = lo[:, None, :] + (hi - lo)[:, None, :] * ts     # [C, 3, 3]
+
+    # vs boxes: sphere-box per (sample, entity)
+    d_box, n_box, _ = nf._sphere_box_contact(
+        samples[:, :, None, :], radius[:, None, None], pos, quat, size)
+    valid_box = (shape_type == SHAPE_BOX)[None, :] & obstacle_mask
+
+    # vs capsules: segment-segment against each entity's core segment (its
+    # local Y axis scaled by size[:, 1], whatever its shape)
+    seg_a, seg_b = capsule_segment(pos, quat, size[:, 1])
+    c1, c2 = closest_segment_segment(lo[:, None], hi[:, None], seg_a, seg_b)
+    delta = c1 - c2
+    dist = _norm(delta)[..., None]                            # [C, N, 1]
+    n_cap = torch.where(dist > 1e-9, delta / dist.clamp_min(1e-9),
+                        _unit_y(delta))
+    d_cap = radius[:, None] + size[:, 0] - dist[..., 0]       # [C, N]
+    valid_cap = (shape_type == SHAPE_CAPSULE)[None, :] & obstacle_mask
+
+    # ground plane: both end spheres, normal +y
+    ends = torch.stack([lo, hi], dim=1)                       # [C, 2, 3]
+    d_gnd = radius[:, None] - ends[..., 1]
+    n_gnd = _unit_y(ends)
+
+    normals = torch.cat([n_box.reshape(c, 3 * n, 3), n_cap, n_gnd], dim=1)
+    depths = torch.cat([d_box.reshape(c, 3 * n), d_cap, d_gnd], dim=1)
+    valid = torch.cat([valid_box[:, None].expand(c, 3, n).reshape(c, 3 * n),
+                       valid_cap,
+                       torch.ones_like(d_gnd, dtype=torch.bool)], dim=1)
+    return normals, depths, valid
+
+
+def step_character(
+    c_pos, vel_y, on_ground,                 # [C, 3], [C], bool[C]
+    radius, half_height, walk_speed, jump_speed,   # [C]
+    inp_forward, inp_right, inp_jump, inp_sprint, cam_yaw,  # [C]
+    pos, quat, shape_type, size,             # every entity, [N, ...]
+    obstacle_mask,                           # bool[C, N]
+    gravity, dt, step_height, max_slope_cos,
+):
+    """Advance every character slot by one fixed step against every
+    entity: returns (new centres [C, 3], vel_y [C], grounded [C])."""
+    walk = walk_velocity(inp_forward, inp_right, cam_yaw, walk_speed,
+                         inp_sprint)
+
+    # -- vertical dynamics --
+    do_jump = inp_jump & on_ground
+    vel_y = torch.where(do_jump, jump_speed, vel_y)
+    vel_y = vel_y + gravity * dt
+    fall_cap = 3.0 * gravity.abs()           # setFallSpeed(|g| * 3)
+    vel_y = torch.maximum(vel_y, -fall_cap)
+
+    # -- proposed motion --
+    up = _unit_y(c_pos)
+    p = c_pos + (walk * dt + up * (vel_y * dt)[:, None])
+
+    # -- depenetration passes --
+    lo_push = -step_height
+    hi_push = step_height + radius
+    for _ in range(DEPENETRATION_ITERS):
+        normals, depths, valid = _capsule_world_contacts(
+            p, radius, half_height, pos, quat, shape_type, size,
+            obstacle_mask)
+        pen = torch.where(valid, depths, -torch.inf)
+        worst = torch.argmax(pen, dim=1, keepdim=True)        # [C, 1]
+        d = torch.gather(pen, 1, worst).clamp_min(0.0)        # [C, 1]
+        push = torch.gather(normals, 1, worst[..., None].expand(-1, 1, 3)
+                            )[:, 0] * d
+        # never lift by more than stepHeight in one pass
+        push_y = torch.minimum(torch.maximum(push[:, 1], lo_push), hi_push)
+        push = torch.where(up > 0.0, push_y[:, None], push)
+        p = torch.where(d > 0.0, p + push, p)
+
+    # -- ground support probe --
+    normals, depths, valid = _capsule_world_contacts(
+        p, radius, half_height, pos, quat, shape_type, size, obstacle_mask)
+    support = (valid & (depths > -CONTACT_TOLERANCE)
+               & (normals[..., 1] > max_slope_cos))
+    grounded = support.any(dim=1)
+    vel_y = torch.where(grounded & (vel_y < 0.0), 0.0, vel_y)
+    return p, vel_y, grounded
 
 
 def _qrot_comps(qx, qy, qz, qw, vx, vy, vz):

@@ -1,17 +1,15 @@
-"""Transposed (component-form) box contact pipeline and Jacobi solver.
+"""Transposed (component-form) contact pipeline and Jacobi solver.
 
-Counterpart of ``banggameengine_tpu/physics/contact_t.py`` for box-only
-scenes: :func:`box_contacts_t` (15-axis SAT, corner and edge-edge
-manifolds, ground contacts, the 4-point per-pair cap, the per-body budget
-and the persistent-cache feature ids) and :func:`solve_contacts_t`
-(warm-started, heavy-ball mass-splitting Jacobi) on its gather route.
-Every intermediate is ``[slots, N]`` with the body axis last, as in the
-JAX module, and the math is the same expression for expression, so the two
-agree to f32 rounding.
-
-Not ported yet: the capsule slots (``shape_type=``), which raise
-NotImplementedError.  The block-diagonal lane-roll partner read
-(``block_size=``) is the gather here (see :func:`solve_contacts_t`).
+Counterpart of ``banggameengine_tpu/physics/contact_t.py``:
+:func:`box_contacts_t` (15-axis SAT, corner and edge-edge manifolds, the
+capsule slots of mixed scenes, ground contacts, the 4-point per-pair cap,
+the per-body budget and the persistent-cache feature ids) and
+:func:`solve_contacts_t` (warm-started, heavy-ball mass-splitting Jacobi)
+on its gather route.  Every intermediate is ``[slots, N]`` with the body
+axis last, as in the JAX module, and the math is the same expression for
+expression, so the two agree to f32 rounding.  The block-diagonal
+lane-roll partner read (``block_size=``) is the gather here (see
+:func:`solve_contacts_t`).
 
 Compaction: where the JAX module moves the c-th valid candidate by a sum
 of one-hot selects, this one finds the candidate's row with a stable sort
@@ -30,13 +28,15 @@ from banggameengine_tpu_torch.physics.solver import (
     RESTITUTION_THRESHOLD,
     WARM_START_FACTOR,
 )
-from banggameengine_tpu_torch.state import FEAT_STRIDE
+from banggameengine_tpu_torch.state import FEAT_STRIDE, SHAPE_CAPSULE
 
 Tensor = torch.Tensor
 
 _LATERAL_MARGIN = 0.02   # == narrowphase._LATERAL_MARGIN
 K_BB = 17                # 8 + 8 corners + SAT-center fallback
+K_MIX = 7                # 3 cap-box + 3 box-cap + 1 cap-cap slots
 K_GROUND = 8
+_CAP_TS = (0.0, 0.5, 1.0)   # capsule sphere-sample params (narrowphase)
 _MANIFOLD_CAP = 4        # Bullet's MANIFOLD_CACHE_SIZE
 
 # the 8 corner sign combinations of a box (x, y, z in {-1, +1})
@@ -60,6 +60,40 @@ def _dot(ax, ay, az, bx, by, bz):
 
 def _sign_eps(x, eps=1e-5):
     return torch.where(x > eps, 1.0, torch.where(x < -eps, -1.0, 0.0))
+
+
+def _sphere_vs_box_local(lb0, lb1, lb2, hb0, hb1, hb2):
+    """Closest point on a local-frame box to the local point ``lb``
+    (``shapes.closest_point_on_box`` in components; the first axis wins a
+    tie of clearances) -> (p0, p1, p2, n0, n1, n2, signed distance)."""
+    cl0 = torch.clamp(lb0, -hb0, hb0)
+    cl1 = torch.clamp(lb1, -hb1, hb1)
+    cl2 = torch.clamp(lb2, -hb2, hb2)
+    d0, d1, d2 = lb0 - cl0, lb1 - cl1, lb2 - cl2
+    dist = torch.sqrt(d0 * d0 + d1 * d1 + d2 * d2)
+    outside = dist > 1e-9
+    inv = 1.0 / dist.clamp_min(1e-9)
+    f0, f1, f2 = hb0 - lb0.abs(), hb1 - lb1.abs(), hb2 - lb2.abs()
+    min_clear = torch.minimum(torch.minimum(f0, f1), f2)
+    ax0 = (f0 <= f1) & (f0 <= f2)
+    ax1 = ~ax0 & (f1 <= f2)
+    ax2 = ~ax0 & ~ax1
+
+    def sgn(x):
+        sg = torch.sign(x)
+        return torch.where(sg == 0.0, 1.0, sg)
+
+    ni0 = torch.where(ax0, sgn(lb0), 0.0)
+    ni1 = torch.where(ax1, sgn(lb1), 0.0)
+    ni2 = torch.where(ax2, sgn(lb2), 0.0)
+    p0 = torch.where(outside, cl0, lb0 + ni0 * min_clear)
+    p1 = torch.where(outside, cl1, lb1 + ni1 * min_clear)
+    p2 = torch.where(outside, cl2, lb2 + ni2 * min_clear)
+    n0 = torch.where(outside, d0 * inv, ni0)
+    n1 = torch.where(outside, d1 * inv, ni1)
+    n2 = torch.where(outside, d2 * inv, ni2)
+    sdist = torch.where(outside, dist, -min_clear)
+    return p0, p1, p2, n0, n1, n2, sdist
 
 
 def _first_valid_rows(valid: Tensor, c: int) -> tuple[Tensor, Tensor]:
@@ -94,7 +128,7 @@ def box_contacts_t(
     ground_valid: Tensor,  # bool[N] row may contact the ground plane
     budget: int = 12,
     orig_id: Tensor | None = None,  # int[N] original (unsorted) body ids
-    shape_type: Tensor | None = None,
+    shape_type: Tensor | None = None,  # int8[N] SHAPE_BOX/SHAPE_CAPSULE
 ):
     """Box-box SAT manifolds + ground contacts, compacted per body.
 
@@ -104,15 +138,19 @@ def box_contacts_t(
     ``orig_id``, an extra int32 ``c_feat`` [C, N] of persistent-cache
     feature ids: ``(orig_partner + 1) * FEAT_STRIDE + candidate_slot`` for
     pair contacts, the bare corner index for ground contacts.
+
+    With ``shape_type`` (mixed scenes), ``half`` is (radius, half_height,
+    0) for a capsule row, and 7 more candidate slots a pair (17..23) carry
+    the capsule cases: 3 sphere samples of a's segment against box b, 3 of
+    b's against box a, and one cap-cap contact at the closest points of
+    the two segments; each carries its own normal.  A capsule's ground
+    contacts are its two end spheres.
     """
-    if shape_type is not None:
-        raise NotImplementedError(
-            "box_contacts_t(shape_type=...): the capsule slots are not "
-            "ported yet (ROADMAP queue 1, item 5)")
     n = pos.shape[0]
     k = nb_idx.shape[1]
     cap = _MANIFOLD_CAP
     want_feat = orig_id is not None
+    mixed = shape_type is not None
     kn_shape = (k, n)
 
     px, py, pz = pos.unbind(1)
@@ -128,6 +166,11 @@ def box_contacts_t(
     qbx, qby, qbz = g[0], g[1], g[2]
     gx, gy, gz = g[3], g[4], g[5]
     b = tuple(g[6 + i] for i in range(9))               # Rb comps, [K,N]
+    if mixed:
+        a_cap_n = shape_type == SHAPE_CAPSULE            # [N]
+        a_cap = a_cap_n.expand(kn_shape)
+        b_cap = a_cap_n[safe]                            # [K,N]
+        a_box_m, b_box_m = ~a_cap, ~b_cap
 
     # ---- SAT: 15 axes, component form ---------------------------------
     # R = Ra^T Rb  (r[i][j] = sum_k Ra[k][i] Rb[k][j]), [K,N]
@@ -194,6 +237,8 @@ def box_contacts_t(
     sgn = torch.where(sgn == 0.0, 1.0, sgn)
     bnx, bny, bnz = bnx * sgn, bny * sgn, bnz * sgn
     overlap = ok_t & ~separated & torch.isfinite(sat_d)
+    if mixed:
+        overlap = overlap & a_box_m & b_box_m
     sat_d = torch.where(overlap, sat_d, 0.0)
 
     # ---- manifold candidates (17 slots per pair) ------------------------
@@ -332,23 +377,114 @@ def box_contacts_t(
     slots_depth.append(sat_d)
     slots_valid.append(overlap & (is_edge | ~any_corner))
 
+    # ---- mixed capsule slots (17..23) ----------------------------------
+    if mixed:
+        # slots 0..16 share the SAT normal; the mixed slots carry their own
+        slots_n = [(bnx, bny, bnz)] * K_BB
+        # capsule core segments: the local +Y column of R scaled by
+        # half_height (= half[:, 1]; radius = half[:, 0])
+        a_axx, a_axy, a_axz = a[1] * hy, a[4] * hy, a[7] * hy   # [N]
+        b_axx, b_axy, b_axz = b[1] * gy, b[4] * gy, b[7] * gy   # [K,N]
+        rad_a, rad_b = hx, gx
+
+        # cap(a) vs box(b): 3 samples of a's segment against b, in b frame
+        gate_ab = ok_t & a_cap & b_box_m
+        for t_ in _CAP_TS:
+            s_ = 2.0 * t_ - 1.0     # seg0 + (seg1 - seg0) t = pos + axis s
+            dxw = (px + a_axx * s_) - qbx
+            dyw = (py + a_axy * s_) - qby
+            dzw = (pz + a_axz * s_) - qbz
+            lb0 = b[0] * dxw + b[3] * dyw + b[6] * dzw
+            lb1 = b[1] * dxw + b[4] * dyw + b[7] * dzw
+            lb2 = b[2] * dxw + b[5] * dyw + b[8] * dzw
+            p0, p1, p2, n0, n1, n2, sd = _sphere_vs_box_local(
+                lb0, lb1, lb2, hb[0], hb[1], hb[2])
+            # back to world (the normal out of box b: from b toward a)
+            slots_n.append((b[0] * n0 + b[1] * n1 + b[2] * n2,
+                            b[3] * n0 + b[4] * n1 + b[5] * n2,
+                            b[6] * n0 + b[7] * n1 + b[8] * n2))
+            slots_pt.append((qbx + b[0] * p0 + b[1] * p1 + b[2] * p2,
+                             qby + b[3] * p0 + b[4] * p1 + b[5] * p2,
+                             qbz + b[6] * p0 + b[7] * p1 + b[8] * p2))
+            slots_depth.append(rad_a[None, :] - sd)
+            slots_valid.append(gate_ab)
+        # box(a) vs cap(b): 3 samples of b's segment against box a
+        gate_ba = ok_t & a_box_m & b_cap
+        for t_ in _CAP_TS:
+            s_ = 2.0 * t_ - 1.0
+            dxw = (qbx + b_axx * s_) - px
+            dyw = (qby + b_axy * s_) - py
+            dzw = (qbz + b_axz * s_) - pz
+            la0 = a[0] * dxw + a[3] * dyw + a[6] * dzw
+            la1 = a[1] * dxw + a[4] * dyw + a[7] * dzw
+            la2 = a[2] * dxw + a[5] * dyw + a[8] * dzw
+            p0, p1, p2, n0, n1, n2, sd = _sphere_vs_box_local(
+                la0, la1, la2, ha[0], ha[1], ha[2])
+            # the normal out of box a, flipped: from b (cap) toward a (box)
+            slots_n.append((-(a[0] * n0 + a[1] * n1 + a[2] * n2),
+                            -(a[3] * n0 + a[4] * n1 + a[5] * n2),
+                            -(a[6] * n0 + a[7] * n1 + a[8] * n2)))
+            slots_pt.append((px + a[0] * p0 + a[1] * p1 + a[2] * p2,
+                             py + a[3] * p0 + a[4] * p1 + a[5] * p2,
+                             pz + a[6] * p0 + a[7] * p1 + a[8] * p2))
+            slots_depth.append(rad_b - sd)
+            slots_valid.append(gate_ba)
+        # cap-cap: closest points between the core segments (Ericson
+        # 5.1.9, shapes.closest_segment_segment in components; segment
+        # p1 -> p1 + d with p1 = pos - axis, d = 2 axis)
+        p1ax, p1ay, p1az = px - a_axx, py - a_axy, pz - a_axz
+        p1bx, p1by, p1bz = qbx - b_axx, qby - b_axy, qbz - b_axz
+        d1x, d1y, d1z = 2.0 * a_axx, 2.0 * a_axy, 2.0 * a_axz
+        d2x, d2y, d2z = 2.0 * b_axx, 2.0 * b_axy, 2.0 * b_axz
+        rx_, ry_, rz_ = p1ax - p1bx, p1ay - p1by, p1az - p1bz
+        aa = d1x * d1x + d1y * d1y + d1z * d1z
+        ee = d2x * d2x + d2y * d2y + d2z * d2z
+        ff = d2x * rx_ + d2y * ry_ + d2z * rz_
+        cc2 = d1x * rx_ + d1y * ry_ + d1z * rz_
+        bb2 = d1x * d2x + d1y * d2y + d1z * d2z
+        den2 = aa * ee - bb2 * bb2
+        s2 = torch.where(
+            den2 > 1e-12,
+            torch.clamp((bb2 * ff - cc2 * ee) / den2.clamp_min(1e-12),
+                        0.0, 1.0), 0.0)
+        t2c = torch.clamp((bb2 * s2 + ff) / ee.clamp_min(1e-12), 0.0, 1.0)
+        s2 = torch.clamp((bb2 * t2c - cc2) / aa.clamp_min(1e-12), 0.0, 1.0)
+        c1x_, c1y_, c1z_ = p1ax + d1x * s2, p1ay + d1y * s2, p1az + d1z * s2
+        c2x_, c2y_, c2z_ = (p1bx + d2x * t2c, p1by + d2y * t2c,
+                            p1bz + d2z * t2c)
+        dlx, dly, dlz = c1x_ - c2x_, c1y_ - c2y_, c1z_ - c2z_
+        segd = torch.sqrt(dlx * dlx + dly * dly + dlz * dlz)
+        has_dir = segd > 1e-9
+        invd = 1.0 / segd.clamp_min(1e-9)
+        slots_n.append((torch.where(has_dir, dlx * invd, 0.0),
+                        torch.where(has_dir, dly * invd, 1.0),
+                        torch.where(has_dir, dlz * invd, 0.0)))
+        slots_pt.append((0.5 * (c1x_ + c2x_), 0.5 * (c1y_ + c2y_),
+                         0.5 * (c1z_ + c2z_)))
+        slots_depth.append(rad_a[None, :] + rad_b - segd)
+        slots_valid.append(ok_t & a_cap & b_cap)
+
     # ---- stage 1: cap each pair's manifold at 4 points -------------------
-    pts3 = torch.stack([
-        torch.stack([s[0] for s in slots_pt]),
-        torch.stack([s[1] for s in slots_pt]),
-        torch.stack([s[2] for s in slots_pt]),
-        torch.stack(slots_depth),
-    ])                                             # [4, 17, K, N]
-    val3 = torch.stack(slots_valid) & (pts3[3] > 0.0)
+    planes = [[sp[i].expand(kn_shape) for sp in slots_pt] for i in range(3)]
+    if mixed:
+        planes += [[sn[i].expand(kn_shape) for sn in slots_n]
+                   for i in range(3)]
+    planes.append(slots_depth)
+    pts3 = torch.stack([torch.stack(p) for p in planes])  # [F, 17|24, K, N]
+    val3 = torch.stack(slots_valid) & (pts3[-1] > 0.0)
     rows3, cval = _first_valid_rows(val3, cap)     # [cap, K, N]
     cnt3 = val3.sum(dim=0)
     pair_overflow = (cnt3 - cap).clamp_min(0).sum()
 
     m_pair = k * cap
-    pair = _gather_rows(pts3, rows3, cval, 0.0).reshape(4, m_pair, n)
+    pair = _gather_rows(pts3, rows3, cval, 0.0).reshape(-1, m_pair, n)
     val = cval.reshape(m_pair, n)
-    # normals are per-pair constants (the SAT axis): broadcast
-    pair_n = torch.stack([bnx, bny, bnz])[:, None].expand(3, cap, k, n)
+    if mixed:
+        pair_n = pair[3:6]                         # per-slot normals
+    else:
+        # normals are per-pair constants (the SAT axis): broadcast
+        pair_n = torch.stack([bnx, bny, bnz])[:, None].expand(
+            3, cap, k, n).reshape(3, m_pair, n)
     prt = idx_t.expand(cap, k, n).reshape(m_pair, n)
     if want_feat:
         # preserved ORIGINAL candidate-slot ids (stable geometric features)
@@ -363,6 +499,18 @@ def box_contacts_t(
         torch.stack([c[2] for c in ca]),
     ])                                             # [3, 8, N]
     g_pts3 = torch.cat([g_pts3, -g_pts3[1:2]])     # + depth = -y
+    if mixed:
+        # a capsule row's two end spheres (narrowphase.ground_contacts:
+        # slot 0 = pos - axis, 1 = pos + axis, depth = radius - end y,
+        # point = the end with y lowered by the radius)
+        two = (torch.arange(K_GROUND, device=pos.device) < 2)[:, None]
+        z6 = torch.zeros((K_GROUND - 2, n), device=pos.device)
+        ends = [torch.cat([torch.stack([c - ax, c + ax]), z6])
+                for c, ax in ((px, a_axx), (py, a_axy), (pz, a_axz))]
+        cap_g = torch.stack([
+            ends[0], ends[1] - torch.where(two, hx[None, :], 0.0), ends[2],
+            torch.where(two, hx[None, :] - ends[1], -1.0)])
+        g_pts3 = torch.where(a_cap_n[None, None, :], cap_g, g_pts3)
     g_val3 = ground_valid[None, :] & (g_pts3[3] > 0.0)
     g_rows, g_val = _first_valid_rows(g_val3, cap)
     g_cnt = g_val3.sum(dim=0)
@@ -372,7 +520,7 @@ def box_contacts_t(
     zeros_cn = torch.zeros((cap, n), device=pos.device)
     # [7, m_pair + cap, N]: point xyz, normal xyz, depth
     rows_f = torch.cat([
-        torch.cat([pair[:3], pair_n.reshape(3, m_pair, n), pair[3:]]),
+        torch.cat([pair[:3], pair_n, pair[-1:]]),
         torch.stack([ground[0], ground[1], ground[2], zeros_cn,
                      torch.ones_like(zeros_cn), zeros_cn, ground[3]]),
     ], dim=1)

@@ -131,19 +131,19 @@ def solve_contacts_unified(
     c_mu: Tensor,         # f32[N, C] combined friction
     c_e: Tensor,          # f32[N, C] combined restitution
     dt: Tensor,
-    warm: tuple[Tensor, Tensor, Tensor],
+    warm: tuple[Tensor, Tensor, Tensor] | None,
     momentum: float,
     iterations: int = 10,
+    sor: float = 1.0,
 ):
     """Solve the compacted contact set; returns the post-solve (v, w) and
     the accumulated (ln, lt1, lt2) [N, C] for the caller's contact cache.
 
     ``warm`` = last step's feature-matched (ln, lt1, lt2): applied up
     front, damped by Bullet's warm-starting factor, and the accumulators
-    start from them.  ``momentum`` is the heavy-ball factor over the
-    lambda iterates.  The JAX function's other options (a cold start,
-    over-relaxation) are not ported: the step always warm-starts and
-    never over-relaxes.
+    start from them; None starts from zero.  ``momentum`` is the
+    heavy-ball factor over the lambda iterates (0 skips it, as the JAX
+    function does), ``sor`` the over-relaxation of each update.
 
     The three directions of a contact (normal, tangent 1, tangent 2) run
     as one ``[N, C, 3, 3]`` block wherever the JAX function applies the
@@ -204,11 +204,14 @@ def solve_contacts_unified(
 
     # the cached impulses go in before iterating (the restitution target
     # above already holds the true pre-solve approach speed)
-    lam = torch.where(
-        c_valid[..., None],
-        torch.stack([warm[0].clamp_min(0.0), warm[1], warm[2]], dim=-1)
-        * WARM_START_FACTOR, 0.0)
-    v, w = apply(v, w, lam)
+    if warm is None:
+        lam = torch.zeros_like(k)
+    else:
+        lam = torch.where(
+            c_valid[..., None],
+            torch.stack([warm[0].clamp_min(0.0), warm[1], warm[2]], dim=-1)
+            * WARM_START_FACTOR, 0.0)
+        v, w = apply(v, w, lam)
     plam = lam
     # the accumulators (ln, lt1, lt2) as one [N, C, 3] block: each update
     # is lam - (v_d - target_d) / k_d, the normal's target the bounce
@@ -223,10 +226,14 @@ def solve_contacts_unified(
     valid3 = c_valid[..., None]
 
     for _ in range(iterations):
-        new = torch.maximum(lam - (along(rel_vel(v, w)) - tgt) / k, floor)
-        # heavy-ball extrapolation over the lambda iterates, projected
-        # back onto the cone
-        new = new + momentum * (new - plam)
+        step = along(rel_vel(v, w)) - tgt
+        if sor != 1.0:
+            step = sor * step
+        new = torch.maximum(lam - step / k, floor)
+        if momentum:
+            # heavy-ball extrapolation over the lambda iterates, projected
+            # back onto the cone
+            new = new + momentum * (new - plam)
         ln_new = new[..., 0].clamp_min(0.0)
         max_f = (c_mu * torch.where(c_valid, ln_new, lam[..., 0]))[..., None]
         new = torch.cat([ln_new[..., None],

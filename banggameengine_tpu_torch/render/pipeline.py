@@ -8,17 +8,14 @@ then frame).  PyTorch runs eagerly, so the factories bind arguments
 instead of compiling; nothing in a frame synchronises with the host, so
 the card runs ahead of the caller.
 
-Shades (``shade_mode``): ``"tiled"`` (the default: the walk, then the
-per-tile resolve), ``"fused"`` (the walk and the resolve in one kernel)
-and ``"flat"`` (the row-gather shade over ``raster_backend="tile"``, the
-light/heavy full-carry raster).  ``wireframe=True`` (the app's F1) draws
-the scene's deduplicated mesh edges as true lines over the clear colour
-(:mod:`lines`) instead of shading.
-
-Not ported, and refused with NotImplementedError naming ROADMAP:
-``shade_mode="tiled"`` over the ``"tile"`` raster (its row-gather
-fallback, queue 1) and raster backends other than ``"walk"`` and
-``"tile"``.
+Shades (``shade_mode``): ``"tiled"`` (the default: a raster, then the
+per-tile resolve; over the walk, or over ``raster_backend="tile"``, the
+light/heavy full-carry raster), ``"fused"`` (the walk and the resolve in
+one kernel) and ``"flat"`` (the row-gather shade over the ``"tile"``
+raster).  ``wireframe=True`` (the app's F1) draws the scene's
+deduplicated mesh edges as true lines over the clear colour
+(:mod:`lines`) instead of shading.  Raster backends other than
+``"walk"`` and ``"tile"`` raise ValueError naming ROADMAP.
 """
 
 from __future__ import annotations
@@ -113,8 +110,14 @@ def render_frame(
         vis, _overflow, tiled = rz.rasterize(
             clip, tri_valid, width, height, bin_capacity=bin_capacity,
             return_tiled=True, backend=raster_backend)
-        frame = shade_visibility_tiled(tiled, width, height, *shade_args,
-                                       view, proj)
+        # the resolve covers the heavy pass's walk width (K_GLOBAL +
+        # HEAVY_CAPACITY), which is also the raster's slot ceiling, so the
+        # row-gather fallback is statically dead here (JAX pipeline.py:155)
+        frame = shade_visibility_tiled(
+            tiled, width, height, *shade_args, view, proj,
+            shade_slots=rz.K_GLOBAL + rz.LIGHT_CAPACITY,
+            heavy_shade_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY,
+            raster_max_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY)
     if return_depth:
         return frame, vis.depth
     return frame
@@ -157,17 +160,20 @@ def make_render_fn(render_scene: RenderScene, width: int, height: int,
 def make_interp_render_fn(render_scene: RenderScene, width: int, height: int,
                           bin_capacity: int = 512,
                           return_depth: bool = False,
-                          wireframe: bool = False):
+                          wireframe: bool = False,
+                          raster_backend: str = "walk"):
     """A renderer of interpolated motion states:
     ``call(prev_state, state, alpha, static, view, proj, cam_pos,
     light=None)`` blends the two fixed-step states by ``alpha``
     (:func:`~banggameengine_tpu_torch.engine.interpolated_world`), then
-    renders the blended world, in one call."""
+    renders the blended world, in one call, through the tiled shade over
+    ``raster_backend``."""
     from banggameengine_tpu_torch.engine import interpolated_world
 
     render = make_render_fn(render_scene, width, height,
                             bin_capacity=bin_capacity,
-                            return_depth=return_depth, wireframe=wireframe)
+                            return_depth=return_depth, wireframe=wireframe,
+                            raster_backend=raster_backend)
 
     def call(prev_state, state, alpha, static, view, proj, cam_pos,
              light=None):
@@ -181,9 +187,11 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
                   solver_iterations: int = 10, bin_capacity: int = 2048,
                   pipelined: bool = False, substeps: int = 1,
                   merged: bool = False, merged_barrier: bool = False,
-                  donate: bool = True, **physics_kwargs):
+                  donate: bool = True, raster_backend: str = "walk",
+                  **physics_kwargs):
     """The interactive tick: ``substeps`` engine steps, then the shaded
-    frame of the new world, with no host synchronisation in between.
+    frame of the new world (the tiled shade over ``raster_backend``), with
+    no host synchronisation in between.
 
     Returns ``call(state, inp, view, proj, cam_pos, light=None)
     -> (new_state, u8[H, W, 4], StepEvents)``; with ``substeps > 1`` the
@@ -203,7 +211,8 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
     kwargs = {**scene_census(built.static), **physics_kwargs}
     bound = {"st": built.static}
     render = make_render_fn(built.render, width, height,
-                            bin_capacity=bin_capacity)
+                            bin_capacity=bin_capacity,
+                            raster_backend=raster_backend)
 
     def step(state, inp):
         events = []

@@ -469,12 +469,13 @@ def rasterize(clip: Tensor, tri_valid: Tensor, width: int, height: int,
       with all four planes of ``vis`` whatever ``slim`` says.  Its
       ``tiled`` is not a full walk (``full_walk=False``).
 
-    Other backends raise NotImplementedError."""
+    Other backends raise ValueError."""
     if backend not in ("walk", "tile"):
-        raise NotImplementedError(
-            f"raster backend {backend!r} is not ported: on the GPU the walk "
-            "replaces the XLA light/heavy scan, and 'tile' is the "
-            "full-carry raster of the JAX package's 'pallas' (ROADMAP §3)")
+        raise ValueError(
+            f"raster backend {backend!r} is not the port's: on the GPU the "
+            "walk replaces the XLA light/heavy scan, and 'tile' is the "
+            "full-carry raster of the JAX package's 'pallas' (ROADMAP "
+            "'Not to port')")
     if backend == "walk" and not slim:
         raise ValueError(
             "rasterize(backend='walk') keeps depth and slot only; slim=False "

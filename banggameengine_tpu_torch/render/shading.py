@@ -14,17 +14,22 @@ from the depth plane.  Three shades, one core:
 
 - :func:`shade_visibility_tiled`: each pixel's attributes come from its
   tile's table through the resolve (:mod:`resolve`, a CUDA kernel on the
-  GPU) of the walk's slots; the barycentrics are recomputed per pixel from
-  the winning sub-triangle's screen rows;
+  GPU) of the raster's slots, the walk's or the light/heavy full-carry
+  raster's; winners beyond the resolved width take a row gather; the
+  barycentrics are recomputed per pixel from the winning sub-triangle's
+  screen rows;
 - :func:`shade_visibility_fused`: the same, with the walk and the resolve
   in one kernel (:mod:`raster_resolve`);
 - :func:`shade_visibility`: the flat gather shade of the full-carry
   raster's planes, one row gather per pixel by its triangle id.
 
 The first two run on tile-major [tiles, px] planes and untile only the
-final u8 image.  Not ported: the JAX package's XLA one-hot resolve and the
-row-gather fallback of the tiled shade over the light/heavy raster
-(ROADMAP queue 1).
+final u8 image.  The JAX package's XLA one-hot resolve is not ported: the
+resolve kernel computes its function (ROADMAP "Not to port").  The two
+bilinear samplers of u8 texture pages (:func:`sample_texture_bilinear`,
+:func:`sample_texture_bilinear_quad`) are the JAX package's, for callers
+that sample a pixel's texture by uv; the shades sample the channel-major
+texel-quad pack instead.
 """
 
 from __future__ import annotations
@@ -77,6 +82,63 @@ class LightParams:
         return torch.stack([cy * cp, sp, sy * cp])
 
 
+def _wrap(i: Tensor, n: Tensor) -> Tensor:
+    """Repeat wrap of texel index ``i`` into [0, n): a floor modulo of the
+    int32 index by max(n, 1)."""
+    return torch.remainder(i.to(torch.int32), n.to(torch.int32).clamp_min(1))
+
+
+def _bilinear_taps(tex_size: Tensor, tex_id: Tensor, uv: Tensor):
+    """(x0, y0 as float, the texel weights tx, ty, w, h) of bilinear sampling
+    with texel centres at +0.5."""
+    wh = tex_size[tex_id.to(torch.int64)].to(torch.float32)
+    w, h = wh[..., 0], wh[..., 1]
+    fx = uv[..., 0] * w - 0.5
+    fy = uv[..., 1] * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    return x0, y0, fx - x0, fy - y0, w, h
+
+
+def _lerp2(c00, c01, c10, c11, tx, ty):
+    top = c00 + (c01 - c00) * tx[..., None]
+    bot = c10 + (c11 - c10) * tx[..., None]
+    return top + (bot - top) * ty[..., None]
+
+
+def sample_texture_bilinear(textures: Tensor, tex_size: Tensor,
+                            tex_id: Tensor, uv: Tensor) -> Tensor:
+    """Bilinear, wrap-repeat texture sampling: ``textures`` u8[T, S, S, 4]
+    (square pages), ``tex_size`` int32[T, 2] each page's (w, h), ``tex_id``
+    int[...], ``uv`` f32[..., 2] -> f32[..., 4] in [0, 1].  Four fetches,
+    (y0, x0), (y0, x1), (y1, x0), (y1, x1)."""
+    x0, y0, tx, ty, w, h = _bilinear_taps(tex_size, tex_id, uv)
+    x0i, x1i = _wrap(x0, w), _wrap(x0 + 1, w)
+    y0i, y1i = _wrap(y0, h), _wrap(y0 + 1, h)
+    t = tex_id.to(torch.int64)
+
+    def fetch(yi, xi):
+        return textures[t, yi.to(torch.int64), xi.to(torch.int64)].to(
+            torch.float32) / 255.0
+
+    return _lerp2(fetch(y0i, x0i), fetch(y0i, x1i), fetch(y1i, x0i),
+                  fetch(y1i, x1i), tx, ty)
+
+
+def sample_texture_bilinear_quad(textures_quad: Tensor, tex_size: Tensor,
+                                 tex_id: Tensor, uv: Tensor) -> Tensor:
+    """:func:`sample_texture_bilinear` with one fetch a pixel:
+    ``textures_quad`` u8[T, S, S, 16] packs each texel's wrapped 2x2
+    neighbourhood (``RenderScene.textures_quad``)."""
+    x0, y0, tx, ty, w, h = _bilinear_taps(tex_size, tex_id, uv)
+    quad = textures_quad[tex_id.to(torch.int64),
+                         _wrap(y0, h).to(torch.int64),
+                         _wrap(x0, w).to(torch.int64)].to(torch.float32)
+    quad = quad / 255.0
+    return _lerp2(quad[..., 0:4], quad[..., 4:8], quad[..., 8:12],
+                  quad[..., 12:16], tx, ty)
+
+
 # channels of the per-triangle table (reconstructed world position):
 # 0..17 three corners x (nrm.xyz, u, v in texels, inv_w), 18..21 tint rgba,
 # 22..24 spec color, 25 texture id, 26..27 texture (w, h)
@@ -112,12 +174,8 @@ def _sample_bilinear_planar(textures, textures_quad_t, tex_id, tw, th, u, v):
     tx = fx - x0
     ty = fy - y0
 
-    def wrap(i, n):
-        return torch.remainder(i.to(torch.int32),
-                               n.to(torch.int32).clamp_min(1))
-
     s = textures.shape[1]
-    flat = (tex_id * s + wrap(y0, th)) * s + wrap(x0, tw)
+    flat = (tex_id * s + _wrap(y0, th)) * s + _wrap(x0, tw)
     q = textures_quad_t[:, flat.reshape(-1).to(torch.int64)].reshape(
         (16,) + flat.shape)
 
@@ -241,13 +299,16 @@ def shade_visibility(
     return torch.stack([_to_u8(c) for c in rgba], dim=-1)
 
 
-def _tile_tables(tri_row_t: Tensor, ids: Tensor,
-                 sub_raster: Tensor) -> Tensor:
-    """Per-tile resolve tables f32[tiles, 40, KW]: each listed
-    sub-triangle's channels (its triangle's 28, the same for both near-clip
-    subs), then its 12 screen-space raster rows."""
-    sub_row_t = torch.cat([torch.repeat_interleave(tri_row_t, 2, dim=1),
-                           sub_raster], dim=0)                    # [40, S]
+def _sub_rows(tri_row_t: Tensor, sub_raster: Tensor) -> Tensor:
+    """Per-sub-triangle channels f32[40, S]: its triangle's 28 (the same
+    for both near-clip subs), then its 12 screen-space raster rows."""
+    return torch.cat([torch.repeat_interleave(tri_row_t, 2, dim=1),
+                      sub_raster], dim=0)
+
+
+def _tile_tables(sub_row_t: Tensor, ids: Tensor) -> Tensor:
+    """Per-tile resolve tables f32[tiles, 40, K] of the sub-triangles
+    listed in ``ids`` int32[tiles, K]."""
     ids_w = ids.clamp_min(0).to(torch.int64)
     return sub_row_t.T[ids_w].transpose(1, 2).contiguous()
 
@@ -289,6 +350,19 @@ def _shade_tiled_tail(planes: Tensor, slot_p: Tensor, ndc_z: Tensor,
                   height, width)
 
 
+def tiled_resolve_width(tiled: TiledVisibility, shade_slots: int,
+                        heavy_shade_slots: int) -> int:
+    """The slots the tiled shade resolves through the per-tile tables: the
+    full width of ``tiled.ids`` for a full walk, else the wider of
+    ``shade_slots`` and ``heavy_shade_slots`` (the JAX shade's resolve
+    width over the light/heavy raster, ``shading.py:487-492``), at most
+    the list's width.  Winners at or beyond it take the row gather."""
+    width = tiled.ids.shape[1]
+    if tiled.full_walk:
+        return width
+    return min(max(shade_slots, heavy_shade_slots), width)
+
+
 def shade_visibility_tiled(
     tiled: TiledVisibility,
     width: int, height: int,
@@ -300,31 +374,46 @@ def shade_visibility_tiled(
     textures_quad_t: Tensor,
     camera_pos: Tensor, light: LightParams,
     view: Tensor, proj: Tensor,
+    shade_slots: int = 64,
+    heavy_shade_slots: int = 0,
+    raster_max_slots: int | None = None,
     wireframe: bool = False,
 ) -> Tensor:
     """Tile-major deferred shade -> u8[H, W, 4].
 
-    The resolve covers the full width of ``tiled.ids``, which needs a walk
-    that covered every tile to that width (``tiled.full_walk``).  A
-    narrower resolve needs the JAX package's row-gather fallback for the
-    winners beyond it (the light/heavy full-carry raster is such a case);
-    that fallback is not ported, so ``full_walk=False`` raises
-    NotImplementedError.  World positions come from the depth plane and
-    shininess from ``light``, so the JAX signature's ``world_pos`` and
-    ``mat_spec_params`` are not taken."""
-    if not tiled.full_walk:
-        raise NotImplementedError(
-            "the tiled shade resolves the full walk width only: a partial "
-            "walk (the light/heavy raster) needs the row-gather fallback, "
-            "which is not ported (ROADMAP queue 1)")
+    The per-tile resolve covers :func:`tiled_resolve_width` slots: every
+    slot of a full walk (``tiled.full_walk``, which walked every tile to
+    the list's width), else the wider of ``shade_slots`` and
+    ``heavy_shade_slots``.  Winners at or beyond that width (the
+    light/heavy raster's heavy tiles, when the widths understate its walk)
+    take a row gather of their sub-triangle's channels instead, selected
+    per pixel with no host synchronisation.  Where the resolve reaches the
+    raster's slot ceiling (``raster_max_slots``, at most the list's
+    width), no winner can lie beyond it and the gather is skipped.  World
+    positions come from the depth plane and shininess from ``light``, so
+    the JAX signature's ``world_pos`` and ``mat_spec_params`` are not
+    taken."""
     n_tiles = tiled.slot.shape[0]
     tiles_x = -(-width // TILE_W)
     tri_row_t = _pack_tri_rows(world_nrm, v_uv, inv_w, tri_material,
                                mat_base_tint, mat_uv_scale, mat_spec_color,
                                mat_tex, tex_size)                     # [28, T]
-    tables = _tile_tables(tri_row_t, tiled.ids, tiled.sub_raster)
+    sub_row_t = _sub_rows(tri_row_t, tiled.sub_raster)               # [40, S]
+    covered = tiled_resolve_width(tiled, shade_slots, heavy_shade_slots)
+    tables = _tile_tables(sub_row_t, tiled.ids[:, :covered])
     slot_p = tiled.slot.reshape(n_tiles, -1)
     planes = rsv.resolve_tiles_wide(slot_p, tables)          # [40, t, px]
+    ceiling = tiled.ids.shape[1]
+    if raster_max_slots is not None:
+        ceiling = min(raster_max_slots, ceiling)
+    if covered < ceiling:
+        # the row-gather fallback: every pixel gathers (its sub-triangle's
+        # row where it needs one, row 0 elsewhere) and a select keeps it
+        # only where the resolve could not reach
+        need_fb = slot_p >= covered
+        sid = torch.gather(tiled.ids, 1, slot_p.clamp_min(0).to(torch.int64))
+        rows = sub_row_t[:, torch.where(need_fb, sid, 0).to(torch.int64)]
+        planes = torch.where(need_fb, rows, planes)
     return _shade_tiled_tail(planes, slot_p, tiled.depth.reshape(n_tiles, -1),
                              tri_row_t.shape[0], n_tiles // tiles_x, tiles_x,
                              width, height, textures, textures_quad_t,
@@ -353,7 +442,7 @@ def shade_visibility_fused(
     tri_row_t = _pack_tri_rows(world_nrm, v_uv, inv_w, tri_material,
                                mat_base_tint, mat_uv_scale, mat_spec_color,
                                mat_tex, tex_size)                     # [28, T]
-    tables = _tile_tables(tri_row_t, prep.ids_w, prep.sub_raster)
+    tables = _tile_tables(_sub_rows(tri_row_t, prep.sub_raster), prep.ids_w)
     depth_p, slot_p, planes = rr.raster_resolve_tiles(
         prep.counts_walk, prep.tri_pack, tables, prep.tiles_x)
     frame = _shade_tiled_tail(planes, slot_p, depth_p, tri_row_t.shape[0],

@@ -4,8 +4,9 @@
 Drives ``banggameengine_tpu_torch`` through its slices, the 10,000-box
 stress tick, the shaded 1080p frame, its fused and full-carry routes, the
 profiling path, the flat many-world step, the default dense route, the
-application shell and its overlays and runtime scene editing, and checks
-them.  Phases, one line each:
+application shell and its overlays and runtime scene editing, the grid
+route, solid capsules on the flat step and the tiled shade over the tile
+raster, and checks them.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the six kernels for sm_90a, all at once
@@ -179,7 +180,31 @@ them.  Phases, one line each:
    entity, a child reparented under a new parent; no static tensor's
    storage or shape changed; the checked step passing on the healthy
    state and raising on a NaN position with no host sync inside the
-   step.
+   step;
+19. the grid route, solid capsules on the flat step and the tiled shade
+   over the tile raster, no new kernel: the 10k-box world
+   on ``broadphase="grid"`` (``GRID_KW``: a table of at least N cells)
+   for 200 steps in 4 dispatches of 50 with no host sync and no hand
+   kernel, its neighbor lists on the card equal to the same function's
+   on the CPU on the same inputs at steps 0 and 200 (differing pairs and
+   their AABB gaps to the margin printed before the check fails), both
+   overflows printed, finite and above the ground, its trajectory within
+   the JAX test's bars (``tests/test_contact_t.py:193-199``) of phase 4's
+   all-pairs run (kernel #1), the 32-box grid golden
+   (``tests/data/grid32_jax_golden.json``), steps/s by CUDA events and
+   one traced step of each route; 1,000 worlds of the capsule scene
+   (``tests/data/capsule_flat_jax_golden.npz``) on the flat static route
+   for 240 steps: every world equal to world 0 within 1e-6, world 0
+   within 2e-4 of JAX's flat step over the golden's 50 steps, the
+   upright capsule at rest at hh + r +- 0.1, world-steps/s; the tiled
+   shade over the tile raster on both 1080p views (launches counted, no
+   host sync, bit-equal to the plain versions, the showcase bit-equal to
+   the tiled frame over the walk, the pixels apart on the 10k-box view
+   printed), its row-gather fallback at a resolve of 80 slots (the pixels
+   that take it counted, the frame bit-equal to the full resolve), the
+   256x160 frame against ``tests/data/tiled_tile_jax_golden.npz``, and
+   the frames' times.  Phase 16 prints the demo's launches a step beside
+   the planar character step's.
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -192,7 +217,7 @@ TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
 inputs.  The line before the last is the kernel table as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the run exits non-zero and prints no result.  Without a CUDA device it
-exits 1.  Phase 17 and phase 18 print their own times.
+exits 1.  Phases 16 to 19 print their own times.
 
     python3 chip_smoke.py
 
@@ -304,6 +329,21 @@ OVERLAY_SECONDS = 1.0
 # round a sample across a pixel border)
 LINE_OFF_SHARE = 1e-3
 RESUME_AT = 150       # the runtime scene's checkpoint, of its 300 steps
+# phase 19: the grid route on the stress world, its table at least N so
+# that hash collisions do not decide pairs
+GRID_KW = dict(broadphase="grid", grid_cell_size=2.5, grid_table_size=16384,
+               grid_cell_capacity=8, max_neighbors=MAX_NEIGHBORS)
+GRID_GOLDEN = os.path.join(DATA, "grid32_jax_golden.json")
+CAPSULE_GOLDEN = os.path.join(DATA, "capsule_flat_jax_golden.npz")
+CAPSULE_WORLDS = 1000
+CAPSULE_STEPS = 240   # one-step dispatches over the golden's 50, then 38s
+CAPSULE_CHUNK = 38
+CAPSULE_WORLD_ATOL = 1e-6   # every world against world 0
+CAPSULE_ATOL = 2e-4         # world 0 against JAX's flat step (its bar)
+TILED_TILE_GOLDEN = os.path.join(DATA, "tiled_tile_jax_golden.npz")
+NARROW_SLOTS = dict(shade_slots=64, heavy_shade_slots=80)
+PLANAR_DEMO_LAUNCHES = 2624  # a demo step on the planar character step
+#                              over every entity (PERF.md §5)
 
 
 class SmokeFailure(AssertionError):
@@ -1587,11 +1627,13 @@ def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
             group)[0],
         "contacts + solve": lambda: ps._contacts_static(
             fs, fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel, solid, dyn,
-            10, (nb_idx, nb_val), static1.capacity, shifts)[0],
+            (nb_idx, nb_val), False, static1.capacity, shifts,
+            iterations=10, warm_start=True,
+            momentum=ps.SOLVER_MOMENTUM)[0],
         "integrate + triggers": lambda: ps._finish_step(
             fs, fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel,
             fs.char_vel_y, fs.char_on_ground, moving, alive, has_col,
-            fst.fixed_dt, True, fs.contact_feat, fs.contact_imp, zero,
+            fst.fixed_dt, True, (fs.contact_feat, fs.contact_imp), zero,
             group=group)[0].trigger_overlap,
     }
     out = {}
@@ -1843,6 +1885,10 @@ def dense_phase(dev, card: str) -> None:
         tr_dense = ts.trace_and_summarize(
             lambda: bstep(bstate, bwalk)[0].pos, (),
             os.path.join(tmp, "dense"))
+    print(f"[times] one demo step on the per-slot character step: "
+          f"{tr_demo['launches']:g} launches, against "
+          f"{PLANAR_DEMO_LAUNCHES:,} on the planar step over every entity "
+          f"(PERF.md §5) {card}")
     for name, tr in (("demo", tr_demo), ("dense 200", tr_dense)):
         print(f"[times] one {name} step, traced: {tr['launches']:g} launches, "
               f"{tr['busy_ms']:.3f} ms of device time in a "
@@ -2360,6 +2406,347 @@ def overlay_phase(dev, card: str) -> None:
           f"{time.perf_counter() - t_phase - run_s - rt_s:.1f}")
 
 
+def _grid_inputs(state, static):
+    """The grid broadphase's inputs as the step makes them."""
+    from banggameengine_tpu_torch.state import COMP_CHARACTER, COMP_COLLIDER
+
+    has_collider = (state.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
+    is_char = (state.comp_mask & COMP_CHARACTER) != 0
+    return (state.pos, state.quat, static.shape_type, static.shape_size,
+            state.alive & has_collider & ~is_char)
+
+
+def grid_lists_check(name: str, state, static) -> tuple[int, int]:
+    """The card's grid lists against the same function on the CPU, on the
+    same inputs: idx, valid and both overflows equal.  Where they differ,
+    the differing pairs and each pair's AABB gap to the margin are printed
+    before the check fails.  Returns (cell_overflow, nbr_overflow)."""
+    from banggameengine_tpu_torch.physics import broadphase as bp
+    from banggameengine_tpu_torch.physics import shapes
+
+    kw = dict(cell_size=GRID_KW["grid_cell_size"],
+              table_size=GRID_KW["grid_table_size"],
+              cell_capacity=GRID_KW["grid_cell_capacity"],
+              max_neighbors=GRID_KW["max_neighbors"])
+    args = _grid_inputs(state, static)
+    card = bp.build_neighbor_lists(*args, **kw)
+    host = bp.build_neighbor_lists(*(a.cpu() for a in args), **kw)
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(host, f))
+               for f in ("idx", "valid", "cell_overflow", "nbr_overflow"))
+    if not same:
+        mn, mx = shapes.shape_aabb(*(a.cpu() for a in args[:4]))
+        ci = torch.where(card.valid, card.idx, -1).cpu()
+        hi = torch.where(host.valid, host.idx, -1)
+        rows = (ci != hi).any(1).nonzero()[:, 0].tolist()
+        for i in rows[:10]:
+            a, b = set(ci[i].tolist()) - {-1}, set(hi[i].tolist()) - {-1}
+            for j in sorted(a ^ b):
+                gap = torch.maximum(mn[j] - mx[i], mn[i] - mx[j]).max()
+                print(f"[grid] {name}: pair ({i}, {j}) only on the "
+                      f"{'card' if j in a else 'CPU'}; AABB gap "
+                      f"{float(gap):.9g}, {float(gap) - 0.04:.3g} past the "
+                      f"0.04 margin")
+        print(f"[grid] {name}: {len(rows)} rows differ; overflows card "
+              f"{int(card.cell_overflow)}/{int(card.nbr_overflow)}, CPU "
+              f"{int(host.cell_overflow)}/{int(host.nbr_overflow)}")
+    check(same, f"grid lists, {name}: the card's differ from the CPU's")
+    cell_o, nbr_o = int(host.cell_overflow), int(host.nbr_overflow)
+    print(f"[grid] {name}: the card's lists equal the CPU's on the same "
+          f"inputs ({int(host.valid.sum())} pairs listed; cell_overflow "
+          f"{cell_o}, nbr_overflow {nbr_o})")
+    return cell_o, nbr_o
+
+
+def _tiled_tile_parts(rs, world, view, proj, cam_pos, width, height):
+    """The tile raster's tiled visibility of a frame and the tiled shade's
+    other arguments, as ``render_frame`` makes them."""
+    from banggameengine_tpu_torch import math3d
+    from banggameengine_tpu_torch.render import raster as rz
+    from banggameengine_tpu_torch.render.shading import LightParams
+
+    clip, tri_valid = frame_front(rs, world, view, proj)
+    _, _, tiled = rz.rasterize(clip, tri_valid, width, height,
+                               bin_capacity=2048, return_tiled=True,
+                               backend="tile")
+    nrm = rz.transform_normals(rs.v_nrm, rs.v_entity,
+                               math3d.normal_matrix(world))
+    w = clip[:, 3]
+    inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
+    return tiled, (width, height, nrm, rs.v_uv, inv_w, rs.tri_material,
+                   rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color,
+                   rs.mat_tex, rs.textures, rs.tex_size, rs.textures_quad_t,
+                   cam_pos, LightParams.default(world.device), view, proj)
+
+
+def new_routes_phase(dev, card: str, state0, allpairs_state, static,
+                     views: dict) -> None:
+    """Phase 19: the grid route at full size against phase 4's all-pairs
+    run, solid capsules on the flat many-world step, and the tiled shade
+    over the tile raster."""
+    from banggameengine_tpu_torch.engine import (
+        make_multi_step_fn, make_step_fn)
+    from banggameengine_tpu_torch.parallel import manyworld
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import shapes
+    from banggameengine_tpu_torch.render import raster as rz
+    from banggameengine_tpu_torch.render import shading
+    from banggameengine_tpu_torch.render.pipeline import make_render_fn
+    from banggameengine_tpu_torch.scene.synthetic import (
+        build_falling_boxes, build_showcase_render)
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+    from banggameengine_tpu_torch.state import InputFrame
+
+    t_phase = time.perf_counter()
+    inp = InputFrame.zero()
+
+    # ---- the grid route at full size -------------------------------------
+    over0 = grid_lists_check("step 0", state0, static)
+    run = make_multi_step_fn(static, STEPS_PER_DISPATCH, **GRID_KW)
+    reset_hand_launches()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DISPATCHES + 1)]
+    state = state0
+    with no_host_sync():
+        events[0].record()
+        for i in range(DISPATCHES):
+            state = run(state, inp)
+            events[i + 1].record()
+    torch.cuda.synchronize()
+    check(hand_launches() == 0, "the grid route launched a hand kernel")
+    steps = DISPATCHES * STEPS_PER_DISPATCH
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(DISPATCHES)]
+    grid_rate = STEPS_PER_DISPATCH / (statistics.median(ms[1:]) / 1e3)
+    check(bool(torch.isfinite(state.pos).all())
+          and bool(torch.isfinite(state.lin_vel).all())
+          and bool(torch.isfinite(state.ang_vel).all()),
+          f"grid route: non-finite state after {steps} steps")
+    alive = state.alive
+    corners = shapes.box_corners(state.pos, state.quat, static.shape_size)
+    lowest = float(corners[alive][..., 1].min())
+    check(lowest > -0.08, f"grid route: a box corner went through the "
+          f"ground: {lowest}")
+    over1 = grid_lists_check(f"step {steps}", state, static)
+    _, ev = make_step_fn(static, **GRID_KW)(state, inp)
+    pg = state.pos[alive].cpu().numpy()
+    pa = allpairs_state.pos[alive].cpu().numpy()
+    diff = np.abs(pg - pa)
+    mean_y = abs(float(pg[:, 1].mean() - pa[:, 1].mean()))
+    check(bool((pg[:, 1] > 0.3).all()), "grid route: a box below y = 0.3")
+    check(np.median(diff) < 0.01 and diff.max() < 0.6 and mean_y < 0.05,
+          f"grid route vs all-pairs after {steps} steps: median "
+          f"{np.median(diff)}, max {diff.max()}, mean y {mean_y}")
+    print(f"[grid] {N_STRESS} boxes, {steps} steps of broadphase='grid' in "
+          f"{DISPATCHES} dispatches (no host sync, no hand kernel): finite, "
+          f"lowest corner {lowest:.4f} > -0.08; overflows step 0 "
+          f"{over0[0]}/{over0[1]}, step {steps} {over1[0]}/{over1[1]} "
+          f"(cell/neighbor); contact_overflow of step {steps + 1} "
+          f"{int(ev.contact_overflow)}; against phase 4's all-pairs run "
+          f"(kernel #1): |pos| diff median {np.median(diff):.3g} (< 0.01), "
+          f"max {diff.max():.3g} (< 0.6), mean y {mean_y:.3g} (< 0.05)")
+    with open(GRID_GOLDEN) as f:
+        golden = json.load(f)
+    g_state, g_static = build_falling_boxes(**golden["scene"])
+    g_step = make_step_fn(g_static, **golden["grid"])
+    for i in range(1, golden["steps"][-1] + 1):
+        g_state, _ = g_step(g_state, inp)
+        rec = golden["at"].get(str(i))
+        if rec is None:
+            continue
+        if "contact_feat" in rec:
+            check(g_state.contact_feat.cpu().tolist() == rec["contact_feat"],
+                  f"32-box grid scene: contact features differ from JAX at "
+                  f"step {i}")
+        err = float((g_state.pos.cpu() - torch.tensor(rec["pos"])).abs().max())
+        check(err < GOLDEN_ATOL,
+              f"32-box grid scene: |pos - JAX| = {err} at step {i}")
+        print(f"[reference] 32 boxes on the grid route vs the JAX package at "
+              f"step {i}: max |pos - JAX| {err:.3g} (< {GOLDEN_ATOL})")
+    grid_one = make_step_fn(static, **GRID_KW)
+    ap_one = make_step_fn(static, broadphase="allpairs",
+                          max_neighbors=MAX_NEIGHBORS)
+    reset_hand_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr_grid = ts.trace_and_summarize(
+            lambda: grid_one(state, inp)[0].pos, (),
+            os.path.join(tmp, "grid"))
+        tr_ap = ts.trace_and_summarize(
+            lambda: ap_one(allpairs_state, inp)[0].pos, (),
+            os.path.join(tmp, "allpairs"))
+    ap_launches = bk.neighbor_lists_aabb.launches
+    check(ap_launches > 0, "the all-pairs steps did not launch kernel #1")
+    print(f"[times] {N_STRESS} boxes: grid route {grid_rate:.2f} steps/s "
+          f"(CUDA events, median of dispatches 2-{DISPATCHES} of "
+          f"{STEPS_PER_DISPATCH} steps), one traced step "
+          f"{tr_grid['launches']:g} launches, {tr_grid['busy_ms']:.3f} ms "
+          f"of device time; all-pairs route (phase 5 times its steps/s) one "
+          f"traced step {tr_ap['launches']:g} launches, "
+          f"{tr_ap['busy_ms']:.3f} ms of device time, kernel #1 launched "
+          f"{ap_launches} times in those steps {card}")
+
+    # ---- solid capsules on the flat many-world step ----------------------
+    with np.load(CAPSULE_GOLDEN) as z:
+        g = dict(z)
+    c_state = convert.world_state_from_numpy(
+        {k[6:]: v for k, v in g.items() if k.startswith("state/")}, dev)
+    c_static = convert.static_scene_from_numpy(
+        {k[7:]: v for k, v in g.items() if k.startswith("static/")}, dev)
+    one = manyworld.make_flat_many_world_step(c_static, CAPSULE_WORLDS,
+                                              c_state.comp_mask)
+    chunk = manyworld.make_flat_many_world_step(
+        c_static, CAPSULE_WORLDS, c_state.comp_mask,
+        num_steps=CAPSULE_CHUNK)
+    bs = manyworld.replicate_state(c_state, CAPSULE_WORLDS)
+    bi = manyworld.replicate_input(InputFrame.zero(), CAPSULE_WORLDS)
+    g_steps = g["traj/pos"].shape[0]
+    n_chunks = (CAPSULE_STEPS - g_steps) // CAPSULE_CHUNK
+    check(g_steps + n_chunks * CAPSULE_CHUNK == CAPSULE_STEPS,
+          "capsule run: the dispatches do not add up")
+    fields = ("pos", "quat", "lin_vel", "ang_vel")
+    track = []
+    c_events = [torch.cuda.Event(enable_timing=True)
+                for _ in range(n_chunks + 1)]
+    reset_hand_launches()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        for _ in range(g_steps):
+            bs = one(bs, bi)
+            track.append([getattr(bs, f)[0].clone() for f in fields])
+        c_events[0].record()
+        for i in range(n_chunks):
+            bs = chunk(bs, bi)
+            c_events[i + 1].record()
+    torch.cuda.synchronize()
+    capsule_s = time.perf_counter() - t0
+    check(hand_launches() == 0, "the capsule run launched a hand kernel")
+    err_g = 0.0
+    for i, rec in enumerate(track):
+        for f, a in zip(fields, rec):
+            err = float(np.abs(a.cpu().numpy() - g[f"traj/{f}"][i][0]).max())
+            check(err < CAPSULE_ATOL, f"capsule world 0: |{f} - JAX| = {err} "
+                  f"at step {i + 1}")
+            err_g = max(err_g, err)
+    err_w = max(float((getattr(bs, f) - getattr(bs, f)[:1]).abs().max())
+                for f in fields)
+    check(err_w < CAPSULE_WORLD_ATOL,
+          f"capsule worlds differ from world 0 by {err_w}")
+    r, hh = (float(v) for v in c_static.shape_size[0, :2].cpu())
+    rest = float(bs.pos[0, 0, 1])
+    check(abs(rest - (hh + r)) < 0.1,
+          f"the upright capsule rests at y = {rest}, not {hh + r} +- 0.1")
+    check(bool(torch.isfinite(bs.pos).all()), "capsule run: non-finite")
+    live = bool((bs.contact_feat[0, 0] >= 0).any())
+    check(live, "the upright capsule has no live ground manifold")
+    c_ms = [c_events[i].elapsed_time(c_events[i + 1])
+            for i in range(n_chunks)]
+    c_rate = CAPSULE_WORLDS * CAPSULE_CHUNK / (statistics.median(c_ms) / 1e3)
+    print(f"[capsules] {CAPSULE_WORLDS} worlds of the capsule scene on the "
+          f"flat static route, {CAPSULE_STEPS} steps ({g_steps} one-step "
+          f"dispatches, then {n_chunks} of {CAPSULE_CHUNK}; no host sync, no "
+          f"hand kernel, {capsule_s:.1f} s wall): world 0 within "
+          f"{err_g:.3g} of JAX's flat step over its {g_steps} steps (< "
+          f"{CAPSULE_ATOL:g}), every world within {err_w:.3g} of world 0 (< "
+          f"{CAPSULE_WORLD_ATOL:g}), the upright capsule at rest at y = "
+          f"{rest:.4f} (hh + r = {hh + r:.2f} +- 0.1), a live ground "
+          f"manifold; {c_rate:.0f} world-steps/s (CUDA events, median of "
+          f"the {CAPSULE_CHUNK}-step dispatches) {card}")
+
+    # ---- the tiled shade over the tile raster ----------------------------
+    def renderer(rs, **kw):
+        return make_render_fn(rs, RENDER_W, RENDER_H, bin_capacity=2048,
+                              return_depth=True, **kw)
+
+    tile_r = {name: renderer(rs, raster_backend="tile")
+              for name, (rs, _, _) in views.items()}
+    walk_r = {name: renderer(rs) for name, (rs, _, _) in views.items()}
+    reset_hand_launches()
+    with no_host_sync():
+        frames = {name: tile_r[name](*args)
+                  for name, (_, args, _) in views.items()}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"walk": 0, "resolve": 2, "fused": 0, "tile": 4}
+    check(launches == want, f"tiled frames over the tile raster: launches "
+          f"{launches}, expected {want}")
+    with plain_render_kernels():
+        plain = {name: tile_r[name](*args)
+                 for name, (_, args, _) in views.items()}
+    walk = {name: walk_r[name](*args) for name, (_, args, _) in views.items()}
+    torch.cuda.synchronize()
+    for name in views:
+        check(all(torch.equal(a, b) for a, b in zip(frames[name],
+                                                    plain[name])),
+              f"{name}: the tiled frame over the tile raster with the "
+              f"kernels differs from the plain versions")
+        diff = int((frames[name][0] != walk[name][0]).any(-1).sum())
+        if name == "showcase":
+            check(diff == 0 and torch.equal(frames[name][1], walk[name][1]),
+                  "showcase: the tiled frame over the tile raster differs "
+                  "from the tiled frame over the walk")
+        print(f"[tiled-tile] {name} {RENDER_W}x{RENDER_H} (no host sync): "
+              f"bit-equal to the plain versions; differs from the tiled "
+              f"frame over the walk at {diff} pixels (the heavy pass's "
+              f"{rz.HEAVY_TILES}-tile cap); 0 pixels take the row gather "
+              f"(the resolve covers the heavy walk width)")
+    print(f"[tiled-tile] launches of both frames: {launches}")
+    # the row-gather fallback on the card: a resolve narrower than the heavy
+    # pass's walk width
+    name = "showcase"
+    rs, args, _ = views[name]
+    tiled, sargs = _tiled_tile_parts(rs, *args, RENDER_W, RENDER_H)
+    covered = shading.tiled_resolve_width(tiled, **NARROW_SLOTS)
+    n_fb = int((tiled.slot >= covered).sum())
+    reset_hand_launches()
+    with no_host_sync():
+        narrow = shading.shade_visibility_tiled(tiled, *sargs, **NARROW_SLOTS)
+    torch.cuda.synchronize()
+    fb_launches = launch_counts()
+    wide = shading.shade_visibility_tiled(
+        tiled, *sargs, shade_slots=NARROW_SLOTS["shade_slots"],
+        heavy_shade_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY)
+    with plain_render_kernels():
+        narrow_p = shading.shade_visibility_tiled(tiled, *sargs,
+                                                  **NARROW_SLOTS)
+    check(n_fb > 0, f"{name}: no winner beyond slot {covered}")
+    check(fb_launches == {"walk": 0, "resolve": 1, "fused": 0, "tile": 0},
+          f"narrow shade: launches {fb_launches}, expected one resolve")
+    check(torch.equal(narrow, wide) and torch.equal(narrow, narrow_p),
+          f"{name}: the narrow shade with its fallback differs from the "
+          f"wide resolve or from the plain versions")
+    full = rz.K_GLOBAL + rz.HEAVY_CAPACITY
+    print(f"[tiled-tile] {name} {RENDER_W}x{RENDER_H}, resolve at {covered} "
+          f"slots: {n_fb} pixels take the row gather (no host sync); the "
+          f"frame bit-equal to the resolve at {full} slots and to the plain "
+          f"versions")
+    gz = np.load(TILED_TILE_GOLDEN)
+    gw, gh = int(gz["width"]), int(gz["height"])
+    gsc = build_showcase_render(int(gz["seed"]))
+    g_frame = make_render_fn(
+        convert.render_scene_from_numpy(gsc.render), gw, gh,
+        raster_backend="tile")(
+        torch.as_tensor(gsc.world, device=dev),
+        *(torch.as_tensor(gz[k], device=dev)
+          for k in ("view", "proj", "cam_pos"))).cpu().numpy()
+    off = np.abs(g_frame.astype(np.int32)
+                 - gz["frame"].astype(np.int32)).max(-1) > 1
+    sky_diff = (((g_frame == SKY).all(-1) != (gz["frame"] == SKY).all(-1))
+                & ~off)
+    check(off.mean() <= FRAME_OFF_SHARE, f"tiled-tile golden: {off.sum()} "
+          f"pixels differ by more than 1 level")
+    check(not sky_diff.any(), "tiled-tile golden: the sky mask differs")
+    print(f"[reference] showcase {gw}x{gh}, tiled over the tile raster, vs "
+          f"the JAX package's light/heavy scan: {off.sum()} of {off.size} "
+          f"pixels off by more than 1 level, "
+          f"{int((g_frame != gz['frame']).any(-1).sum())} off at all, sky "
+          f"mask equal elsewhere")
+    for name, (_, args, _) in views.items():
+        ms = [median_ms(lambda: r[name](*args))
+              for r in (walk_r, tile_r, tile_r, walk_r)]
+        print(f"[times] {name} {RENDER_W}x{RENDER_H} tiled frames: over the "
+              f"walk {ms[0]:.3f} ms, over the tile raster {ms[1]:.3f} / "
+              f"{ms[2]:.3f} ms, over the walk again {ms[3]:.3f} ms {card}")
+    print(f"[new-routes] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2583,6 +2970,7 @@ def main() -> int:
     dense_phase(dev, card)
     app_phase(dev, card)
     overlay_phase(dev, card)
+    new_routes_phase(dev, card, state0, state, static, views)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

@@ -127,11 +127,17 @@ def test_solve_matches_jax(sorted_scene, warm_start):
 
 def test_unported_options_raise(sorted_scene):
     s = sorted_scene
-    with pytest.raises(NotImplementedError, match="capsule"):
-        contact_t.box_contacts_t(
-            *(_t(s[k]) for k in ("pos", "quat", "half", "nb_idx", "nb_valid",
-                                 "ground_valid")),
-            shape_type=torch.ones(len(s["pos"]), dtype=torch.int8))
+    # the capsule slots are ported (tests/test_torch_capsule_slots.py holds
+    # them against JAX): a scene of boxes alone gives the box-only contacts
+    # bit for bit, since every capsule slot is gated off
+    box_args = [_t(s[k]) for k in ("pos", "quat", "half", "nb_idx",
+                                   "nb_valid", "ground_valid")]
+    mixed = contact_t.box_contacts_t(
+        *box_args, budget=12, orig_id=_t(s["order"]),
+        shape_type=torch.ones(len(s["pos"]), dtype=torch.int8))
+    boxes = contact_t.box_contacts_t(*box_args, budget=12,
+                                     orig_id=_t(s["order"]))
+    assert all(torch.equal(a, b) for a, b in zip(mixed, boxes))
     # the block-diagonal partner read is ported: the port reads partners by
     # the gather on every route, so block_size changes nothing
     # (tests/test_torch_manyworld.py holds it against the JAX block route)

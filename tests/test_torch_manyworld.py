@@ -361,11 +361,18 @@ def test_unported_options_raise():
     caps = static.shape_type.clone()
     caps[0] = 2
     capsule_static = dataclasses.replace(static, shape_type=caps)
-    step = manyworld.make_flat_many_world_step(capsule_static, 2,
-                                               state.comp_mask)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        step(manyworld.replicate_state(state, 2),
-             manyworld.replicate_input(InputFrame.zero("cpu"), 2))
+    # solid capsules run on the flat step (item 5, ported: the capsule
+    # slots, tests/test_torch_capsule_slots.py holds them against JAX); the
+    # capsule changes the body's contacts, and only in its own world
+    bs = manyworld.replicate_state(state, 2)
+    binp = manyworld.replicate_input(InputFrame.zero("cpu"), 2)
+    cap_out = manyworld.make_flat_many_world_step(
+        capsule_static, 2, state.comp_mask, num_steps=30)(bs, binp)
+    box_out = manyworld.make_flat_many_world_step(
+        static, 2, state.comp_mask, num_steps=30)(bs, binp)
+    assert bool(torch.isfinite(cap_out.pos).all())
+    assert not torch.equal(cap_out.pos[:, 0], box_out.pos[:, 0])
+    assert torch.equal(cap_out.pos[0], cap_out.pos[1])
     with pytest.raises(NotImplementedError, match="item 20"):
         manyworld.make_flat_many_world_step(static, 2, state.comp_mask,
                                             mesh=object())

@@ -149,10 +149,17 @@ def test_unported_options_raise():
     cam = {k: torch.as_tensor(v) for k, v in _camera_arrays(sc).items()}
     args = (rs, torch.as_tensor(sc.world), cam["view"], cam["proj"],
             cam["cam_pos"])
-    for kw in (dict(raster_backend="xla"), dict(raster_backend="auto"),
-               dict(shade_mode="tiled", raster_backend="tile")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(raster_backend="xla"), dict(raster_backend="auto")):
+        with pytest.raises(ValueError, match="ROADMAP"):
             render_frame(*args, width=W, height=H, **kw)
+    # the tiled shade over the "tile" raster is ported (item 14;
+    # tests/test_torch_tiled_tile.py holds it against JAX): on the showcase
+    # it shades the flat route's planes to the same frame
+    tiled = render_frame(*args, width=W, height=H, shade_mode="tiled",
+                         raster_backend="tile")
+    flat = render_frame(*args, width=W, height=H, shade_mode="flat",
+                        raster_backend="tile")
+    assert torch.equal(tiled, flat)
     # the flat shade needs the full carry, which the walk does not keep
     with pytest.raises(ValueError, match="tile"):
         render_frame(*args, width=W, height=H, shade_mode="flat")

@@ -136,15 +136,17 @@ def test_unported_routes_raise():
     state, static = jax_build_falling_boxes(8, with_character=True)
     state = convert.world_state_from_numpy(_np(state), "cpu")
     static = convert.static_scene_from_numpy(_np(static), "cpu")
-    # ported: a character without candidates (every entity its
-    # candidates, on every route) and the dense route, the default
-    for kw in (dict(broadphase="allpairs"), dict(broadphase="dense"), {}):
+    # ported: a character without candidates (the per-slot step, on every
+    # route), the dense route (the default) and the grid route
+    # (tests/test_torch_grid.py holds it against JAX)
+    for kw in (dict(broadphase="allpairs"), dict(broadphase="dense"),
+               dict(broadphase="grid"), {}):
         out, _ = make_step_fn(static, **kw)(state, InputFrame.zero("cpu"))
         assert float(out.pos[8, 1]) < float(state.pos[8, 1])  # it falls
-    for route in ("grid", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_step_fn(static, broadphase=route, any_char=False)(
-                state, InputFrame.zero("cpu"))
+    # the JAX package's name of the all-pairs route is not the port's
+    with pytest.raises(ValueError, match="ROADMAP"):
+        make_step_fn(static, broadphase="pallas", any_char=False)(
+            state, InputFrame.zero("cpu"))
     # the static route is ported (tests/test_torch_manyworld.py); it needs
     # its neighbor lists
     with pytest.raises(ValueError, match="static_neighbors"):
