@@ -26,7 +26,10 @@ the interpolated frame; ``scripts.play_demo`` drives it headless) runs
 them together, with its debug views (the line pass of the F1 wireframe
 and the F3 physics overlay, the HUD), run-time scene editing
 (``ecs.lifecycle``), checkpoints and the checked step (``utils``).
-Module paths mirror the JAX package's.
+``parallel`` adds the vmapped many-world step, its router and the
+sharded modes over ``torch.distributed``; ``native`` the C++ OBJ loader
+and window presenter; ``app.window`` the windowed backends.  Module
+paths mirror the JAX package's.
 
 Float32 matrix products must stay in full f32 (the warm-start match and
 one-hot moves carry payload rows): the port never enables TF32.

@@ -1,5 +1,5 @@
 """The application shell: the fixed-step app, input, the orbit camera,
-the event bus, the frame timer, the HUD and the headless window (the JAX
+the event bus, the frame timer, the HUD and the windows (the JAX
 package's ``app/``)."""
 
 from banggameengine_tpu_torch.app.events import EventBus, TriggerEvent

@@ -65,8 +65,9 @@ def scatter_rows(base: Tensor, ids: Tensor, rows: Tensor) -> Tensor:
     n = base.shape[0]
     dest = torch.where(ids >= 0, ids, n).to(torch.int64)
     out = torch.cat([base, base[:1]], dim=0)
-    out.index_copy_(0, dest, rows.to(base.dtype))
-    return out[:n]
+    # out of place: ``index_copy`` has a batching rule under
+    # ``torch.func.vmap`` (the in-place form falls back to a per-world loop)
+    return out.index_copy(0, dest, rows.to(base.dtype))[:n]
 
 
 def update_world_matrices(pos, quat, scale, parent, level_nodes, alive):

@@ -1,18 +1,25 @@
-"""Many worlds in lockstep: the flat block-diagonal step on one device.
+"""Many worlds in lockstep: the vmapped and flat steps, their router and
+the world-axis mesh.
 
-Counterpart of the single-device part of
-``banggameengine_tpu/parallel/manyworld.py``: :func:`replicate_state`,
-:func:`replicate_input`, :func:`_flat_static` and
-:func:`make_flat_many_world_step`.  W worlds of B entities run as ONE world
-of W*B entities through ``physics_step(broadphase="static")``: every
-world's solid bodies are each other's neighbors, fixed when the factory
-builds the flat scene, and no neighbor list crosses a world block, so no
-broadphase runs.  Characters read their own world's input row (slot w =
-world w), and characters and triggers are masked to their world's block.
+Counterpart of ``banggameengine_tpu/parallel/manyworld.py``.  Two layouts
+step W worlds of B entities in lockstep:
 
-Not ported yet: the vmapped ``make_sharded_many_world_step``, the
-auto-router ``make_many_world_step`` and the ``mesh`` (sharded) mode of
-the flat step (ROADMAP queue 1, item 20).
+- the vmapped step (:func:`make_sharded_many_world_step`):
+  ``torch.func.vmap`` of the single-world :func:`engine.engine_step` over a
+  leading world axis, the static scene unbatched;
+- the flat block-diagonal step (:func:`make_flat_many_world_step`): the W
+  worlds run as ONE world of W*B entities through
+  ``physics_step(broadphase="static")``.  Every world's solid bodies are
+  each other's neighbors, fixed when the factory builds the flat scene,
+  and no neighbor list crosses a world block, so no broadphase runs.
+  Characters read their own world's input row (slot w = world w), and
+  characters and triggers are masked to their world's block.
+
+:func:`make_many_world_step` picks the flat layout and falls back to the
+vmapped one only when the flat factory refuses the scene.  With a world
+mesh (:func:`make_world_mesh`, a ``DeviceMesh`` over the ranks of the
+process group) the world axis is sharded: each rank steps its own worlds
+(:func:`shard_batched`), and the only collective is the metrics' sum.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from banggameengine_tpu_torch.engine import engine_step
+from banggameengine_tpu_torch.parallel import ranks
 from banggameengine_tpu_torch.physics.step import scene_census
 from banggameengine_tpu_torch.state import (
     COMP_COLLIDER,
@@ -33,6 +41,8 @@ from banggameengine_tpu_torch.state import (
     StaticScene,
     WorldState,
 )
+
+WORLD_AXIS = "world"
 
 # per-world state fields that flatten by a plain reshape [W, B, ...] ->
 # [W*B, ...]
@@ -64,6 +74,98 @@ def replicate_state(state: WorldState, num_worlds: int) -> WorldState:
 def replicate_input(inp: InputFrame, num_worlds: int) -> InputFrame:
     """Stack one input into a [W] batch (one row per world)."""
     return _replicate(inp, num_worlds)
+
+
+def make_world_mesh(devices=None, device_type: str = "cuda"):
+    """1-D mesh over the ranks of the initialised process group, its dim
+    named ``"world"``.  ``devices`` is None or the group's ranks: a mesh
+    position is a process (one a card under NCCL; gloo ranks on the CPU
+    with ``device_type="cpu"``)."""
+    return ranks.make_mesh(WORLD_AXIS, device_type, devices)
+
+
+def shard_batched(tree, mesh):
+    """Place a [W, ...]-batched dataclass (the whole batch, the same on
+    every rank) with its leading world axis sharded over the mesh: each
+    rank keeps its own W/D worlds as the local part of a ``Shard(0)``
+    DTensor.  No collective."""
+    from torch.distributed.tensor import Shard
+
+    return ranks.map_fields(
+        lambda x: ranks.distribute(x, mesh, Shard(0)), tree)
+
+
+def world_metrics(state: WorldState) -> dict:
+    """Per-world scalar diagnostics of a [W, ...] batch, reduced across
+    worlds by the caller: kinetic energy ``0.5 sum |v|^2`` and the mean
+    height of the live entities."""
+    ke = 0.5 * (state.lin_vel ** 2).sum(dim=(-2, -1))
+    return {
+        "mean_kinetic_energy": ke,
+        "mean_height": (state.pos[..., 1] * state.alive).sum(dim=-1)
+        / state.alive.sum(dim=-1).clamp_min(1),
+    }
+
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(WorldState))
+_INPUT_FIELDS = tuple(f.name for f in dataclasses.fields(InputFrame))
+
+
+def make_sharded_many_world_step(
+    static: StaticScene,
+    mesh=None,
+    num_steps: int = 1,
+    solver_iterations: int = 10,
+    with_metrics: bool = False,
+    world_minor: bool = False,
+    **physics_kwargs,
+):
+    """The vmapped lockstep many-worlds step.
+
+    Returns ``step(batched_state, batched_input) -> batched_state`` (or
+    ``(state, metrics)`` with ``with_metrics``): ``num_steps`` steps of
+    ``torch.func.vmap`` over :func:`engine.engine_step`, the static scene
+    unbatched and its census computed here, once, as the JAX factory does.
+    State and input carry a leading world axis.  With ``mesh`` (a world
+    mesh) they are :func:`shard_batched` DTensors and each rank steps its
+    own worlds; ``with_metrics`` means are over every world (a sum over
+    the ranks, divided by W).  ``world_minor=True`` moves the world axis
+    last at the boundary and vmaps over it; the result is the same.
+    """
+    kwargs = {**scene_census(static), **physics_kwargs}
+    ax = -1 if world_minor else 0
+
+    def one_world(state_fields, input_fields):
+        out, _events = engine_step(
+            WorldState(*state_fields), InputFrame(*input_fields), static,
+            solver_iterations, **kwargs)
+        return tuple(getattr(out, name) for name in _STATE_FIELDS)
+
+    vstep = torch.func.vmap(one_world, in_dims=(ax, ax), out_dims=ax)
+    group = None if mesh is None else mesh.get_group()
+
+    def step(bstate: WorldState, binp: InputFrame):
+        num_worlds = bstate.alive.shape[0]
+        sf = tuple(ranks.local(getattr(bstate, n)) for n in _STATE_FIELDS)
+        inf = tuple(ranks.local(getattr(binp, n)) for n in _INPUT_FIELDS)
+        if world_minor:
+            sf = tuple(a.movedim(0, -1) for a in sf)
+            inf = tuple(a.movedim(0, -1) for a in inf)
+        for _ in range(num_steps):
+            sf = vstep(sf, inf)
+        if world_minor:
+            sf = tuple(a.movedim(-1, 0) for a in sf)
+        out = WorldState(*(ranks.rewrap(a, getattr(bstate, n))
+                           for n, a in zip(_STATE_FIELDS, sf)))
+        if not with_metrics:
+            return out
+        m = world_metrics(WorldState(*sf))
+        if group is None:
+            return out, {k: v.mean() for k, v in m.items()}
+        return out, {k: ranks.sum_ranks(v.sum(), group) / num_worlds
+                     for k, v in m.items()}
+
+    return step
 
 
 def _flat_static(static: StaticScene, num_worlds: int, comp_mask_1w):
@@ -163,15 +265,22 @@ def make_flat_many_world_step(
     despawned later do not join or leave the contact graph (dead bodies
     are still masked out by ``alive``).
 
+    With ``mesh`` (a world mesh) the world axis is sharded: each rank
+    flattens its own W/D worlds (the local rows of :func:`shard_batched`
+    DTensors) and runs this same step on them, with no collective.
+    ``num_worlds`` must then divide by the mesh size (ValueError
+    otherwise).
+
     The returned function also carries ``flatten``, ``unflatten``,
     ``flat_step`` (one engine step of the flat world, with its events)
     and ``flat_static``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded flat many-world step (mesh=...) is not ported "
-            "yet: ROADMAP queue 1, item 20")
-    w = num_worlds
+    n_dev = 1 if mesh is None else mesh.size()
+    if num_worlds % n_dev:
+        raise ValueError(
+            f"flat many-world sharding needs num_worlds ({num_worlds}) "
+            f"divisible by the mesh size ({n_dev})")
+    w = num_worlds // n_dev              # worlds on this rank
     b = static.capacity
     t1 = static.num_trigger_slots
     n = w * b
@@ -227,13 +336,53 @@ def make_flat_many_world_step(
         return WorldState(**f)
 
     def step(bstate: WorldState, binp: InputFrame) -> WorldState:
-        fs = flatten(bstate)
+        fs = flatten(ranks.map_fields(ranks.local, bstate))
+        binp_l = ranks.map_fields(ranks.local, binp)
         for _ in range(num_steps):
-            fs, _events = flat_step(fs, binp)
-        return unflatten(fs)
+            fs, _events = flat_step(fs, binp_l)
+        out = unflatten(fs)
+        if mesh is None:
+            return out
+        return WorldState(**{
+            n: ranks.rewrap(getattr(out, n), getattr(bstate, n))
+            for n in _STATE_FIELDS})
 
     step.flatten = flatten
     step.unflatten = unflatten
     step.flat_step = flat_step
     step.flat_static = flat_static
     return step
+
+
+def make_many_world_step(
+    static: StaticScene,
+    mesh,
+    comp_mask_1w,
+    num_worlds: int,
+    num_steps: int = 1,
+    verbose: bool = True,
+    **physics_kwargs,
+):
+    """Auto-routing many-world factory: ``(step, layout)``.
+
+    The flat block-diagonal layout first, on one rank (``"flat"``) or
+    sharded over the world mesh (``"flat-sharded"``, each rank its own
+    W/D worlds); the vmapped layout (``"vmapped"``) only when the flat
+    builder refuses the scene with ``ValueError`` (world count not
+    divisible by the mesh), and then with a printed line.  Any other
+    failure propagates.  ``mesh=None`` is one process.
+    """
+    try:
+        step = make_flat_many_world_step(
+            static, num_worlds, comp_mask_1w, num_steps=num_steps,
+            mesh=mesh, **physics_kwargs)
+        layout = ("flat" if mesh is None or mesh.size() == 1
+                  else "flat-sharded")
+        return step, layout
+    except ValueError as e:
+        if verbose:
+            print(f"[manyworld] flat layout unavailable "
+                  f"({type(e).__name__}: {e}); using vmapped")
+    step = make_sharded_many_world_step(
+        static, mesh, num_steps=num_steps, **physics_kwargs)
+    return step, "vmapped"

@@ -35,9 +35,11 @@ def box_corners(pos: Tensor, quat: Tensor, half: Tensor) -> Tensor:
 def capsule_segment(pos: Tensor, quat: Tensor,
                     half_height: Tensor) -> tuple[Tensor, Tensor]:
     """World-space endpoints of a capsule's core segment (local Y axis)."""
-    up = torch.zeros(pos.shape[:-1] + (3,), dtype=torch.float32,
-                     device=pos.device)
-    up[..., 1] = half_height
+    # (0, hh, 0) built out of place: under ``torch.func.vmap`` a batched
+    # half height cannot be written into an unbatched buffer
+    hh = half_height.to(torch.float32).expand(pos.shape[:-1])
+    zero = torch.zeros_like(hh)
+    up = torch.stack([zero, hh, zero], dim=-1)
     axis = math3d.quat_rotate(quat, up)
     return pos - axis, pos + axis
 

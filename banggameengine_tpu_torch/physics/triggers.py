@@ -63,8 +63,10 @@ def trigger_aabb_overlaps(
     overlap = torch.ones((tmn.shape[0], n), dtype=torch.bool,
                          device=pos.device)
     for j in range(3):
-        overlap &= ((tmn[:, j][:, None] <= emx[:, j][None, :])
-                    & (emn[:, j][None, :] <= tmx[:, j][:, None]))
+        # out of place: under ``torch.func.vmap`` the right-hand side is
+        # batched and the unbatched ``ones`` cannot take it in place
+        overlap = overlap & ((tmn[:, j][:, None] <= emx[:, j][None, :])
+                             & (emn[:, j][None, :] <= tmx[:, j][:, None]))
     return overlap & _valid(trig_entity, trig_layer, trig_mask,
                             trigger_active, layer, mask, alive,
                             has_collision)

@@ -1,10 +1,14 @@
 """ResourceManager: path-keyed caches for textures, materials, meshes.
 
 A copy of ``banggameengine_tpu/scene/resources.py`` (numpy only; the JAX
-package cannot be imported without JAX), with two differences: meshes load
-through the Python OBJ loader only (the native loader, ``native/``, is not
-ported), and textures decode through the port's own PNG decoder
-(:mod:`banggameengine_tpu_torch.scene.textures`; the JAX package uses PIL).
+package cannot be imported without JAX).  Meshes load through the native
+C++ loader first (:mod:`banggameengine_tpu_torch.native`, built at first
+use) unless ``BANG_DISABLE_NATIVE`` is set, then through the Python OBJ
+loader, as in the JAX package; here a fall back to the Python loader is
+logged as a warning, and ``mesh_routes`` records the loader of each cached
+mesh.  Textures decode through the port's own PNG decoder
+(:mod:`banggameengine_tpu_torch.scene.textures`; the JAX package uses
+PIL).
 
 Same public surface as the reference's ``ResourceManager`` (load texture,
 material and mesh, the checker and default material fallbacks, cache
@@ -52,6 +56,8 @@ class ResourceManager:
         self.tex_stats = CacheStats()
         self.mesh_stats = CacheStats()
         self.mat_stats = CacheStats()
+        # the loader each cached mesh came through: "native" or "python"
+        self.mesh_routes: dict[str, str] = {}
         self._checker = tex_mod.make_checker_rgba8()
         self._white = tex_mod.make_white_rgba8()
         self._default_material = MaterialDesc(name="__default")
@@ -141,11 +147,26 @@ class ResourceManager:
             log.warning("[MESH] '%s' not found", obj_path)
             return None
         mtl_resolved = self.resolve_path(mtl_path) if mtl_path else None
-        try:
-            mesh = obj_loader.load_obj(resolved, mtl_resolved)
-        except Exception as e:
-            log.warning("[MESH] failed to load '%s': %s", obj_path, e)
-            return None
+        mesh = None
+        if not os.environ.get("BANG_DISABLE_NATIVE"):
+            try:
+                from banggameengine_tpu_torch.native import load_obj_native
+
+                mesh = load_obj_native(resolved, mtl_resolved)
+                if mesh is None:
+                    log.warning("[MESH] native loader gave nothing for "
+                                "'%s'; using the Python loader", obj_path)
+            except Exception as e:
+                log.warning("[MESH] native loader unavailable (%s); using "
+                            "the Python loader", e)
+        route = "native" if mesh is not None else "python"
+        if mesh is None:
+            try:
+                mesh = obj_loader.load_obj(resolved, mtl_resolved)
+            except Exception as e:
+                log.warning("[MESH] failed to load '%s': %s", obj_path, e)
+                return None
+        self.mesh_routes[key] = route
         self._meshes[key] = mesh
         self.mesh_stats.approx_bytes += mesh.approx_bytes()
         return mesh

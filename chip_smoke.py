@@ -5,8 +5,10 @@ Drives ``banggameengine_tpu_torch`` through its slices, the 10,000-box
 stress tick, the shaded 1080p frame, its fused and full-carry routes, the
 profiling path, the flat many-world step, the default dense route, the
 application shell and its overlays and runtime scene editing, the grid
-route, solid capsules on the flat step and the tiled shade over the tile
-raster, and checks them.  Phases, one line each:
+route, solid capsules on the flat step, the tiled shade over the tile
+raster, the vmapped many-world step and the sharded modes on one rank,
+the native OBJ loader and the windows, and checks them.  Phases, one line
+each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the six kernels for sm_90a, all at once
@@ -204,7 +206,33 @@ raster, and checks them.  Phases, one line each:
    that take it counted, the frame bit-equal to the full resolve), the
    256x160 frame against ``tests/data/tiled_tile_jax_golden.npz``, and
    the frames' times.  Phase 16 prints the demo's launches a step beside
-   the planar character step's.
+   the planar character step's;
+20. the sharded modes, the native loader and the windows, no hand kernel
+   on them, on a one-rank NCCL group (``parallel.ranks.init_rank``): (a)
+   ``make_sharded_many_world_step`` (``torch.func.vmap`` of the engine
+   step) on the world mesh at 1,000 worlds of phase 15's scene, 100
+   steps in dispatches of 50 with zero and with per-world input, no host
+   sync, no functorch BatchedFallback warning, finite and above the
+   ground, within 2e-4 of the flat step after 25 steps (bools exact), its
+   ``with_metrics`` means finite, world-steps/s by CUDA events beside the
+   flat step's (dispatches of 10, median of 3 after 2 warm-up), the peak
+   memory of each and the vmapped step's launches (a trace of one step;
+   the flat step's are phase 15's); (b) the router's layout
+   on the one-rank mesh (``"flat"``) and the flat step with ``mesh=``
+   bit-equal to ``mesh=None``; (c) one fully sharded step of phase 4's
+   10k-box state within the JAX test's bars of the dense route from the
+   same state (``warm_start=False``: the sharded solve starts cold, and
+   the state's contact cache is the all-pairs route's), and the demo
+   topology's 120 steps against ``tests/data/sharded_world_jax_golden.json``
+   (events exact, floats within the bar it stores), with steps/s; (d) the
+   entity-sharded contact phase on the 10k-box state, within 1e-5 of the
+   same phase on the CPU (a gloo group); (e) the native library built with
+   g++ into ``banggameengine_tpu_torch/_build/``, every mesh of
+   ``tests/data/app_assets`` loaded natively within
+   ``tests/test_native.py``'s bars of the Python loader,
+   ``ResourceManager.load_mesh`` on the native route, and without
+   ``DISPLAY`` ``XcbWindow`` raising and ``create_window`` headless; (f)
+   ``dryrun_multichip(1)`` on the card.
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -217,7 +245,7 @@ TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
 inputs.  The line before the last is the kernel table as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the run exits non-zero and prints no result.  Without a CUDA device it
-exits 1.  Phases 16 to 19 print their own times.
+exits 1.  Phases 16 to 20 print their own times.
 
     python3 chip_smoke.py
 
@@ -2747,6 +2775,354 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     print(f"[new-routes] phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
+SHARDED_GOLDEN = os.path.join(DATA, "sharded_world_jax_golden.json")
+SW_WORLDS = 1000
+SW_STEPS = 50          # steps a vmapped dispatch
+SW_RUN = 100           # steps of each vmapped run (zero, per-world input)
+SW_TIMED = 10          # steps a timed dispatch
+SW_ATOL = 2e-4         # flat against vmapped (tests/test_flat_manyworld.py)
+SW_DENSE_ATOL = dict(pos=2e-4, quat=2e-4, lin_vel=2e-3)  # test_sharded_world
+SW_CPU_ATOL = 1e-5     # the entity-sharded phase, card against CPU
+
+
+def _sync_free(what: str, fn, *args):
+    """``fn(*args)`` with host syncs and functorch's BatchedFallback
+    warning raised as errors, and no hand-kernel launch allowed."""
+    import warnings
+
+    reset_hand_launches()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*batching rule.*")
+        with no_host_sync():
+            out = fn(*args)
+    torch.cuda.synchronize()
+    hand = hand_launches()
+    check(hand == 0, f"{what}: {hand} hand-kernel launches")
+    return out
+
+
+def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
+    """Phase 20: the vmapped many-world step, the router and the flat
+    step's world mesh, the fully sharded world, the entity-sharded
+    contact phase, all on a one-rank NCCL group; the native OBJ loader and
+    the windows; ``dryrun_multichip(1)`` (no hand kernel on these paths)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from banggameengine_tpu_torch.app.window import (
+        HeadlessWindow, XcbWindow, create_window)
+    from banggameengine_tpu_torch.engine import make_step_fn
+    from banggameengine_tpu_torch.native import LIB_PATH, build_native
+    from banggameengine_tpu_torch.native import load_obj_native
+    from banggameengine_tpu_torch.parallel import dryrun_multichip, ranks
+    from banggameengine_tpu_torch.parallel import manyworld as mw
+    from banggameengine_tpu_torch.parallel import sharded_world as sw
+    from banggameengine_tpu_torch.parallel import spatial
+    from banggameengine_tpu_torch.physics import shapes
+    from banggameengine_tpu_torch.scene.obj_loader import load_obj
+    from banggameengine_tpu_torch.scene.resources import ResourceManager
+    from banggameengine_tpu_torch.scene.synthetic import (
+        build_demo_like, build_falling_boxes)
+    from banggameengine_tpu_torch.state import (
+        BODY_DYNAMIC, COMP_CHARACTER, COMP_COLLIDER, SHAPE_BOX, InputFrame)
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="bang_store_")
+    ranks.init_rank(0, 1, os.path.join(store, "store"), "cuda")
+    try:
+        # ---- 20a. the vmapped many-world step ---------------------------
+        t0 = time.perf_counter()
+        mesh = mw.make_world_mesh()
+        w = SW_WORLDS
+        state1, static1 = build_falling_boxes(**MW_SCENE, device=dev)
+        bs0 = mw.replicate_state(state1, w)
+        zero = mw.replicate_input(InputFrame.zero(dev), w)
+        rng = np.random.default_rng(MW_SEED)
+        drive = InputFrame(
+            move_forward=torch.as_tensor(
+                rng.uniform(0.5, 1.0, w).astype(np.float32), device=dev),
+            move_right=torch.zeros(w, device=dev),
+            jump=torch.as_tensor(rng.random(w) < 0.3, device=dev),
+            sprint=torch.as_tensor(rng.random(w) < 0.3, device=dev),
+            cam_yaw=torch.as_tensor(
+                rng.uniform(-np.pi, np.pi, w).astype(np.float32),
+                device=dev))
+        vstep = mw.make_sharded_many_world_step(static1, mesh,
+                                                num_steps=SW_STEPS)
+        sharded = {k: mw.shard_batched(v, mesh)
+                   for k, v in (("state", bs0), ("zero", zero),
+                                ("drive", drive))}
+        # warm-up, one step: the communicator and the first launches,
+        # outside the checked runs
+        v1 = mw.make_sharded_many_world_step(static1, mesh)
+        v1(sharded["state"], sharded["zero"])
+        torch.cuda.synchronize()
+
+        def run(inp):
+            s = sharded["state"]
+            for _ in range(SW_RUN // SW_STEPS):
+                s = vstep(s, inp)
+            return s
+
+        outs = {k: _sync_free(f"vmapped, {k} input", run, sharded[k])
+                for k in ("zero", "drive")}
+        box = ((static1.shape_type == SHAPE_BOX) & state1.alive).repeat(w)
+        for k, s in outs.items():
+            full = ranks.full(s)
+            for f in ("pos", "quat", "lin_vel", "ang_vel", "char_vel_y"):
+                check(bool(torch.isfinite(getattr(full, f)).all()),
+                      f"vmapped, {k} input: {f} not finite")
+            corners = shapes.box_corners(
+                full.pos.reshape(-1, 3), full.quat.reshape(-1, 4),
+                static1.shape_size.repeat(w, 1))
+            lowest = float(corners[box][..., 1].min())
+            check(lowest > -0.08, f"vmapped, {k} input: a box corner went "
+                  f"through the ground: {lowest}")
+            check(full.step_idx.tolist() == [SW_RUN] * w,
+                  f"vmapped, {k} input: step_idx not in lockstep")
+            print(f"[sharded] vmapped {w} worlds on a one-rank NCCL world "
+                  f"mesh, {k} input: {SW_RUN} steps in "
+                  f"{SW_RUN // SW_STEPS} dispatches of {SW_STEPS}, no host "
+                  f"sync, no BatchedFallback warning, no hand kernel; "
+                  f"finite, lowest box corner {lowest:.4f} > -0.08, "
+                  f"characters on the ground "
+                  f"{int(full.char_on_ground[:, MW_CHAR_ROW].sum())}")
+        # the flat step on the same inputs, 25 steps: JAX's flat-vs-vmapped
+        # bar
+        v25 = mw.make_sharded_many_world_step(static1, mesh, num_steps=25)(
+            sharded["state"], sharded["drive"])
+        flat25 = mw.make_flat_many_world_step(
+            static1, w, state1.comp_mask, num_steps=25)
+        f25 = flat25(bs0, drive)
+        vn = convert.world_state_to_numpy(ranks.full(v25))
+        fn_ = convert.world_state_to_numpy(f25)
+        errs = {}
+        for f in ("pos", "quat", "lin_vel", "ang_vel", "char_vel_y"):
+            errs[f] = float(np.abs(vn[f] - fn_[f]).max())
+            check(errs[f] < SW_ATOL, f"vmapped vs flat after 25 steps: "
+                  f"|{f}| = {errs[f]}")
+        for f in ("char_on_ground", "trigger_overlap", "trigger_active",
+                  "alive", "step_idx"):
+            check(np.array_equal(vn[f], fn_[f]),
+                  f"vmapped vs flat after 25 steps: {f} differs")
+        print(f"[sharded] vmapped vs flat, {w} worlds, per-world input, 25 "
+              f"steps: bools equal; max |vmapped - flat| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (< {SW_ATOL})")
+        metrics = mw.make_sharded_many_world_step(
+            static1, mesh, with_metrics=True)(outs["drive"], sharded["drive"])[1]
+        mvals = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in mvals.values()),
+              f"with_metrics: {mvals}")
+        print(f"[sharded] with_metrics over the {w} worlds (a sum over the "
+              f"ranks / W): " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in mvals.items()))
+
+        # world-steps/s: the vmapped and the flat step, one call
+        v_t = mw.make_sharded_many_world_step(static1, mesh,
+                                              num_steps=SW_TIMED)
+        f_t = mw.make_flat_many_world_step(static1, w, state1.comp_mask,
+                                           num_steps=SW_TIMED)
+        rates, peaks = {}, {}
+        for name, fn in (
+                ("vmapped", lambda: v_t(outs["zero"], sharded["zero"])),
+                ("flat", lambda: f_t(bs0, zero))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = median_ms(lambda: ranks.local(fn().pos), timed=3)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+            rates[name] = w * SW_TIMED / (ms / 1e3)
+        from banggameengine_tpu_torch.scripts import trace_summary as tsum
+
+        with tempfile.TemporaryDirectory() as tmp:
+            print("[profile] trace_summary of one vmapped step:")
+            launches = tsum.trace_and_summarize(
+                lambda: ranks.local(v1(outs["zero"], sharded["zero"]).pos),
+                (), tmp)["launches"]
+        print(f"[times] many-world {w} worlds, dispatches of {SW_TIMED} "
+              f"steps (CUDA events, median of 3 after 2 warm-up): vmapped "
+              f"{rates['vmapped']:.0f} world-steps/s ({launches:g} launches "
+              f"a step, peak {peaks['vmapped']:.0f} MiB), flat "
+              f"{rates['flat']:.0f} world-steps/s (its launches: phase 15's "
+              f"trace; peak {peaks['flat']:.0f} MiB); flat / vmapped "
+              f"{rates['flat'] / rates['vmapped']:.2f} {card}")
+        print(f"[sharded] 20a took {time.perf_counter() - t0:.1f} s")
+
+        # ---- 20b. the router and the one-rank flat mesh= ----------------
+        _, layout = mw.make_many_world_step(static1, mesh, state1.comp_mask,
+                                            w)
+        check(layout == "flat", f"router on one rank: {layout}")
+        fm = mw.make_flat_many_world_step(static1, w, state1.comp_mask,
+                                          num_steps=25, mesh=mesh)(
+            sharded["state"], sharded["drive"])
+        for name, a in convert.world_state_to_numpy(ranks.full(fm)).items():
+            check(np.array_equal(a, fn_[name]),
+                  f"flat mesh= vs mesh=None: {name} differs")
+        print(f"[sharded] make_many_world_step on the one-rank mesh: "
+              f"{layout!r}; the flat step with mesh= bit-equal to "
+              f"mesh=None after 25 steps of per-world input")
+
+        # ---- 20c. the fully sharded world on one rank -------------------
+        t0 = time.perf_counter()
+        emesh = sw.make_entity_axis_mesh()
+        inp = InputFrame.zero(dev)
+        ss, sst = sw.shard_world(stress_state, stress_static, emesh)
+        fstep = sw.make_fully_sharded_step(stress_static, emesh)
+        fstep(ss, inp, sst)                   # warm-up
+        torch.cuda.synchronize()
+        out, ev_t = _sync_free("fully sharded 10k step", _timed, fstep, ss,
+                               inp, sst)
+        one_ms = ev_t[0].elapsed_time(ev_t[1])
+        got = ranks.full(out[0])
+        dense = make_step_fn(stress_static, broadphase="dense",
+                             max_neighbors=MAX_NEIGHBORS, warm_start=False)
+        ref, _ = dense(stress_state, inp)
+        errs = {}
+        for f, tol in SW_DENSE_ATOL.items():
+            errs[f] = float((getattr(got, f) - getattr(ref, f)).abs().max())
+            check(errs[f] < tol, f"fully sharded vs dense at N={N_STRESS}: "
+                  f"|{f}| = {errs[f]}")
+        check(bool(torch.isfinite(got.pos).all()), "fully sharded: NaN")
+        print(f"[sharded] fully sharded step, one rank, {N_STRESS} boxes "
+              f"from phase 4's {DISPATCHES * STEPS_PER_DISPATCH}-step "
+              f"state: no host sync, no hand kernel; max |sharded - dense "
+              f"route (warm_start=False: the sharded solve starts cold)| "
+              + ", ".join(f"{k} {v:.3g} (< {SW_DENSE_ATOL[k]:g})"
+                          for k, v in errs.items())
+              + f"; one step {one_ms:.1f} ms (events) {card}")
+        with open(SHARDED_GOLDEN) as f:
+            golden = json.load(f)
+        dstate, dstatic = build_demo_like(device=dev)
+        ds, dst = sw.shard_world(dstate, dstatic, emesh)
+        dstep = sw.make_fully_sharded_step(dstatic, emesh)
+
+        def demo_run(s):
+            enter, exit_ = [], []
+            for _ in range(golden["steps"]):
+                s, ev = dstep(s, inp, dst)
+                enter.append(ranks.local(ev.trigger_enter))
+                exit_.append(ranks.local(ev.trigger_exit))
+            return s, torch.stack(enter), torch.stack(exit_)
+
+        (ds_out, enter, exit_), ev_t = _sync_free(
+            "fully sharded demo topology", _timed, demo_run, ds)
+        demo_ms = ev_t[0].elapsed_time(ev_t[1])
+        check(_event_list(enter, 1) == golden["enter"],
+              f"demo topology: Enter {_event_list(enter, 1)} vs JAX "
+              f"{golden['enter']}")
+        check(_event_list(exit_, 1) == golden["exit"],
+              f"demo topology: Exit {_event_list(exit_, 1)} vs JAX "
+              f"{golden['exit']}")
+        dn = convert.world_state_to_numpy(ranks.full(ds_out))
+        derr = {}
+        for f in golden["float_fields"]:
+            derr[f] = float(np.abs(dn[f] - np.asarray(
+                golden["last"][f], np.float32)).max())
+            check(derr[f] < golden["atol"],
+                  f"demo topology: |{f} - JAX| = {derr[f]}")
+        for f in golden["exact_fields"]:
+            check(np.array_equal(dn[f], np.asarray(golden["last"][f])),
+                  f"demo topology: {f} differs from JAX")
+        print(f"[sharded] demo topology fully sharded, {golden['steps']} "
+              f"steps: events equal to the JAX golden "
+              f"({len(golden['enter'])} Enter, {len(golden['exit'])} Exit), "
+              f"{', '.join(golden['exact_fields'])} equal; max |port - JAX| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in derr.items())
+              + f" (< {golden['atol']:g}); "
+              f"{golden['steps'] / (demo_ms / 1e3):.1f} steps/s {card}")
+        print(f"[sharded] 20c took {time.perf_counter() - t0:.1f} s")
+
+        # ---- 20d. the entity-sharded contact phase -----------------------
+        alive = stress_state.alive
+        has_col = (stress_state.comp_mask
+                   & (COMP_COLLIDER | COMP_CHARACTER)) != 0
+        solid = alive & has_col & (
+            (stress_state.comp_mask & COMP_CHARACTER) == 0)
+        is_dyn = (stress_static.body_type == BODY_DYNAMIC) & alive
+        args = (stress_state.pos, stress_state.quat, stress_state.lin_vel,
+                stress_state.ang_vel, is_dyn, solid, stress_static.fixed_dt)
+        pmesh = ranks.make_mesh(spatial.AXIS)
+        phase = spatial.make_entity_sharded_contact_phase(stress_static,
+                                                          pmesh)
+        phase(*args)                          # warm-up
+        (v_g, w_g), ev_t = _sync_free("entity-sharded phase", _timed,
+                                      phase, *args)
+        phase_ms = ev_t[0].elapsed_time(ev_t[1])
+        cpu_group = dist.new_group(ranks=[0], backend="gloo")
+        cmesh = DeviceMesh.from_group(cpu_group, "cpu",
+                                      mesh_dim_names=(spatial.AXIS,))
+        cpu_static = dataclasses.replace(stress_static, **{
+            f.name: getattr(stress_static, f.name).cpu()
+            for f in dataclasses.fields(stress_static)})
+        v_c, w_c = spatial.make_entity_sharded_contact_phase(
+            cpu_static, cmesh)(*(a.cpu() for a in args))
+        perr = max(float((v_g.cpu() - v_c).abs().max()),
+                   float((w_g.cpu() - w_c).abs().max()))
+        check(bool(torch.isfinite(v_g).all() and torch.isfinite(w_g).all()),
+              "entity-sharded phase: not finite")
+        check(perr < SW_CPU_ATOL,
+              f"entity-sharded phase, card vs CPU: {perr}")
+        print(f"[sharded] entity-sharded contact phase, one rank, "
+              f"{N_STRESS} boxes: finite, max |card - CPU| {perr:.3g} "
+              f"(< {SW_CPU_ATOL:g}); {phase_ms:.1f} ms (events) {card}")
+
+        # ---- 20e. the native OBJ loader and the windows ------------------
+        t0 = time.perf_counter()
+        path = build_native(force=True)
+        check(path == LIB_PATH and os.path.isfile(LIB_PATH),
+              f"native library did not build: {path}")
+        meshes = sorted(os.listdir(os.path.join(APP_ASSETS, "meshes")))
+        objs = [m for m in meshes if m.endswith(".obj")]
+        for m in objs:
+            p = os.path.join(APP_ASSETS, "meshes", m)
+            nat, py = load_obj_native(p), load_obj(p)
+            check(nat is not None, f"native loader: nothing for {m}")
+            check(nat.num_vertices == py.num_vertices
+                  and np.allclose(nat.positions, py.positions, atol=1e-6)
+                  and np.allclose(nat.normals, py.normals, atol=1e-5)
+                  and np.allclose(nat.uvs, py.uvs, atol=1e-6)
+                  and [(s.start_index, s.index_count, s.material_index)
+                       for s in nat.submeshes]
+                  == [(s.start_index, s.index_count, s.material_index)
+                      for s in py.submeshes]
+                  and [x.name for x in nat.materials]
+                  == [x.name for x in py.materials],
+                  f"native loader: {m} differs from the Python loader")
+        os.environ.pop("BANG_DISABLE_NATIVE", None)
+        res = ResourceManager(assets_root=APP_ASSETS)
+        for m in objs:
+            res.load_mesh(f"meshes/{m}")
+        routes = sorted(set(res.mesh_routes.values()))
+        check(routes == ["native"], f"load_mesh routes: {routes}")
+        display = os.environ.pop("DISPLAY", None)
+        try:
+            try:
+                XcbWindow(320, 200)
+                check(False, "XcbWindow opened without a display")
+            except RuntimeError:
+                pass
+            check(isinstance(create_window(320, 200), HeadlessWindow),
+                  "create_window without a display is not headless")
+        finally:
+            if display is not None:
+                os.environ["DISPLAY"] = display
+        print(f"[native] {os.path.relpath(LIB_PATH)} built with g++ in "
+              f"{time.perf_counter() - t0:.1f} s; {len(objs)} meshes of "
+              f"tests/data/app_assets loaded natively, each within "
+              f"tests/test_native.py's bars of the Python loader; "
+              f"load_mesh took the native route; without DISPLAY XcbWindow "
+              f"raises RuntimeError and create_window is headless")
+
+        # ---- 20f. the dry run on the card --------------------------------
+        lines = dryrun_multichip(1)
+        check(len(lines) == 5, f"dryrun_multichip(1): {lines}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"[sharded] phase 20 took {time.perf_counter() - t_phase:.1f} s "
+          f"{card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2971,6 +3347,7 @@ def main() -> int:
     app_phase(dev, card)
     overlay_phase(dev, card)
     new_routes_phase(dev, card, state0, state, static, views)
+    sharded_phase(dev, card, state, static)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

@@ -373,9 +373,22 @@ def test_unported_options_raise():
     assert bool(torch.isfinite(cap_out.pos).all())
     assert not torch.equal(cap_out.pos[:, 0], box_out.pos[:, 0])
     assert torch.equal(cap_out.pos[0], cap_out.pos[1])
-    with pytest.raises(NotImplementedError, match="item 20"):
+    # the world mesh (item 20, ported: tests/test_torch_sharded_modes.py
+    # holds it on gloo ranks): on one rank the same step bit for bit, and
+    # worlds that do not divide over the ranks are refused as in JAX
+    class Ranks:
+        def __init__(self, n):
+            self.n = n
+
+        def size(self):
+            return self.n
+
+    one_rank = manyworld.make_flat_many_world_step(
+        static, 2, state.comp_mask, num_steps=30, mesh=Ranks(1))(bs, binp)
+    assert torch.equal(one_rank.pos, box_out.pos)
+    with pytest.raises(ValueError, match="divisible"):
         manyworld.make_flat_many_world_step(static, 2, state.comp_mask,
-                                            mesh=object())
+                                            mesh=Ranks(4))
     step = manyworld.make_flat_many_world_step(static, 2, state.comp_mask)
     fs = step.flatten(manyworld.replicate_state(state, 2))
     inp = manyworld.replicate_input(InputFrame.zero("cpu"), 2)
