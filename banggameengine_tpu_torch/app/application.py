@@ -25,6 +25,12 @@ non-blocking copy from a pinned staging row; what the host must read (the
 orbit target's world matrix and the trigger event planes each fixed
 step; the image of each fused frame) comes back in one blocking copy
 each.
+
+On the card every step and frame is a captured program
+(:mod:`graphs`): the fused tick's step and frame graphs, the
+hot-reloadable step's graph (not donated: the state it is given stays
+valid, since the interpolated frame reads it), and the frame graphs of
+``render_current_frame``.  The host reads stay between replays.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import os
 import numpy as np
 import torch
 
+from banggameengine_tpu_torch import graphs
 from banggameengine_tpu_torch.app.events import (
     EventBus,
     TriggerEvent,
@@ -238,9 +245,13 @@ class Application:
             rebuilt = build_scene(desc, self.resources, self.config,
                                   capacity=self.built.static.capacity,
                                   device=self.device)
-            self.built.static = rebuilt.static
-            for fn in self._frame_fns.values():
-                fn.update_static(rebuilt.static)
+            # one scene object for the app: a rebuilt scene of the same
+            # shapes is copied into it, so the fused ticks (which capture
+            # it by reference) and later run-time edits see one scene
+            if not graphs.copy_into(self.built.static, rebuilt.static):
+                self.built.static = rebuilt.static
+                for fn in self._frame_fns.values():
+                    fn.update_static(rebuilt.static)
             log.info("[Physics] config hot-reloaded")
             return True
         except Exception as e:

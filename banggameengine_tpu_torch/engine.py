@@ -5,9 +5,13 @@ Counterpart of ``banggameengine_tpu/engine.py``: :func:`engine_step`,
 factories :func:`make_step_fn`,
 :func:`make_hot_reloadable_step_fn`, :func:`make_multi_step_fn` and
 :func:`make_step_fn_with_events`.  The JAX package jits its steps and scans
-the multi-steps; here the steps run eagerly, and a multi-step is a Python
-loop of ``num_steps`` steps inside one call.  Nothing in a step
-synchronises with the host, so the card runs ahead of the Python loop.
+the multi-steps; here each factory returns a captured program
+(:mod:`graphs`): on the card a call replays a CUDA graph of one step, and
+a multi-step replays it ``num_steps`` times, each replay writing the state
+back into the graph's own input buffers.  On the CPU, or inside
+:func:`graphs.eager`, the same factories run the step eagerly and a
+multi-step is a Python loop.  Nothing in a step synchronises with the
+host, so the card runs ahead of the caller.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch import graphs, math3d
 from banggameengine_tpu_torch.ecs.transform import (
     scatter_rows,
     update_world_matrices,
@@ -80,16 +84,40 @@ def interpolated_world(prev_state: WorldState, state: WorldState, alpha,
     )
 
 
+def _bound_step(static: StaticScene, solver_iterations: int,
+                physics_kwargs: dict):
+    """``fn(state, inp, static) -> (state, events)`` with the host-side
+    scene census (dead-stage skipping) taken here, once."""
+    return functools.partial(
+        engine_step, solver_iterations=solver_iterations,
+        **{**scene_census(static), **physics_kwargs})
+
+
 def make_step_fn(
     static: StaticScene,
     solver_iterations: int = 10,
+    donate: bool = True,
     **physics_kwargs,
 ) -> Callable[[WorldState, InputFrame], tuple[WorldState, StepEvents]]:
     """A single-world step bound to the static scene.  The host-side scene
-    census (dead-stage skipping) runs here, once."""
-    return functools.partial(
-        engine_step, static=static, solver_iterations=solver_iterations,
-        **{**scene_census(static), **physics_kwargs})
+    census (dead-stage skipping) runs here, once.
+
+    On the card a call replays the step's graph.  ``donate=True`` (as in
+    JAX) consumes the state passed in: the step is written in place into
+    the graph's buffers, and the returned state and events are those
+    buffers, valid until the next call (pass the state back to step on
+    with no copy).  ``donate=False`` returns clones.  The static scene is
+    captured by reference: in-place writes to it (``ecs.lifecycle``)
+    reach the graph."""
+    program = graphs.Program(
+        _bound_step(static, solver_iterations, physics_kwargs),
+        donate=donate, by_ref=(2,), name="step")
+
+    def step(state: WorldState, inp: InputFrame):
+        return program(state, inp, static)
+
+    step.program = program
+    return step
 
 
 def make_hot_reloadable_step_fn(
@@ -102,10 +130,23 @@ def make_hot_reloadable_step_fn(
     census is read from a scene that may change, so every stage runs, as
     in the JAX package's traced-scene step: the character sweep, the
     capsule slots and the trigger sweep (on the default route, the same
-    result as a step that skips them where they are dead)."""
-    return functools.partial(
+    result as a step that skips them where they are dead).
+
+    On the card the scene is an input of the graph like the state: each
+    call copies it into the graph's buffers (a rebuilt scene of equal
+    shapes needs nothing more; new shapes capture anew).  Nothing is
+    donated, as in JAX: the call returns clones, and the state passed in
+    stays valid (the app interpolates from it)."""
+    program = graphs.Program(functools.partial(
         engine_step, solver_iterations=solver_iterations,
-        any_char=True, enable_capsule=True, any_trig=True)
+        any_char=True, enable_capsule=True, any_trig=True),
+        name="hot_step")
+
+    def step(state: WorldState, inp: InputFrame, static: StaticScene):
+        return program(state, inp, static)
+
+    step.program = program
+    return step
 
 
 def stack_events(events: list[StepEvents]) -> StepEvents:
@@ -122,15 +163,39 @@ def make_multi_step_fn(
     **physics_kwargs,
 ) -> Callable[[WorldState, InputFrame], WorldState]:
     """``num_steps`` fixed steps with constant input in one call; returns
-    the final state only (per-step events are dropped)."""
-    step = make_step_fn(static, solver_iterations, **physics_kwargs)
+    the final state only (per-step events are dropped).
+
+    On the card: one step's graph that writes the state back into its own
+    input buffers, replayed ``num_steps`` times (the JAX package's
+    ``lax.scan`` in one dispatch).  The state is donated, as in JAX: the
+    returned state is the graph's buffers, valid until the next call."""
+    program = graphs.Program(
+        _bound_step(static, solver_iterations, physics_kwargs),
+        donate=True, by_ref=(2,), name="multi_step")
 
     def run(state: WorldState, inp: InputFrame) -> WorldState:
-        for _ in range(num_steps):
-            state, _events = step(state, inp)
-        return state
+        if num_steps < 1:
+            return state
+        return program(state, inp, static, times=num_steps)[0]
 
+    run.program = program
     return run
+
+
+def _event_stack(num_steps: int, state: WorldState) -> StepEvents:
+    """Zeroed [num_steps, ...] buffers of every event field, sized from
+    the state: the trigger planes are its overlap planes' shape."""
+    planes = state.trigger_overlap
+
+    def stack(shape, dtype):
+        return torch.zeros((num_steps,) + tuple(shape), dtype=dtype,
+                           device=planes.device)
+
+    return StepEvents(
+        trigger_enter=stack(planes.shape, torch.bool),
+        trigger_stay=stack(planes.shape, torch.bool),
+        trigger_exit=stack(planes.shape, torch.bool),
+        contact_overflow=stack((), torch.int32))
 
 
 def make_step_fn_with_events(
@@ -140,14 +205,37 @@ def make_step_fn_with_events(
     **physics_kwargs,
 ) -> Callable[[WorldState, InputFrame], tuple[WorldState, StepEvents]]:
     """Like :func:`make_multi_step_fn`, but returns the per-step events
-    too, each field with a leading [num_steps] axis."""
-    step = make_step_fn(static, solver_iterations, **physics_kwargs)
+    too, each field with a leading [num_steps] axis.
+
+    Each step writes its events into stacked [num_steps, ...] buffers (by
+    reference) at a step index kept on the device, donated with the state
+    (so a capture's warm-up leaves it as it found it): on the card
+    ``num_steps`` replays stack the events with no host read.  The
+    returned events are clones."""
+    fn = _bound_step(static, solver_iterations, physics_kwargs)
+
+    def body(carry, inp, st, stack):
+        state, at = carry
+        state, events = fn(state, inp, st)
+        for f in dataclasses.fields(StepEvents):
+            getattr(stack, f.name).index_copy_(
+                0, at, getattr(events, f.name)[None])
+        return ((state, at + 1),)
+
+    program = graphs.Program(body, donate=True, by_ref=(2, 3),
+                             name="steps_with_events")
+    stacks: dict = {}
 
     def run(state: WorldState, inp: InputFrame):
-        events = []
-        for _ in range(num_steps):
-            state, ev = step(state, inp)
-            events.append(ev)
-        return state, stack_events(events)
+        key = graphs.signature(state)
+        if key not in stacks:
+            stacks[key] = (_event_stack(num_steps, state),
+                           torch.zeros(1, dtype=torch.int64,
+                                       device=state.pos.device))
+        stack, zero = stacks[key]
+        ((state, _at),) = program((state, zero), inp, static, stack,
+                                  times=num_steps)
+        return state, graphs.clone_tree(stack)
 
+    run.program = program
     return run

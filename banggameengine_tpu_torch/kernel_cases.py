@@ -250,7 +250,10 @@ def recorded_render_inputs():
     """Record the arguments of every render kernel launch made inside: the
     inputs the main path gives the kernels, by short name.  The wrappers
     (and their launch counts) stay in place; only the launchers they call
-    are wrapped."""
+    are wrapped.  The factories run eagerly inside (:func:`graphs.eager`),
+    so every launch is recorded once, with the values it ran on."""
+    from banggameengine_tpu_torch import graphs
+
     mods = render_kernel_modules()
     rec = {k: [] for k in mods}
     saved = {k: getattr(m, launcher)
@@ -265,7 +268,8 @@ def recorded_render_inputs():
     for k, (m, _, launcher, _) in mods.items():
         setattr(m, launcher, recorder(k))
     try:
-        yield rec
+        with graphs.eager():
+            yield rec
     finally:
         for k, (m, _, launcher, _) in mods.items():
             setattr(m, launcher, saved[k])

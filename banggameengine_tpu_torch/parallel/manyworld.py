@@ -24,11 +24,13 @@ process group) the world axis is sharded: each rank steps its own worlds
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
+from banggameengine_tpu_torch import graphs
 from banggameengine_tpu_torch.engine import engine_step
 from banggameengine_tpu_torch.parallel import ranks
 from banggameengine_tpu_torch.physics.step import scene_census
@@ -108,6 +110,12 @@ def world_metrics(state: WorldState) -> dict:
 
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(WorldState))
+
+
+def _eager_with(mesh):
+    """Steps over a mesh run eagerly (no collective is captured yet)."""
+    return graphs.eager() if mesh is not None else contextlib.nullcontext()
+
 _INPUT_FIELDS = tuple(f.name for f in dataclasses.fields(InputFrame))
 
 
@@ -131,6 +139,11 @@ def make_sharded_many_world_step(
     own worlds; ``with_metrics`` means are over every world (a sum over
     the ranks, divided by W).  ``world_minor=True`` moves the world axis
     last at the boundary and vmaps over it; the result is the same.
+
+    Without a mesh, on the card, a call replays one graph of the vmapped
+    step ``num_steps`` times, the state donated as in JAX: the returned
+    state is the graph's buffers, valid until the next call.  With a mesh
+    the steps run eagerly.
     """
     kwargs = {**scene_census(static), **physics_kwargs}
     ax = -1 if world_minor else 0
@@ -142,6 +155,8 @@ def make_sharded_many_world_step(
         return tuple(getattr(out, name) for name in _STATE_FIELDS)
 
     vstep = torch.func.vmap(one_world, in_dims=(ax, ax), out_dims=ax)
+    program = graphs.Program(lambda sf, inf: (vstep(sf, inf),),
+                             donate=True, name="vmapped_step")
     group = None if mesh is None else mesh.get_group()
 
     def step(bstate: WorldState, binp: InputFrame):
@@ -151,8 +166,9 @@ def make_sharded_many_world_step(
         if world_minor:
             sf = tuple(a.movedim(0, -1) for a in sf)
             inf = tuple(a.movedim(0, -1) for a in inf)
-        for _ in range(num_steps):
-            sf = vstep(sf, inf)
+        if num_steps >= 1:
+            with _eager_with(mesh):
+                (sf,) = program(sf, inf, times=num_steps)
         if world_minor:
             sf = tuple(a.movedim(-1, 0) for a in sf)
         out = WorldState(*(ranks.rewrap(a, getattr(bstate, n))
@@ -165,6 +181,7 @@ def make_sharded_many_world_step(
         return out, {k: ranks.sum_ranks(v.sum(), group) / num_worlds
                      for k, v in m.items()}
 
+    step.program = program
     return step
 
 
@@ -271,6 +288,12 @@ def make_flat_many_world_step(
     ``num_worlds`` must then divide by the mesh size (ValueError
     otherwise).
 
+    Without a mesh, on the card, a call is three graphs: flatten, one
+    flat step replayed ``num_steps`` times on the flat state, and
+    unflatten back into the batched state's buffers, donated as in JAX:
+    the returned state is those buffers, valid until the next call.  With
+    a mesh the steps run eagerly.
+
     The returned function also carries ``flatten``, ``unflatten``,
     ``flat_step`` (one engine step of the flat world, with its events)
     and ``flat_static``.
@@ -335,12 +358,17 @@ def make_flat_many_world_step(
         f["step_idx"] = fs.step_idx.expand(w).clone()
         return WorldState(**f)
 
+    program = graphs.Program(
+        lambda fs, binp: flat_step(fs, binp)[:1], donate=True,
+        enter=flatten, leave=unflatten, name="flat_many_world_step")
+
     def step(bstate: WorldState, binp: InputFrame) -> WorldState:
-        fs = flatten(ranks.map_fields(ranks.local, bstate))
-        binp_l = ranks.map_fields(ranks.local, binp)
-        for _ in range(num_steps):
-            fs, _events = flat_step(fs, binp_l)
-        out = unflatten(fs)
+        if num_steps < 1:
+            return bstate
+        with _eager_with(mesh):
+            (out,) = program(ranks.map_fields(ranks.local, bstate),
+                             ranks.map_fields(ranks.local, binp),
+                             times=num_steps)
         if mesh is None:
             return out
         return WorldState(**{
@@ -351,6 +379,7 @@ def make_flat_many_world_step(
     step.unflatten = unflatten
     step.flat_step = flat_step
     step.flat_static = flat_static
+    step.program = program
     return step
 
 

@@ -4,9 +4,10 @@ Counterpart of ``banggameengine_tpu/render/pipeline.py``: ``render_frame``
 (the depth-only frame and three shades), ``make_render_fn``,
 ``make_interp_render_fn`` (the frame of a world interpolated between two
 fixed steps) and ``make_frame_fn`` (the interactive tick: engine steps,
-then frame).  PyTorch runs eagerly, so the factories bind arguments
-instead of compiling; nothing in a frame synchronises with the host, so
-the card runs ahead of the caller.
+then frame).  Each factory returns captured programs (:mod:`graphs`),
+jitted in the JAX package: on the card a call replays CUDA graphs; on the
+CPU, or inside :func:`graphs.eager`, it runs eagerly.  Nothing in a frame
+synchronises with the host, so the card runs ahead of the caller.
 
 Shades (``shade_mode``): ``"tiled"`` (the default: a raster, then the
 per-tile resolve; over the walk, or over ``raster_backend="tile"``, the
@@ -24,7 +25,7 @@ import functools
 
 import torch
 
-from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch import graphs, math3d
 from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render.cull import entity_frustum_mask
 from banggameengine_tpu_torch.render.lines import draw_lines
@@ -149,12 +150,24 @@ def make_render_fn(render_scene: RenderScene, width: int, height: int,
                    raster_backend: str = "walk", shade_mode: str = "tiled"):
     """A frame renderer bound to the render scene:
     ``call(world_mats, view, proj, camera_pos, light=None)``.
-    ``shade_mode`` is the port's addition to the JAX signature."""
-    return functools.partial(
-        render_frame, render_scene, width=width, height=height,
+    ``shade_mode`` is the port's addition to the JAX signature.
+
+    On the card a call replays the frame's graph: the world, the camera
+    and the light are copied into its buffers, the scene is captured by
+    reference, and the frame returned is a clone."""
+    fn = functools.partial(
+        render_frame, width=width, height=height,
         bin_capacity=bin_capacity, depth_only=depth_only,
         return_depth=return_depth, wireframe=wireframe,
         raster_backend=raster_backend, shade_mode=shade_mode)
+    program = graphs.Program(fn, by_ref=(0,), name="render")
+
+    def call(world_mats, view, proj, camera_pos, light=None):
+        return program(render_scene, world_mats, view, proj, camera_pos,
+                       light)
+
+    call.program = program
+    return call
 
 
 def make_interp_render_fn(render_scene: RenderScene, width: int, height: int,
@@ -167,19 +180,31 @@ def make_interp_render_fn(render_scene: RenderScene, width: int, height: int,
     light=None)`` blends the two fixed-step states by ``alpha``
     (:func:`~banggameengine_tpu_torch.engine.interpolated_world`), then
     renders the blended world, in one call, through the tiled shade over
-    ``raster_backend``."""
+    ``raster_backend``.  On the card that call is one graph; ``alpha``
+    (a float or a 0-d tensor) enters it as an f32 0-d tensor on the
+    states' device, like the states, the scene and the camera, so no
+    value of one call is frozen into the next."""
     from banggameengine_tpu_torch.engine import interpolated_world
 
-    render = make_render_fn(render_scene, width, height,
+    def frame(rs, prev_state, state, alpha, static, view, proj, cam_pos,
+              light):
+        world = interpolated_world(prev_state, state, alpha, static)
+        return render_frame(rs, world, view, proj, cam_pos, light,
+                            width=width, height=height,
                             bin_capacity=bin_capacity,
                             return_depth=return_depth, wireframe=wireframe,
                             raster_backend=raster_backend)
 
+    program = graphs.Program(frame, by_ref=(0,), name="interp_render")
+
     def call(prev_state, state, alpha, static, view, proj, cam_pos,
              light=None):
-        world = interpolated_world(prev_state, state, alpha, static)
-        return render(world, view, proj, cam_pos, light)
+        alpha = torch.as_tensor(alpha, dtype=torch.float32,
+                                device=state.pos.device)
+        return program(render_scene, prev_state, state, alpha, static,
+                       view, proj, cam_pos, light)
 
+    call.program = program
     return call
 
 
@@ -196,44 +221,72 @@ def make_frame_fn(built: BuiltScene, width: int, height: int,
     Returns ``call(state, inp, view, proj, cam_pos, light=None)
     -> (new_state, u8[H, W, 4], StepEvents)``; with ``substeps > 1`` the
     events gain a leading [substeps] axis.  ``call.update_static(static)``
-    swaps the static scene.
+    rebinds the static scene, as in JAX.  The graphs capture the scene by
+    reference (in-place writes to it, ``ecs.lifecycle``'s, reach them):
+    the next call copies a rebound scene of the same shapes into the
+    tensors they captured, and one of other shapes is captured anew.
 
+    On the card, as in JAX: by default two graphs, the step (its
+    ``substeps`` steps unrolled in one capture) and then the frame;
+    ``merged=True`` or ``merged_barrier=True`` one graph of both (its
+    order is step then frame, so the barrier adds nothing).
     ``pipelined=True`` renders the world of the state passed in (one tick
-    of visual latency) and then steps.  The JAX package's ``merged`` and
-    ``merged_barrier`` compile step and frame into one program; eager
-    PyTorch has one order, step then frame, so they give the default
-    tick.  ``donate`` has no counterpart in eager PyTorch (the input state
-    is never written) and is ignored."""
+    of visual latency) and then steps (not with ``merged``, as in JAX).
+    ``donate=True`` consumes the state passed in: the returned state and
+    events are the graph's buffers, valid until the next call; the frame
+    is a clone.  ``donate=False`` returns clones of all three."""
     from banggameengine_tpu_torch.engine import engine_step, stack_events
     from banggameengine_tpu_torch.physics.step import scene_census
 
-    del donate, merged, merged_barrier
     kwargs = {**scene_census(built.static), **physics_kwargs}
     bound = {"st": built.static}
-    render = make_render_fn(built.render, width, height,
-                            bin_capacity=bin_capacity,
-                            raster_backend=raster_backend)
+    rs = built.render
 
-    def step(state, inp):
+    def step(state, inp, st):
         events = []
         for _ in range(substeps):
-            state, ev = engine_step(state, inp, bound["st"],
-                                    solver_iterations, **kwargs)
+            state, ev = engine_step(state, inp, st, solver_iterations,
+                                    **kwargs)
             events.append(ev)
         if substeps == 1:
             return state, events[0]
         return state, stack_events(events)
 
+    def render(rs_, world, view, proj, cam_pos, light):
+        return render_frame(rs_, world, view, proj, cam_pos, light,
+                            width=width, height=height,
+                            bin_capacity=bin_capacity,
+                            raster_backend=raster_backend)
+
+    def tick(state, inp, st, rs_, view, proj, cam_pos, light):
+        s2, ev = step(state, inp, st)
+        return s2, render(rs_, s2.world, view, proj, cam_pos, light), ev
+
+    merged = merged or merged_barrier
+    tick_program = graphs.Program(tick, donate=donate, by_ref=(2, 3),
+                                  name="tick")
+    step_program = graphs.Program(step, donate=donate, by_ref=(2,),
+                                  name="tick_step")
+    render_program = graphs.Program(render, by_ref=(0,), name="tick_render")
+
     def call(state, inp, view, proj, cam_pos, light=None):
+        st = bound["st"]
+        if merged:
+            s2, img, ev = tick_program(state, inp, st, rs, view, proj,
+                                       cam_pos, light)
+            return s2, graphs.clone_tree(img) if donate else img, ev
         if pipelined:
-            img = render(state.world, view, proj, cam_pos, light)
-            s2, ev = step(state, inp)
+            img = render_program(rs, state.world, view, proj, cam_pos,
+                                 light)
+            s2, ev = step_program(state, inp, st)
             return s2, img, ev
-        s2, ev = step(state, inp)
-        return s2, render(s2.world, view, proj, cam_pos, light), ev
+        s2, ev = step_program(state, inp, st)
+        return s2, render_program(rs, s2.world, view, proj, cam_pos,
+                                  light), ev
 
     def update_static(new_static):
         bound["st"] = new_static
 
     call.update_static = update_static
+    call.programs = (step_program, render_program, tick_program)
     return call

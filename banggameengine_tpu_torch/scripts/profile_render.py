@@ -21,6 +21,9 @@ warm-up, CUDA events on the card):
                - the shaded frame through ``make_render_fn`` in each shade
                  route (``"flat"`` over ``raster_backend="tile"``)
 
+Every stage runs on the eager route (``graphs.eager()``), the frames too:
+the times are the eager ops'.
+
     python3 -m banggameengine_tpu_torch.scripts.profile_render
     python3 -m banggameengine_tpu_torch.scripts.profile_render \\
         --device cpu --small
@@ -32,7 +35,7 @@ import argparse
 
 import torch
 
-from banggameengine_tpu_torch import convert, math3d
+from banggameengine_tpu_torch import convert, graphs, math3d
 from banggameengine_tpu_torch.render import raster as rz
 from banggameengine_tpu_torch.render import raster_tile as rt
 from banggameengine_tpu_torch.render.cull import entity_frustum_mask
@@ -120,7 +123,7 @@ def stages(device="cuda", small: bool = False) -> dict:
     for route, kw in ROUTES.items():
         out[f"frame_{route}"] = (make_render_fn(
             rs, width, height, bin_capacity=BIN_CAPACITY, **kw), frame_args)
-    return out
+    return {k: (graphs.eager()(fn), args) for k, (fn, args) in out.items()}
 
 
 def time_stages(runs: dict, device, calls: int = REPS,

@@ -29,7 +29,10 @@ tick camera), ``app`` and ``overlay`` (one display frame of the app on the
 default path at 1280x720, ``app.frame`` and ``render_current_frame``, from
 the first second of ``play_demo``'s track: ``overlay`` with the physics
 overlay (F3) and the HUD, ``play_demo --overlay``).  Under the profiler every host op costs more than without it,
-so the busy share it shows is a lower bound of the untraced one.
+so the busy share it shows is a lower bound of the untraced one.  Every
+program runs on the eager route (``graphs.eager()``), from states
+settled through the factories' graphs: the launches, gaps and busy share
+are the eager route's.
 
     python3 -m banggameengine_tpu_torch.scripts.trace_summary frame_tiled [OUTDIR]
     python3 -m banggameengine_tpu_torch.scripts.trace_summary tick --device cpu --small
@@ -59,7 +62,7 @@ import tempfile
 
 import torch
 
-from banggameengine_tpu_torch import convert
+from banggameengine_tpu_torch import convert, graphs
 from banggameengine_tpu_torch.engine import make_multi_step_fn
 from banggameengine_tpu_torch.parallel.manyworld import (
     make_flat_many_world_step,
@@ -182,7 +185,16 @@ def _app_frame(name: str, device, small: bool):
 
 
 def build(name: str, device="cuda", small: bool = False):
-    """The program ``name`` as (function, its arguments on ``device``)."""
+    """The program ``name`` as (function, its arguments on ``device``).
+    The function runs eagerly (inside ``graphs.eager()``): the trace reads
+    the eager route's launches, device time and gaps.  The states are
+    settled through the factories' graphs, and the arguments are copies
+    of them, so every execution repeats the same dispatch."""
+    fn, args = _build(name, device, small)
+    return graphs.eager()(fn), graphs.owned(args)
+
+
+def _build(name: str, device, small: bool):
     if name == "stress":
         state, _, inp, run = _stress_state(device, small)
         return run, (state, inp)

@@ -7,8 +7,13 @@ profiling path, the flat many-world step, the default dense route, the
 application shell and its overlays and runtime scene editing, the grid
 route, solid capsules on the flat step, the tiled shade over the tile
 raster, the vmapped many-world step and the sharded modes on one rank,
-the native OBJ loader and the windows, and checks them.  Phases, one line
-each:
+the native OBJ loader and the windows, and checks them.  Every factory
+runs as the JAX package's jitted programs do, one dispatch a call: on the
+card it replays CUDA graphs (``banggameengine_tpu_torch/graphs.py``), so
+a launch count below counts each kernel a replay ran, and the count a
+phase checks leaves out the launches of each capture's eager warm-up
+(``graphs.warmup_launches``).  The comparisons with the plain versions
+run eagerly (``graphs.eager()``).  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compiles the six kernels for sm_90a, all at once
@@ -232,7 +237,26 @@ each:
    ``tests/test_native.py``'s bars of the Python loader,
    ``ResourceManager.load_mesh`` on the native route, and without
    ``DISPLAY`` ``XcbWindow`` raising and ``create_window`` headless; (f)
-   ``dryrun_multichip(1)`` on the card.
+   ``dryrun_multichip(1)`` on the card;
+21. graphs: every factory of the JAX package's one-dispatch programs,
+   through its graphs and through ``graphs.eager()`` from the same start
+   in this run, every output bit-equal between the two routes and the
+   hand kernels' launches through the replays equal to the eager
+   launches: the 10k-box stress multi-step (kernel #1, one step's graph
+   replayed 50 times a call), the tick (#1, #3, #2; a step graph then a
+   frame graph) and its ``merged=True`` form (one graph), the fused (#4)
+   and flat (#5) showcase frames at 1920x1080, the flat and vmapped
+   many-world steps at 1,000 worlds with per-world input, the demo step,
+   the app's fused and default display frames at 1280x720 through the
+   track's first ``G_APP_FRAMES``, a hot reload (the hot-reloadable step
+   with the scene rebuilt half-way: copied in, one capture) and spawns
+   that grow the level table (the next step captures anew); each with
+   its host launches a call (graph: replays, input copies and output
+   clones, at most ``G_STRESS_HOST_MAX`` for the stress dispatch; eager:
+   ATen ops and hand kernels) and a call's time by CUDA events on both
+   routes; and a one-step flat many-world call (flatten, the flat step
+   and unflatten: three graphs) by CUDA events against its traced
+   device time.
 
 Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
 own time for one call through the kernel's launcher (``cuda_*``, the
@@ -245,7 +269,7 @@ TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
 inputs.  The line before the last is the kernel table as JSON; the last
 line is ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the run exits non-zero and prints no result.  Without a CUDA device it
-exits 1.  Phases 16 to 20 print their own times.
+exits 1.  Phases 16 to 21 print their own times.
 
     python3 chip_smoke.py
 
@@ -270,7 +294,7 @@ import time
 import numpy as np
 import torch
 
-from banggameengine_tpu_torch import convert, kernel_cases
+from banggameengine_tpu_torch import convert, graphs, kernel_cases
 from banggameengine_tpu_torch.kernel_cases import (
     recorded_render_inputs,
     render_kernel_modules,
@@ -449,15 +473,25 @@ def dispatch_ms(run, state, inp, warmup: int = 2, timed: int = 3):
 @contextlib.contextmanager
 def plain_broadphase():
     """Route the step's broadphase through the plain PyTorch version, for
-    the comparison runs only."""
+    the comparison runs only; the factories run eagerly inside, so no
+    captured graph replays the kernel."""
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 
     kernel = bk.neighbor_lists_aabb
     bk.neighbor_lists_aabb = bk.neighbor_lists_aabb_reference
     try:
-        yield
+        with graphs.eager():
+            yield
     finally:
         bk.neighbor_lists_aabb = kernel
+
+
+def own(tree):
+    """A copy of ``tree`` that the caller owns: a donating program's result
+    is its buffers, which its next call overwrites.  (Not counted in
+    ``graphs.stats``: the copy is the script's, not the program's.)"""
+    leaves, spec = graphs.flatten(tree)
+    return graphs.unflatten(spec, [t.clone() for t in leaves])
 
 
 def launch_counts() -> dict:
@@ -468,6 +502,20 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for m, w, _, _ in render_kernel_modules().values():
         getattr(m, w).launches = 0
+        graphs.warmup_launches[w] = 0
+
+
+def warmup_counts() -> dict:
+    """The render kernels' launches in the captures' eager warm-ups since
+    the counts were last set to 0 (part of ``launch_counts()``)."""
+    return {k: graphs.warmup_launches[w]
+            for k, (_, w, _, _) in render_kernel_modules().items()}
+
+
+def replayed_counts() -> dict:
+    """``launch_counts()`` less the captures' warm-ups."""
+    warm = warmup_counts()
+    return {k: n - warm[k] for k, n in launch_counts().items()}
 
 
 def hand_launches() -> int:
@@ -485,6 +533,7 @@ def reset_hand_launches() -> None:
 
     bk.neighbor_lists_aabb.launches = 0
     gr.gather_rows_u8.launches = 0
+    graphs.warmup_launches.clear()
     reset_launch_counts()
 
 
@@ -501,13 +550,15 @@ def no_host_sync():
 @contextlib.contextmanager
 def plain_render_kernels():
     """Route the frame's render kernels through their plain PyTorch
-    versions, for the comparison runs only."""
+    versions, for the comparison runs only (eagerly, as
+    :func:`plain_broadphase`)."""
     mods = render_kernel_modules()
     saved = {k: getattr(m, w) for k, (m, w, _, _) in mods.items()}
     for m, w, _, plain in mods.values():
         setattr(m, w, plain)
     try:
-        yield
+        with graphs.eager():
+            yield
     finally:
         for k, (m, w, _, _) in mods.items():
             setattr(m, w, saved[k])
@@ -779,7 +830,7 @@ def render_phases(dev, card: str, stress_state, static,
               f"KL {table.shape[2]})")
 
     # ---- 8. the render slice --------------------------------------------
-    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
+    reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")   # a host sync raises
     try:
         frame, depth = render(*show_args)
@@ -788,8 +839,10 @@ def render_phases(dev, card: str, stress_state, static,
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     walks, resolves = rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches
-    check((walks, resolves) == (2, 1),
-          f"showcase frames: walk launched {walks}, resolve {resolves} times")
+    warm = warmup_counts()
+    check((walks - warm["walk"], resolves - warm["resolve"]) == (2, 1),
+          f"showcase frames: walk launched {walks}, resolve {resolves} times "
+          f"({warm} in the captures' warm-ups)")
     check(frame.dtype == torch.uint8
           and tuple(frame.shape) == (RENDER_H, RENDER_W, 4),
           f"frame {frame.dtype}{tuple(frame.shape)}")
@@ -845,12 +898,14 @@ def render_phases(dev, card: str, stress_state, static,
     inp = InputFrame.zero()
     state = stress_state
     bk.neighbor_lists_aabb.launches = 0
-    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
+    reset_launch_counts()
+    graphs.warmup_launches.clear()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(FRAME_TICKS):
             state, img, events = tick(state, inp, *tick_args)
+        state, events = own(state), own(events)   # the step graph's buffers
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -858,8 +913,13 @@ def render_phases(dev, card: str, stress_state, static,
     launches = {"neighbor_lists": bk.neighbor_lists_aabb.launches,
                 "raster_walk": rwk.raster_walk.launches,
                 "resolve_wide": rsv.resolve_tiles_wide.launches}
-    check(all(n == FRAME_TICKS for n in launches.values()),
-          f"{FRAME_TICKS} ticks launched {launches}")
+    warm = {k: graphs.warmup_launches[w] for k, w in (
+        ("neighbor_lists", "neighbor_lists_aabb"),
+        ("raster_walk", "raster_walk"),
+        ("resolve_wide", "resolve_tiles_wide"))}
+    check(all(n - warm[k] == FRAME_TICKS for k, n in launches.items()),
+          f"{FRAME_TICKS} ticks launched {launches} ({warm} in the "
+          f"captures' warm-ups)")
     check(tuple(img.shape) == (RENDER_H, RENDER_W, 4)
           and bool(torch.isfinite(state.pos).all()),
           "tick: bad frame or non-finite state")
@@ -875,8 +935,9 @@ def render_phases(dev, card: str, stress_state, static,
           f"(step + {RENDER_W}x{RENDER_H} frame) on the 10k-box world "
           f"from step {int(stress_state.step_idx)}, camera at "
           f"{TICK_CAMERA_POS} looking up ({tick_s:.2f} s wall, no "
-          f"host sync): launches {launches}; one more tick bit-equal to the "
-          f"plain versions; frame overflow "
+          f"host sync; a step graph and a frame graph a tick): launches "
+          f"{launches} ({warm} in the captures' warm-ups); one more tick "
+          f"bit-equal to the plain versions; frame overflow "
           f"{frame_overflow(box_rs, state.world, *tick_args[:2])} pairs, "
           f"contact_overflow {int(events.contact_overflow)}, "
           f"{int((img != sky).any(-1).sum())} non-sky pixels")
@@ -1146,8 +1207,10 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
         want = {"walk": 0, "resolve": 0,
                 "fused": 2 if mode == "fused" else 0,
                 "tile": 4 if mode == "flat" else 0}
-        check(launches[mode] == want,
-              f"{mode} frames: launches {launches[mode]}, expected {want}")
+        check(replayed_counts() == want,
+              f"{mode} frames: launches {launches[mode]} ("
+              f"{warmup_counts()} in the captures' warm-ups), expected "
+              f"{want} in the replays")
     frames["tiled"] = {name: routes["tiled"][name](*args)
                        for name, (_, args, _) in views.items()}
     with plain_render_kernels():
@@ -1193,7 +1256,9 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
               f"{over_walk}, full-carry {over_tile}; every route bit-equal "
               f"to the plain versions")
     print(f"[route-slice] launches: fused frames of both views "
-          f"{launches['fused']}, flat frames {launches['flat']}")
+          f"{launches['fused']}, flat frames {launches['flat']} (each "
+          f"frame's graph replayed once; the counts include each capture's "
+          f"eager warm-up)")
 
     # ---- 12. route times --------------------------------------------------
     t = {}
@@ -1494,11 +1559,12 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
         state = bstate0
         for _ in range(DISPATCHES):
             state = run(state, zero_inp)
+        state = own(state)       # run's buffers: the driven run reuses them
         driven = bstate0
         for i in range(DISPATCHES):
             driven = run(driven, drive)
             if i == 1:
-                driven_mid = driven    # step 100: boxes touch at 109-112
+                driven_mid = own(driven)   # step 100: boxes touch at 109-112
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
     hand = hand_launches()
@@ -1694,8 +1760,8 @@ def dense_phase(dev, card: str) -> None:
     """Phase 16: the JAX package's default route (``broadphase="dense"``)
     on the demo world, the 200-box world and the 12-box world (no hand
     kernel on this path).  Every rate is timed over the checked runs' own
-    dispatches (the port is eager: nothing compiles, so the first
-    dispatch alone is the warm-up), so no step runs only to be timed."""
+    dispatches (the first dispatch captures the graph and is the
+    warm-up), so no step runs only to be timed."""
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn, make_step_fn_with_events)
     from banggameengine_tpu_torch.physics.broadphase import (
@@ -1739,11 +1805,11 @@ def dense_phase(dev, card: str) -> None:
             state, ev = _timed(run, state, zero)
             settle_events.append(ev)
         state = tail(state, zero)
-        settled = state
+        settled = own(state)
         chunks = []
         for _ in range(walk_steps // WALK_CHUNK):
             state, events = walk(state, walk_inp)
-            chunks.append((state, events))
+            chunks.append((own(state), events))   # walk's buffers
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     hand = hand_launches()
@@ -1808,7 +1874,7 @@ def dense_phase(dev, card: str) -> None:
         bstate, bchunks = b0, []
         for _ in range(gdn["steps"] // every):
             (bstate, bev), tev = _timed(brun, bstate, bwalk)
-            bchunks.append((bstate, bev, tev))
+            bchunks.append((own(bstate), bev, tev))   # brun's buffers
     torch.cuda.synchronize()
     dense_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -2042,9 +2108,10 @@ def app_phase(dev, card: str) -> None:
     rec, walls, syncs, _, tr_f = _app_run(app, frames, fps,
                                           trace_dir=os.path.join(tmp, "fused"))
     fused_s = time.perf_counter() - t0
-    counts = launch_counts()
-    check(counts["walk"] == frames and counts["resolve"] == frames,
-          f"app (fused): {counts} launches in {frames} rendered frames")
+    counts, replayed = launch_counts(), replayed_counts()
+    check(replayed["walk"] == frames and replayed["resolve"] == frames,
+          f"app (fused): {counts} launches ({warmup_counts()} in the "
+          f"captures' warm-ups) in {frames} rendered frames")
     check(counts["fused"] == 0 and counts["tile"] == 0,
           f"app (fused): other render kernels launched: {counts}")
     err_f = _app_check("fused", rec, g, frames)
@@ -2107,9 +2174,10 @@ def app_phase(dev, card: str) -> None:
         dapp, dframes, fps, render=True,
         trace_dir=os.path.join(tmp, "default"))
     default_s = time.perf_counter() - t0
-    counts = launch_counts()
-    check(counts["walk"] == dframes and counts["resolve"] == dframes,
-          f"app (default): {counts} launches in {dframes} rendered frames")
+    counts, replayed = launch_counts(), replayed_counts()
+    check(replayed["walk"] == dframes and replayed["resolve"] == dframes,
+          f"app (default): {counts} launches ({warmup_counts()} in the "
+          f"captures' warm-ups) in {dframes} rendered frames")
     err_d = _app_check("default", drec, g, dframes)
     check(dimg.shape == (height, width, 4) and (dimg == SKY).all(-1).any(),
           "app (default): no sky in the interpolated frame")
@@ -2229,9 +2297,10 @@ def overlay_phase(dev, card: str) -> None:
         app, frames, fps, render=True, hud=True,
         trace_dir=os.path.join(tmp, "trace"))
     run_s = time.perf_counter() - t0
-    counts = launch_counts()
-    check(counts["walk"] == frames and counts["resolve"] == frames,
-          f"overlay: {counts} launches in {frames} rendered frames")
+    counts, replayed = launch_counts(), replayed_counts()
+    check(replayed["walk"] == frames and replayed["resolve"] == frames,
+          f"overlay: {counts} launches ({warmup_counts()} in the captures' "
+          f"warm-ups) in {frames} rendered frames")
     check(counts["fused"] == 0 and counts["tile"] == 0,
           f"overlay: other render kernels launched: {counts}")
     err = _app_check("default", rec, g, frames)
@@ -2693,8 +2762,9 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     torch.cuda.synchronize()
     launches = launch_counts()
     want = {"walk": 0, "resolve": 2, "fused": 0, "tile": 4}
-    check(launches == want, f"tiled frames over the tile raster: launches "
-          f"{launches}, expected {want}")
+    check(replayed_counts() == want, f"tiled frames over the tile raster: "
+          f"launches {launches} ({warmup_counts()} in the captures' "
+          f"warm-ups), expected {want} in the replays")
     with plain_render_kernels():
         plain = {name: tile_r[name](*args)
                  for name, (_, args, _) in views.items()}
@@ -3123,6 +3193,339 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
           f"{card}")
 
 
+G_CALLS = 3           # phase 21: calls of each factory on each route
+G_APP_FRAMES = 8      # phase 21: display frames of each app on each route
+G_MW_STEPS = 10       # phase 21: steps a many-world call
+G_STRESS_HOST_MAX = 300   # host launches a 50-step stress dispatch may take
+
+
+def _hand_counts(warm: bool = False) -> dict:
+    """Every path kernel's launches since the counts were set to 0, or
+    (``warm``) those of them made in the captures' eager warm-ups."""
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+
+    if warm:
+        return {"neighbor_lists": graphs.warmup_launches[
+            "neighbor_lists_aabb"], **warmup_counts()}
+    return {"neighbor_lists": bk.neighbor_lists_aabb.launches,
+            **launch_counts()}
+
+
+def _route_run(runner, n: int, eager: bool) -> dict:
+    """``runner(n, call)`` on one route with the counts set to 0: each
+    call timed by CUDA events and its host launches (``graphs.stats``)
+    counted; the hand kernels' launches less the captures' warm-ups."""
+    reset_hand_launches()
+    outs, times, host = [], [], []
+
+    def call(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = graphs.host_launches()
+        start.record()
+        out = fn()
+        end.record()
+        host.append(graphs.host_launches() - h0)
+        times.append((start, end))
+        outs.append(own(out))
+        return out
+
+    with graphs.eager() if eager else contextlib.nullcontext():
+        runner(n, call)
+    torch.cuda.synchronize()
+    counts, warm = _hand_counts(), _hand_counts(warm=True)
+    return dict(outs=outs, host=host,
+                ms=[a.elapsed_time(b) for a, b in times],
+                launches={k: counts[k] - warm[k] for k in counts},
+                warm={k: v for k, v in warm.items() if v})
+
+
+def _count_ops(fn) -> int:
+    """The ATen ops one eager call of ``fn`` dispatches (views left out;
+    each launches about one kernel), the hand kernels' launches added."""
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+
+    reset_hand_launches()
+    with graphs.eager():
+        n = ts.count_ops(fn, ())
+    torch.cuda.synchronize()
+    return n + sum(_hand_counts().values())
+
+
+def _compare_routes(name: str, card: str, runner, n: int, ops_fn,
+                    kernels=()) -> dict:
+    """Phase 21's check of one factory: ``n`` calls through the graphs and
+    ``n`` through ``graphs.eager()`` from the same start, every output
+    bit-equal, the hand kernels' replayed launches equal to the eager
+    launches (each kernel of ``kernels`` launched), then one more eager
+    call's ATen ops and the printed line."""
+    g = _route_run(runner, n, eager=False)
+    e = _route_run(runner, n, eager=True)
+    for i, (a, b) in enumerate(zip(g["outs"], e["outs"])):
+        la, sa = graphs.flatten(a)
+        lb, sb = graphs.flatten(b)
+        bad = [j for j, (x, y) in enumerate(zip(la, lb))
+               if x.shape != y.shape or not torch.equal(x, y)]
+        check(sa == sb and not bad, f"graphs: {name}: call {i + 1} differs "
+              f"between the graph and eager routes (leaves {bad})")
+    check(g["launches"] == e["launches"],
+          f"graphs: {name}: hand-kernel launches through the replays "
+          f"{g['launches']}, eager {e['launches']}")
+    for k in kernels:
+        check(g["launches"][k] > 0, f"graphs: {name}: {k} not launched")
+    ops = ops_fn()
+    g_host = statistics.median(g["host"][1:] or g["host"])
+    g_ms = statistics.median(g["ms"][1:] or g["ms"])
+    e_ms = statistics.median(e["ms"])
+    used = {k: v for k, v in g["launches"].items() if v}
+    print(f"[graphs] {name}: {n} calls bit-equal between the graph and "
+          f"eager routes; hand-kernel launches through the replays {used} "
+          f"= eager (captures' warm-ups {g['warm'] or 'none'}); host "
+          f"launches a call: graph {g_host:g} (replays, input copies, "
+          f"output clones; the first call {g['host'][0]}, its capture "
+          f"included), eager {ops} (ATen ops and hand kernels); a call by "
+          f"CUDA events: graph {g_ms:.3f} ms, eager {e_ms:.3f} ms "
+          f"(eager / graph {e_ms / g_ms:.2f}) {card}")
+    return dict(graph_host=g_host, eager_ops=ops, graph_ms=g_ms,
+                eager_ms=e_ms)
+
+
+def graphs_phase(dev, card: str, stress_run, stress_state, static,
+                 views: dict) -> None:
+    """Phase 21: every factory of the JAX package's one-dispatch programs,
+    through its CUDA graphs and through ``graphs.eager()`` in the same
+    run, from the same start: the stress multi-step (kernel #1), the tick
+    (#1, #3, #2) and its merged form, the fused (#4) and flat (#5) frames,
+    the flat and vmapped many-world steps at 1,000 worlds, the demo step,
+    the app's fused and default display frames, a hot reload and a spawn
+    that grows the level table."""
+    from banggameengine_tpu_torch.app.application import Application
+    from banggameengine_tpu_torch.app.events import TriggerPhase
+    from banggameengine_tpu_torch.engine import (
+        make_hot_reloadable_step_fn, make_step_fn)
+    from banggameengine_tpu_torch.parallel import manyworld as mw
+    from banggameengine_tpu_torch.physics.config import load_physics_config
+    from banggameengine_tpu_torch.render.camera import Camera
+    from banggameengine_tpu_torch.render.pipeline import (
+        make_frame_fn, make_render_fn)
+    from banggameengine_tpu_torch.scene.build import BuiltScene, build_scene
+    from banggameengine_tpu_torch.scene.resources import ResourceManager
+    from banggameengine_tpu_torch.scene.schema import parse_scene_json
+    from banggameengine_tpu_torch.scene.synthetic import (
+        build_demo_like, build_falling_boxes)
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+    from banggameengine_tpu_torch.scripts.play_demo import apply_track
+    from banggameengine_tpu_torch.state import InputFrame
+
+    t_phase = time.perf_counter()
+    inp = InputFrame.zero(dev)
+    res = {}
+
+    def chain(fn, start, *rest):
+        """A runner of ``n`` chained calls ``state, ... = fn(state,
+        *rest)`` from ``start``; the state is the first output."""
+        def runner(n, call):
+            s = start
+            for _ in range(n):
+                out = call(lambda: fn(s, *rest))
+                s = out[0] if isinstance(out, tuple) else out
+        return runner
+
+    def ops_of(fn, *args):
+        return lambda: _count_ops(lambda: fn(*args))
+
+    # the stress multi-step: phase 4's program, captured there
+    res["stress"] = _compare_routes(
+        f"stress multi-step, {N_STRESS} boxes, {STEPS_PER_DISPATCH} steps a "
+        f"call (one step's graph replayed)", card,
+        chain(stress_run, stress_state, inp), 2,
+        ops_of(stress_run, stress_state, inp), kernels=("neighbor_lists",))
+    check(res["stress"]["graph_host"] <= G_STRESS_HOST_MAX,
+          f"graphs: a {STEPS_PER_DISPATCH}-step stress dispatch took "
+          f"{res['stress']['graph_host']} host launches")
+
+    # the tick and its merged form on the 10k-box world
+    box_rs, box_args, _ = views["10k-box"]
+    tick_args = box_args[1:]
+    built = BuiltScene(static=static, initial_state=stress_state,
+                       render=box_rs)
+    for merged in (False, True):
+        tick = make_frame_fn(built, RENDER_W, RENDER_H, merged=merged,
+                             broadphase="allpairs",
+                             max_neighbors=MAX_NEIGHBORS)
+        key = "tick_merged" if merged else "tick"
+        form = ("merged=True: one graph" if merged
+                else "a step graph, then a frame graph")
+        res[key] = _compare_routes(
+            f"tick ({form}), {N_STRESS} boxes at {RENDER_W}x{RENDER_H}",
+            card,
+            chain(tick, stress_state, inp, *tick_args), G_CALLS,
+            ops_of(tick, stress_state, inp, *tick_args),
+            kernels=("neighbor_lists", "walk", "resolve"))
+
+    # the fused and flat frames of the showcase
+    show_rs, show_args, _ = views["showcase"]
+    for mode, kw, k in (("fused", dict(shade_mode="fused"), "fused"),
+                        ("flat", dict(shade_mode="flat",
+                                      raster_backend="tile"), "tile")):
+        r = make_render_fn(show_rs, RENDER_W, RENDER_H, bin_capacity=2048,
+                           return_depth=True, **kw)
+
+        def frames(n, call, r=r):
+            for _ in range(n):
+                call(lambda: r(*show_args))
+
+        res[mode] = _compare_routes(
+            f"{mode} frame, showcase {RENDER_W}x{RENDER_H}", card, frames,
+            G_CALLS, ops_of(r, *show_args), kernels=(k,))
+
+    # the many-world steps at 1,000 worlds, per-world input
+    state1, static1 = build_falling_boxes(**MW_SCENE, device=dev)
+    w = MW_WORLDS
+    bs0 = mw.replicate_state(state1, w)
+    rng = np.random.default_rng(MW_SEED)
+    drive = InputFrame(
+        move_forward=torch.as_tensor(
+            rng.uniform(0.5, 1.0, w).astype(np.float32), device=dev),
+        move_right=torch.zeros(w, device=dev),
+        jump=torch.as_tensor(rng.random(w) < 0.3, device=dev),
+        sprint=torch.as_tensor(rng.random(w) < 0.3, device=dev),
+        cam_yaw=torch.as_tensor(
+            rng.uniform(-np.pi, np.pi, w).astype(np.float32), device=dev))
+    flat = mw.make_flat_many_world_step(static1, w, state1.comp_mask,
+                                        num_steps=G_MW_STEPS)
+    vmapped = mw.make_sharded_many_world_step(static1, None,
+                                              num_steps=G_MW_STEPS)
+    for key, fn in (("flat", flat), ("vmapped", vmapped)):
+        res[f"mw_{key}"] = _compare_routes(
+            f"{key} many-world step, {w} worlds, {G_MW_STEPS} steps a call",
+            card, chain(fn, bs0, drive), 2, ops_of(fn, bs0, drive))
+
+    # the flat call against its traced device time: a one-step call is
+    # flatten, the flat step and unflatten (three graphs), plus the copies
+    # of its inputs; the 10-step call replays only the step 10 times
+    flat_one = mw.make_flat_many_world_step(static1, w, state1.comp_mask)
+    call_ms = median_ms(lambda: flat_one(bs0, drive).pos)
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[profile] trace_summary of one one-step flat call through "
+              "its graphs:")
+        tr = ts.trace_and_summarize(lambda: flat_one(bs0, drive).pos, (),
+                                    tmp)
+    check(tr["busy_ms"] > 0 and tr["launches"] > 0,
+          f"graphs: the flat call's trace shows {tr['launches']} kernels")
+    print(f"[graphs] flat many-world, {w} worlds: a one-step call "
+          f"{call_ms:.3f} ms by CUDA events against {tr['busy_ms']:.3f} ms "
+          f"of traced device time (call / device "
+          f"{call_ms / tr['busy_ms']:.3f}; {tr['launches']:g} kernels a "
+          f"call); the {G_MW_STEPS}-step call "
+          f"{res['mw_flat']['graph_ms'] / G_MW_STEPS:.3f} ms a step {card}")
+
+    # the demo step
+    d0, dstatic = build_demo_like(device=dev)
+    demo = make_step_fn(dstatic)
+    res["demo"] = _compare_routes(
+        "demo step (build_demo_like, the default route)", card,
+        chain(demo, d0, inp), 20, ops_of(demo, d0, inp))
+
+    # the app's display frames: the fused tick and the default path
+    os.environ.pop("BANG_ASSETS_DIR", None)
+    with open(APP_GOLDEN) as f:
+        fps = json.load(f)["fps"]
+    phases = list(TriggerPhase)
+
+    def app_runner(fused: bool, last: dict):
+        def runner(n, call):
+            app = Application(assets_root=APP_ASSETS, width=1280,
+                              height=720, fused_tick=fused, device=dev)
+            cj = app.built.find_entity("cj")
+
+            def frame():
+                app.frame(real_dt=1.0 / fps)
+                img = (torch.as_tensor(app.last_frame_image) if fused
+                       else torch.as_tensor(app.render_current_frame()))
+                log = torch.tensor([[phases.index(e.phase),
+                                     e.trigger_entity, e.other_entity]
+                                    for e in app._trigger_log] or
+                                   [[-1, -1, -1]])
+                return app.state, img, log
+
+            for i in range(n):
+                apply_track(app, i, fps, cj)
+                call(frame)
+            last.update(app=app, cj=cj, frame=frame, n=n)
+        return runner
+
+    def next_frame_ops(last: dict) -> int:
+        """The ATen ops of the eager app's next display frame."""
+        apply_track(last["app"], last["n"], fps, last["cj"])
+        return _count_ops(last["frame"])
+
+    for fused in (True, False):
+        last = {}
+        key = "app_fused" if fused else "app_default"
+        res[key] = _compare_routes(
+            f"app {'fused' if fused else 'default-path'} display frame, "
+            f"1280x720 (play_demo's track)", card,
+            app_runner(fused, last), G_APP_FRAMES,
+            lambda last=last: next_frame_ops(last),
+            kernels=("walk", "resolve"))
+
+    # a hot reload: a rebuilt scene of the same shapes is copied in
+    hot = make_hot_reloadable_step_fn()
+    heavy = dataclasses.replace(dstatic, gravity=dstatic.gravity * 2.0)
+
+    def reload_runner(n, call):
+        s = d0
+        for i in range(n):
+            st = dstatic if i < n // 2 else heavy
+            s, _ = call(lambda: hot(s, inp, st))
+
+    res["hot"] = _compare_routes(
+        "hot-reloadable step, the scene rebuilt (gravity x2) half-way",
+        card, reload_runner, 6, ops_of(hot, d0, inp, heavy))
+    check(hot.program.captures == 1,
+          f"graphs: the hot reload captured {hot.program.captures} times")
+
+    # a spawn that grows the level table: the next step captures anew
+    def scene():
+        return build_scene(
+            parse_scene_json(os.path.join(APP_ASSETS, "scenes",
+                                          "demo.json")),
+            ResourceManager(APP_ASSETS),
+            load_physics_config(os.path.join(APP_ASSETS, "config",
+                                             "physics.json")),
+            capacity=16, max_trigger_slots=2, device=dev)
+
+    rows = scene().static.level_nodes.shape[0]
+    programs = []
+
+    def spawn_runner(n, call):
+        sb = scene()
+        step = make_step_fn(sb.static)
+        programs.append(step.program)
+        s, parent = sb.initial_state, "cj_hat"
+        for k in range(n):
+            s, _ = sb.spawn(s, name=f"link{k}", parent=parent)
+            parent = f"link{k}"
+            s, _ = call(lambda: step(s, inp))
+
+    def spawn_ops():
+        sb = scene()
+        return _count_ops(lambda: make_step_fn(sb.static)(sb.initial_state,
+                                                          inp))
+
+    res["spawn"] = _compare_routes(
+        f"spawns in a chain until the level table grows ({rows} rows)",
+        card, spawn_runner, rows - 1, spawn_ops)
+    check(programs[0].captures == 2,
+          f"graphs: the level table's growth made {programs[0].captures} "
+          f"captures, not 2")
+    print(f"[graphs] the hot reload copied the rebuilt scene into the "
+          f"captured one (1 capture); the grown level table captured anew "
+          f"(2 captures); graphs.stats {graphs.stats}")
+    print(f"[graphs] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3234,21 +3637,28 @@ def main() -> int:
               f"{share:.4f})")
 
     # ---- 4. the slice ---------------------------------------------------
+    # the multi-step is one step's graph replayed 50 times a dispatch; the
+    # first dispatch captures it (its eager warm-up launches the kernel
+    # once more)
     bk.neighbor_lists_aabb.launches = 0
+    graphs.warmup_launches.clear()
     state = state0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")   # a host sync in a step raises
     try:
         for _ in range(DISPATCHES):
             state = run(state, inp)
+        state = own(state)       # run's buffers: phase 5 dispatches again
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
     launches = bk.neighbor_lists_aabb.launches
+    warm = graphs.warmup_launches["neighbor_lists_aabb"]
     steps = DISPATCHES * STEPS_PER_DISPATCH
-    check(launches == steps,
-          f"kernel launched {launches} times in {steps} steps")
+    check(launches - warm == steps,
+          f"kernel launched {launches} times ({warm} in the capture's "
+          f"warm-up) in {steps} steps")
     alive = state.alive
     check(bool(torch.isfinite(state.pos).all())
           and bool(torch.isfinite(state.lin_vel).all())
@@ -3266,8 +3676,9 @@ def main() -> int:
                              max_neighbors=MAX_NEIGHBORS)(state, inp)
     print(f"[slice] {N_STRESS} boxes, {steps} steps in {DISPATCHES} "
           f"dispatches of {STEPS_PER_DISPATCH} ({slice_s:.1f} s wall, no "
-          f"host sync): "
-          f"{launches} kernel launches, state finite, lowest corner "
+          f"host sync, one step's graph replayed): "
+          f"{launches} kernel launches ({warm} in the capture's warm-up), "
+          f"state finite, lowest corner "
           f"{lowest:.4f} > -0.08, step_idx {int(state.step_idx)}, "
           f"contact_overflow of step {steps + 1}: "
           f"{int(events.contact_overflow)}")
@@ -3348,6 +3759,7 @@ def main() -> int:
     overlay_phase(dev, card)
     new_routes_phase(dev, card, state0, state, static, views)
     sharded_phase(dev, card, state, static)
+    graphs_phase(dev, card, run, state, static, views)
 
     print(json.dumps({"kernels": [{
         "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,

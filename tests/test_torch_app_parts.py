@@ -365,8 +365,9 @@ def test_unported_overlays_refuse(app_env):
 
 def test_scene_and_config_reloads(app_env, tmp_path):
     """F5 rebuilds the scene (the character back at its spawn); a broken
-    scene file keeps the current scene; a newer physics.json swaps the
-    static scene into the step and the fused ticks."""
+    scene file keeps the current scene; a newer physics.json writes the
+    rebuilt static scene into the app's one scene, which the step and the
+    fused ticks read."""
     root = tmp_path / "assets"
     shutil.copytree(ASSETS, root)
     app = Application(assets_root=str(root), width=64, height=32,
@@ -389,7 +390,7 @@ def test_scene_and_config_reloads(app_env, tmp_path):
     cfg.write_text(json.dumps(data))
     os.utime(cfg, (time.time() + 5, time.time() + 5))
     app.frame(real_dt=1 / 30)
-    assert app.built.static is not old_static
+    assert app.built.static is old_static
     assert float(app.built.static.gravity) == -1.0
     assert app.config.gravity == -1.0
 

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from banggameengine_tpu_torch import convert, kernel_cases
+from banggameengine_tpu_torch import convert, graphs, kernel_cases
+from banggameengine_tpu_torch.engine import make_multi_step_fn
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import shapes
 from banggameengine_tpu_torch.render import raster_resolve as rr
@@ -25,6 +26,7 @@ from banggameengine_tpu_torch.scene.synthetic import (
     build_showcase_render,
 )
 from banggameengine_tpu_torch.scripts import gather_rows as gr
+from banggameengine_tpu_torch.state import InputFrame
 
 pytestmark = pytest.mark.cuda
 
@@ -240,7 +242,8 @@ def test_showcase_frame_kernels_equal_plain(device, monkeypatch, shade_mode,
     monkeypatch.setattr(rr, "raster_resolve_tiles",
                         rr.raster_resolve_tiles_reference)
     monkeypatch.setattr(rt, "raster_tiles", rt.raster_tiles_reference)
-    frame_p, depth_p = render(*args)
+    with graphs.eager():          # the captured graph holds the kernels
+        frame_p, depth_p = render(*args)
     torch.cuda.synchronize()
     assert frame_k.shape == (h, w, 4) and frame_k.dtype == torch.uint8
     assert torch.equal(frame_k, frame_p)
@@ -434,3 +437,66 @@ def test_gather_rows_rejects_bad_input(device):
         gr.gather_rows_u8(table, idx.long())
     with pytest.raises(ValueError):
         gr.gather_rows_u8(table, idx.cpu())
+
+
+# ---- the captured programs (graphs.py) ------------------------------------
+
+
+def test_graph_replays_count_kernel_launches(device):
+    """A frame's graph and a stress multi-step's graph: after the capture
+    (whose eager warm-up launches each kernel once, counted apart in
+    ``graphs.warmup_launches``) every replay adds the launches its graph
+    holds to the wrappers' counters, as many as the eager route launches;
+    the outputs bit-equal to the eager route's."""
+    sc = build_showcase_render(0)
+    rs = convert.render_scene_from_numpy(sc.render)
+    w, h = 640, 360
+    args = (torch.as_tensor(sc.world, device=device),
+            sc.camera.view_matrix(), sc.camera.proj_matrix(w / h),
+            torch.as_tensor(sc.camera.position, device=device))
+    render = make_render_fn(rs, w, h, return_depth=True)
+    state, static = build_falling_boxes(64, seed=0, device=device)
+    run = make_multi_step_fn(static, 5, broadphase="allpairs")
+    inp = InputFrame.zero(device)
+    graphs.warmup_launches.clear()
+    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
+    bk.neighbor_lists_aabb.launches = 0
+    frame_g = render(*args)
+    state_g = graphs.clone_tree(run(state, inp))
+    torch.cuda.synchronize()
+    assert {k: n for k, n in graphs.warmup_launches.items() if n} == {
+        "neighbor_lists_aabb": 1, "raster_walk": 1, "resolve_tiles_wide": 1}
+    assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
+            bk.neighbor_lists_aabb.launches) == (2, 2, 6)
+    for _ in range(3):
+        render(*args)
+        run(state, inp)
+    torch.cuda.synchronize()
+    assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
+            bk.neighbor_lists_aabb.launches) == (5, 5, 21)
+    assert render.program.captures == run.program.captures == 1
+    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
+    bk.neighbor_lists_aabb.launches = 0
+    with graphs.eager():
+        frame_e = render(*args)
+        state_e = run(state, inp)
+    torch.cuda.synchronize()
+    assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
+            bk.neighbor_lists_aabb.launches) == (1, 1, 5)
+    for a, b in zip(graphs.flatten((frame_g, state_g))[0],
+                    graphs.flatten((frame_e, state_e))[0]):
+        assert torch.equal(a, b)
+
+
+def test_failed_capture_raises(device):
+    """A host read inside a program breaks its capture: the call raises,
+    nothing runs eagerly in its place, nothing is cached, and the card
+    takes work again."""
+    program = graphs.Program(lambda x: x * float(x.sum()), name="host_read")
+    x = torch.ones(8, device=device)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            program(x)
+    assert program.captures == 0
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 16.0
