@@ -20,11 +20,12 @@ vmapped one only when the flat factory refuses the scene.  With a world
 mesh (:func:`make_world_mesh`, a ``DeviceMesh`` over the ranks of the
 process group) the world axis is sharded: each rank steps its own worlds
 (:func:`shard_batched`), and the only collective is the metrics' sum.
+On the card every step is a captured :class:`graphs.Program`, with a mesh
+or without, over this rank's local worlds.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -110,12 +111,6 @@ def world_metrics(state: WorldState) -> dict:
 
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(WorldState))
-
-
-def _eager_with(mesh):
-    """Steps over a mesh run eagerly (no collective is captured yet)."""
-    return graphs.eager() if mesh is not None else contextlib.nullcontext()
-
 _INPUT_FIELDS = tuple(f.name for f in dataclasses.fields(InputFrame))
 
 
@@ -140,10 +135,11 @@ def make_sharded_many_world_step(
     the ranks, divided by W).  ``world_minor=True`` moves the world axis
     last at the boundary and vmaps over it; the result is the same.
 
-    Without a mesh, on the card, a call replays one graph of the vmapped
-    step ``num_steps`` times, the state donated as in JAX: the returned
-    state is the graph's buffers, valid until the next call.  With a mesh
-    the steps run eagerly.
+    On the card a call replays one graph of the vmapped step
+    ``num_steps`` times on this rank's worlds, the state donated as in
+    JAX: the returned state is the graph's buffers, valid until the next
+    call.  The metrics are a second graph that reads those buffers in
+    place, its all-reduce over the mesh inside it.
     """
     kwargs = {**scene_census(static), **physics_kwargs}
     ax = -1 if world_minor else 0
@@ -159,6 +155,18 @@ def make_sharded_many_world_step(
                              donate=True, name="vmapped_step")
     group = None if mesh is None else mesh.get_group()
 
+    def means(sf, num_worlds: int) -> dict:
+        m = world_metrics(WorldState(*sf))
+        if group is None:
+            return {k: v.mean() for k, v in m.items()}
+        return {k: ranks.sum_ranks(v.sum(), group) / num_worlds
+                for k, v in m.items()}
+
+    # the state is the step's donated buffers, read in place (without a
+    # step, the caller's own tensors, which must not become buffers)
+    metrics = graphs.Program(means, by_ref=(0,) if num_steps >= 1 else (),
+                             name="world_metrics")
+
     def step(bstate: WorldState, binp: InputFrame):
         num_worlds = bstate.alive.shape[0]
         sf = tuple(ranks.local(getattr(bstate, n)) for n in _STATE_FIELDS)
@@ -167,21 +175,17 @@ def make_sharded_many_world_step(
             sf = tuple(a.movedim(0, -1) for a in sf)
             inf = tuple(a.movedim(0, -1) for a in inf)
         if num_steps >= 1:
-            with _eager_with(mesh):
-                (sf,) = program(sf, inf, times=num_steps)
+            (sf,) = program(sf, inf, times=num_steps)
         if world_minor:
             sf = tuple(a.movedim(-1, 0) for a in sf)
         out = WorldState(*(ranks.rewrap(a, getattr(bstate, n))
                            for n, a in zip(_STATE_FIELDS, sf)))
         if not with_metrics:
             return out
-        m = world_metrics(WorldState(*sf))
-        if group is None:
-            return out, {k: v.mean() for k, v in m.items()}
-        return out, {k: ranks.sum_ranks(v.sum(), group) / num_worlds
-                     for k, v in m.items()}
+        return out, metrics(sf, num_worlds)
 
     step.program = program
+    step.metrics = metrics
     return step
 
 
@@ -288,11 +292,11 @@ def make_flat_many_world_step(
     ``num_worlds`` must then divide by the mesh size (ValueError
     otherwise).
 
-    Without a mesh, on the card, a call is three graphs: flatten, one
-    flat step replayed ``num_steps`` times on the flat state, and
-    unflatten back into the batched state's buffers, donated as in JAX:
-    the returned state is those buffers, valid until the next call.  With
-    a mesh the steps run eagerly.
+    On the card, with a mesh or without, a call is three graphs on this
+    rank's worlds: flatten, one flat step replayed ``num_steps`` times on
+    the flat state, and unflatten back into the batched state's buffers,
+    donated as in JAX: the returned state is those buffers, valid until
+    the next call.
 
     The returned function also carries ``flatten``, ``unflatten``,
     ``flat_step`` (one engine step of the flat world, with its events)
@@ -365,15 +369,10 @@ def make_flat_many_world_step(
     def step(bstate: WorldState, binp: InputFrame) -> WorldState:
         if num_steps < 1:
             return bstate
-        with _eager_with(mesh):
-            (out,) = program(ranks.map_fields(ranks.local, bstate),
-                             ranks.map_fields(ranks.local, binp),
-                             times=num_steps)
-        if mesh is None:
-            return out
-        return WorldState(**{
-            n: ranks.rewrap(getattr(out, n), getattr(bstate, n))
-            for n in _STATE_FIELDS})
+        (out,) = program(ranks.map_fields(ranks.local, bstate),
+                         ranks.map_fields(ranks.local, binp),
+                         times=num_steps)
+        return ranks.rewrap_fields(out, bstate)
 
     step.flatten = flatten
     step.unflatten = unflatten

@@ -8,7 +8,11 @@ group whose dim name is the JAX axis name (``"world"``, ``"entity"``,
 JAX shards the leading axis, ``Shard(1)`` for the ``[T, N]`` trigger
 planes, ``Replicate()`` for the rest, so ``full_tensor()`` stands where the
 JAX tests read a sharded array back.  The step bodies compute on the
-``to_local()`` rows with explicit collectives over ``mesh.get_group()``.
+``to_local()`` rows with explicit collectives over ``mesh.get_group()``:
+each sharded factory is a :class:`graphs.Program` over the local tensors
+(unwrapped before a call, rewrapped after it), so on the card its
+collectives are captured inside its graph, as ``jax.jit`` over
+``shard_map`` compiles them into one program.
 
 :func:`init_rank` joins this process to a group through a ``FileStore``
 (NCCL for CUDA, gloo for the CPU); :func:`run_ranks` starts one process per
@@ -46,9 +50,13 @@ def init_rank(rank: int, world_size: int, store_path: str,
         torch.set_num_threads(1)
     store = dist.FileStore(store_path, world_size)
     # a collective that waits longer than this fails instead of hanging
+    # (a capture that hangs among them).  On the card ``device_id`` makes
+    # the NCCL communicator here, before any program captures a
+    # collective: one made lazily inside a capture would fail it.
     dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
                             store=store, rank=rank, world_size=world_size,
-                            timeout=COLLECTIVE_TIMEOUT)
+                            timeout=COLLECTIVE_TIMEOUT,
+                            device_id=dev if dev_type == "cuda" else None)
     return dev
 
 
@@ -144,6 +152,14 @@ def rewrap(local: torch.Tensor, like):
     return DTensor.from_local(local, like.device_mesh, like.placements,
                               run_check=False, shape=like.shape,
                               stride=_contiguous_stride(like.shape))
+
+
+def rewrap_fields(obj, like):
+    """A dataclass with each field of ``obj`` placed as the same field of
+    ``like`` is (:func:`rewrap`)."""
+    return dataclasses.replace(obj, **{
+        f.name: rewrap(getattr(obj, f.name), getattr(like, f.name))
+        for f in dataclasses.fields(obj)})
 
 
 def local(x):

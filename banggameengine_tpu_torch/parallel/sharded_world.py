@@ -25,14 +25,19 @@ Per step each rank:
    oneShot trigger deactivates on an Enter summed over the ranks.
 
 The step makes no warm start (the contact cache is carried unchanged), as
-in the JAX module.
+in the JAX module.  On the card a step is one captured
+:class:`graphs.Program` over this rank's local tensors, its all-gathers
+and all-reduce inside the graph and the state donated, as the JAX
+module's ``jax.jit(step, donate_argnums=(0,))``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch import graphs, math3d
 from banggameengine_tpu_torch.ecs.transform import update_world_matrices
 from banggameengine_tpu_torch.parallel import ranks
 from banggameengine_tpu_torch.parallel.spatial import (
@@ -134,6 +139,14 @@ def make_fully_sharded_step(static: StaticScene, mesh,
     static.  The input is replicated (the same on every rank).  The
     events' ``[T, N]`` planes are sharded by columns as the trigger
     overlap is; ``contact_overflow`` is 0, as in the JAX module.
+
+    The step runs on the local tensors: the DTensors are unwrapped before
+    the program and its results rewrapped as the state's fields are.  On
+    the card the state is donated: the returned state and events are the
+    graph's buffers, valid until the next call (a caller that keeps
+    events across steps clones them).  The sharded static is captured by
+    reference: passing the same scene again copies nothing, another of
+    the same shapes is copied in.
     """
     n_dev = mesh.size()
     rank = mesh.get_local_rank()
@@ -148,29 +161,27 @@ def make_fully_sharded_step(static: StaticScene, mesh,
         return ranks.gather_rows(a, group)
 
     def step(state: WorldState, inp: InputFrame, st: StaticScene):
-        n = state.capacity
+        # this rank's local tensors: its rows of the [N, ...] arrays, its
+        # columns of the [T, N] planes, the replicated rest whole
+        n = static.capacity
         rows = n // n_dev
         r0 = rank * rows
-        dev = ranks.local(state.pos).device
-        loc, rep = ranks.local, ranks.replicated
-        dt = rep(st.fixed_dt)
-        gravity = rep(st.gravity)
-        pos_l, quat_l = loc(state.pos), loc(state.quat)
-        vel_l, ang_l = loc(state.lin_vel), loc(state.ang_vel)
-        alive_l, comp_l = loc(state.alive), loc(state.comp_mask)
-        cvy_l, cog_l = loc(state.char_vel_y), loc(state.char_on_ground)
-        scale_l = loc(state.scale)
-        trig_ov_l = loc(state.trigger_overlap)
-        trig_active = rep(state.trigger_active)
-        stc = dict(shape_type=loc(st.shape_type), size=loc(st.shape_size),
-                   layer=loc(st.layer), mask=loc(st.mask),
-                   friction=loc(st.friction),
-                   restitution=loc(st.restitution),
-                   inv_mass=loc(st.inv_mass),
-                   inv_inertia=loc(st.inv_inertia_body))
-        inp_ = ranks.map_fields(rep, inp)
+        dev = state.pos.device
+        dt = st.fixed_dt
+        gravity = st.gravity
+        pos_l, quat_l = state.pos, state.quat
+        vel_l, ang_l = state.lin_vel, state.ang_vel
+        alive_l, comp_l = state.alive, state.comp_mask
+        cvy_l, cog_l = state.char_vel_y, state.char_on_ground
+        scale_l = state.scale
+        trig_ov_l = state.trigger_overlap
+        trig_active = state.trigger_active
+        stc = dict(shape_type=st.shape_type, size=st.shape_size,
+                   layer=st.layer, mask=st.mask, friction=st.friction,
+                   restitution=st.restitution, inv_mass=st.inv_mass,
+                   inv_inertia=st.inv_inertia_body)
         local_ids = r0 + torch.arange(rows, device=dev)
-        body_type = loc(st.body_type)
+        body_type = st.body_type
 
         has_col_l = (comp_l & (COMP_COLLIDER | COMP_CHARACTER)) != 0
         is_char_l = (comp_l & COMP_CHARACTER) != 0
@@ -180,7 +191,7 @@ def make_fully_sharded_step(static: StaticScene, mesh,
 
         # ---- 1. characters (against transient full views) -------------
         if any_char:
-            char_entity = rep(st.char_entity)
+            char_entity = st.char_entity
             pos_f0, quat_f0 = gather(pos_l), gather(quat_l)
             alive_f = gather(alive_l)
             comp_f = gather(comp_l)
@@ -198,13 +209,13 @@ def make_fully_sharded_step(static: StaticScene, mesh,
 
             new_c, new_vy, new_g = chr_mod.step_character(
                 pos_f0[safe], cvy_f[safe], cog_f[safe],
-                rep(st.char_radius), rep(st.char_half_height),
-                rep(st.char_walk_speed), rep(st.char_jump_impulse),
-                per_slot(inp_.move_forward), per_slot(inp_.move_right),
-                per_slot(inp_.jump), per_slot(inp_.sprint),
-                per_slot(inp_.cam_yaw),
+                st.char_radius, st.char_half_height,
+                st.char_walk_speed, st.char_jump_impulse,
+                per_slot(inp.move_forward), per_slot(inp.move_right),
+                per_slot(inp.jump), per_slot(inp.sprint),
+                per_slot(inp.cam_yaw),
                 pos_f0, quat_f0, type_f, size_f, obstacle, gravity, dt,
-                rep(st.step_height), rep(st.max_slope_cos))
+                st.step_height, st.max_slope_cos)
             ok = (char_entity >= 0) & alive_f[safe]
             owned = ok & (safe >= r0) & (safe < r0 + rows)
             rel = (safe - r0).clamp(0, rows - 1)
@@ -231,7 +242,7 @@ def make_fully_sharded_step(static: StaticScene, mesh,
         v_l, w_l, _, _ = local_rows_contact_solve(
             r0, rows, n, pos_l, quat_l, vel_l, ang_l,
             full["pos"], full["quat"], full["vel"], full["ang"],
-            st_l, st_f, rep(st.ground_enabled), dt, solver_iterations,
+            st_l, st_f, st.ground_enabled, dt, solver_iterations,
             max_neighbors, group, aabb_margin=aabb_margin)
 
         # ---- 4. integrate local rows + world refresh --------------------
@@ -245,7 +256,7 @@ def make_fully_sharded_step(static: StaticScene, mesh,
         # character visual offset (feet at the transform)
         vis_pos_l = pos_l
         if any_char:
-            off = rep(st.char_half_height) + rep(st.char_radius)
+            off = st.char_half_height + st.char_radius
             for s in range(c_slots):
                 hit = ((char_entity[s] >= 0) & (safe[s] >= r0)
                        & (safe[s] < r0 + rows) & (rows_ar == rel[s]))
@@ -261,26 +272,26 @@ def make_fully_sharded_step(static: StaticScene, mesh,
             # on every rank; scene graphs are shallow against body count)
             world_f = update_world_matrices(
                 gather(vis_pos_l), gather(quat_l), gather(scale_l),
-                gather(loc(st.parent)), rep(st.level_nodes),
+                gather(st.parent), st.level_nodes,
                 gather(alive_l))
             world_l = world_f[r0:r0 + rows]
 
         # ---- 5. triggers (local columns of the [T, N] planes) -----------
         if any_trig:
             pos_f2, quat_f2 = gather(pos_l), gather(quat_l)
-            te = rep(st.trig_entity)
+            te = st.trig_entity
             safe_te = te.clamp_min(0).to(torch.int64)
             tmn, tmx = sh.shape_aabb(
                 pos_f2[safe_te], quat_f2[safe_te],
-                rep(st.trig_shape).to(stc["shape_type"].dtype),
-                rep(st.trig_size))
+                st.trig_shape.to(stc["shape_type"].dtype),
+                st.trig_size)
             emn, emx = sh.shape_aabb(pos_l, quat_l, stc["shape_type"],
                                      stc["size"])
             ov = sh.aabb_overlap(tmn[:, None], tmx[:, None], emn[None, :],
                                  emx[None, :])
             layer_ok = (
-                ((rep(st.trig_layer)[:, None] & stc["mask"][None, :]) != 0)
-                & ((stc["layer"][None, :] & rep(st.trig_mask)[:, None])
+                ((st.trig_layer[:, None] & stc["mask"][None, :]) != 0)
+                & ((stc["layer"][None, :] & st.trig_mask[:, None])
                    != 0))
             valid = ((te[:, None] >= 0) & trig_active[:, None]
                      & alive_l[None, :] & has_col_l[None, :]
@@ -292,31 +303,34 @@ def make_fully_sharded_step(static: StaticScene, mesh,
             # a oneShot trigger deactivates on an Enter on any rank
             fired = ranks.sum_ranks(
                 enter.any(dim=1).to(torch.int32), group) > 0
-            new_active = trig_active & ~(rep(st.trig_one_shot) & fired)
+            new_active = trig_active & ~(st.trig_one_shot & fired)
         else:
             now_ov = trig_ov_l
             enter = stay = exit_ = torch.zeros_like(trig_ov_l)
             new_active = trig_active
 
-        def wrap(a, like):
-            return ranks.rewrap(a, like)
-
         new_state = tree_replace(
-            state, pos=wrap(pos_l, state.pos), quat=wrap(quat_l, state.quat),
-            lin_vel=wrap(v_l, state.lin_vel),
-            ang_vel=wrap(w_l, state.ang_vel),
-            char_vel_y=wrap(cvy_l, state.char_vel_y),
-            char_on_ground=wrap(cog_l, state.char_on_ground),
-            world=wrap(world_l, state.world),
-            trigger_overlap=wrap(now_ov, state.trigger_overlap),
-            trigger_active=wrap(new_active, state.trigger_active),
-            time=wrap(rep(state.time) + dt, state.time),
-            step_idx=wrap(rep(state.step_idx) + 1, state.step_idx))
+            state, pos=pos_l, quat=quat_l, lin_vel=v_l, ang_vel=w_l,
+            char_vel_y=cvy_l, char_on_ground=cog_l, world=world_l,
+            trigger_overlap=now_ov, trigger_active=new_active,
+            time=state.time + dt, step_idx=state.step_idx + 1)
         events = StepEvents(
-            trigger_enter=wrap(enter, state.trigger_overlap),
-            trigger_stay=wrap(stay, state.trigger_overlap),
-            trigger_exit=wrap(exit_, state.trigger_overlap),
+            trigger_enter=enter, trigger_stay=stay, trigger_exit=exit_,
             contact_overflow=torch.zeros((), dtype=torch.int32, device=dev))
         return new_state, events
 
-    return step
+    program = graphs.Program(step, donate=True, by_ref=(2,),
+                             name="fully_sharded_step")
+
+    def call(state: WorldState, inp: InputFrame, st: StaticScene):
+        new, events = program(ranks.map_fields(ranks.local, state),
+                              ranks.map_fields(ranks.replicated, inp),
+                              ranks.map_fields(ranks.local, st))
+        planes = state.trigger_overlap
+        return ranks.rewrap_fields(new, state), dataclasses.replace(
+            events, **{n: ranks.rewrap(getattr(events, n), planes)
+                       for n in ("trigger_enter", "trigger_stay",
+                                 "trigger_exit")})
+
+    call.program = program
+    return call

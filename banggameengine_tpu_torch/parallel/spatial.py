@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from banggameengine_tpu_torch import graphs
 from banggameengine_tpu_torch.parallel import ranks
 from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics import shapes as sh
@@ -212,20 +213,18 @@ def make_entity_sharded_contact_phase(
     Returns ``fn(pos, quat, vel, ang, is_dynamic, solid, dt) -> (vel,
     ang)``: every argument and result replicated (the same whole tensors
     on every rank; replicated DTensors are read locally); rank d
-    processes rows ``[d*N/D, (d+1)*N/D)``, and N must divide by D.
+    processes rows ``[d*N/D, (d+1)*N/D)``, and N must divide by D
+    (ValueError at the call).  On the card a call is one captured
+    :class:`graphs.Program`, its velocity all-gathers inside, the inputs
+    copied into its buffers and the results cloned out, as ``jax.jit``
+    of the JAX phase.
     """
     n_dev = mesh.size()
     rank = mesh.get_local_rank()
     group = mesh.get_group()
 
-    def phase(pos, quat, vel, ang, is_dynamic, solid, dt):
-        pos, quat, vel, ang, is_dynamic, solid, dt = (
-            ranks.replicated(a)
-            for a in (pos, quat, vel, ang, is_dynamic, solid, dt))
-        dt = torch.as_tensor(dt, dtype=torch.float32, device=pos.device)
+    def run(pos, quat, vel, ang, is_dynamic, solid, dt):
         n = pos.shape[0]
-        if n % n_dev:
-            raise ValueError(f"{n} bodies do not divide over {n_dev} ranks")
         rows = n // n_dev
         r0 = rank * rows
 
@@ -243,4 +242,17 @@ def make_entity_sharded_contact_phase(
             aabb_margin=aabb_margin)
         return v_full, w_full
 
+    program = graphs.Program(run, name="entity_sharded_contact_phase")
+
+    def phase(pos, quat, vel, ang, is_dynamic, solid, dt):
+        pos, quat, vel, ang, is_dynamic, solid, dt = (
+            ranks.replicated(a)
+            for a in (pos, quat, vel, ang, is_dynamic, solid, dt))
+        dt = torch.as_tensor(dt, dtype=torch.float32, device=pos.device)
+        n = pos.shape[0]
+        if n % n_dev:
+            raise ValueError(f"{n} bodies do not divide over {n_dev} ranks")
+        return program(pos, quat, vel, ang, is_dynamic, solid, dt)
+
+    phase.program = program
     return phase

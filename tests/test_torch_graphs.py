@@ -2,7 +2,8 @@
 the CPU, through a stand-in for the CUDA graph class, against the same
 factories run eagerly and against the JAX package's jitted factories.
 
-The stand-in (:class:`RecordingGraph`) does what a CUDA graph does to a
+The stand-in (:class:`RecordingGraph`, from
+``test_torch_graphs_sharded.py``) does what a CUDA graph does to a
 program, without a card: a capture records the program's body, which
 closes over the captured argument objects (the program's buffers), runs
 it once to make the outputs and puts the inputs back as it found them (a
@@ -55,28 +56,10 @@ from banggameengine_tpu_torch.engine import (
 from banggameengine_tpu_torch.parallel import manyworld as mw
 from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
 from banggameengine_tpu_torch.state import InputFrame
+from test_torch_graphs_sharded import RecordingGraph
 
 ATOL = 1e-4            # tests/test_torch_dense_step.py's bar
 SCENE = dict(num_bodies=32, seed=11, spread=3.0)
-
-
-class RecordingGraph:
-    """A CPU stand-in for ``torch.cuda.CUDAGraph`` (see the module
-    docstring)."""
-
-    def capture(self, body, stream, inputs):
-        saved = [t.clone() for t in inputs]
-        self.body = body
-        self.out = body()
-        for t, s in zip(inputs, saved):
-            t.copy_(s)
-        return self.out
-
-    def replay(self):
-        new = self.body()
-        for o, n in zip(graphs.flatten(self.out)[0], graphs.flatten(new)[0]):
-            if o is not n:
-                o.copy_(n)
 
 
 @pytest.fixture
