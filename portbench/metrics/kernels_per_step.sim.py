@@ -1,0 +1,3 @@
+"""kernels_per_step.sim: see ``portbench.harness.readers.kernels_per_step``."""
+
+from portbench.harness.readers import kernels_per_step as read  # noqa: F401

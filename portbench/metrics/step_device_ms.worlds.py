@@ -1,0 +1,3 @@
+"""step_device_ms.worlds: see ``portbench.harness.readers.step_device_ms``."""
+
+from portbench.harness.readers import step_device_ms as read  # noqa: F401
