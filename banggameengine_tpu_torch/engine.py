@@ -35,6 +35,7 @@ from banggameengine_tpu_torch.state import (
     WorldState,
     tree_replace,
 )
+from banggameengine_tpu_torch.utils.profiling import span
 
 
 def visual_positions(state: WorldState, static: StaticScene) -> torch.Tensor:
@@ -59,10 +60,11 @@ def engine_step(
     ``physics_kwargs`` go to :func:`physics_step`."""
     state, events = physics_step(state, inp, static, solver_iterations,
                                  **physics_kwargs)
-    world = update_world_matrices(
-        visual_positions(state, static), state.quat, state.scale,
-        static.parent, static.level_nodes, state.alive,
-    )
+    with span("ecs.transforms", state.pos.device):
+        world = update_world_matrices(
+            visual_positions(state, static), state.quat, state.scale,
+            static.parent, static.level_nodes, state.alive,
+        )
     return tree_replace(state, world=world), events
 
 

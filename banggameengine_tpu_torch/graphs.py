@@ -50,8 +50,12 @@ later call.
 :func:`eager` is the counterpart of ``jax.disable_jit()``: inside it
 every factory runs its eager code.  On the CPU the factories are always
 eager.  :data:`stats` counts what the programs ask of the host
-(captures, replays, input copies and output clones);
-:func:`host_launches` sums the calls that reach the card.
+(captures, replays, input copies and output clones) and the host's
+seconds in the captures, ``capture_s`` (each with its eager warm-up).
+:func:`host_launches` sums the calls that reach the card.  While a
+profiler records, each call of a program is a host span
+``program:<name>`` (:func:`utils.profiling.span`), so a trace places
+every graph launch in the program that issued it.
 """
 
 from __future__ import annotations
@@ -60,15 +64,20 @@ import collections
 import contextlib
 import dataclasses
 import sys
+import time
 
 import torch
+
+from banggameengine_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
 _eager_depth = 0
 
-# what the programs asked of the host, since the process started
-stats = {"captures": 0, "replays": 0, "copies": 0, "clones": 0}
+# what the programs asked of the host, since the process started, and its
+# seconds in captures
+stats = {"captures": 0, "replays": 0, "copies": 0, "clones": 0,
+         "capture_s": 0.0}
 
 # the hand-kernel launches of the captures' eager warm-ups, by wrapper
 # name (real launches, counted by the wrappers too)
@@ -321,6 +330,7 @@ class _Entry:
     """One capture of a program: its buffers, graphs and outputs."""
 
     def __init__(self, program: "Program", args: tuple, device):
+        t0 = time.perf_counter()
         p = self.program = program
         self.bufs: list = []
         per_arg = []
@@ -378,6 +388,7 @@ class _Entry:
                                             p.name), self.bufs)
                 self.out = (first, *out[1:])
         stats["captures"] += 1
+        stats["capture_s"] += time.perf_counter() - t0
         p.captures += 1
 
     def _step(self, rest):
@@ -441,6 +452,7 @@ class Program:
         self.enter, self.leave = enter, leave
         self.captures = 0
         self._entries: dict = {}
+        self._span = "program:" + self.name
 
     def run_eager(self, args: tuple, times: int):
         """The eager route: ``fn`` on ``args``, ``times`` times in a row
@@ -461,6 +473,10 @@ class Program:
         if times < 1 or (times > 1 and not self.donate):
             raise ValueError(f"{self.name}: a call runs once, or (a "
                              f"donating program) times >= 1; got {times}")
+        with span(self._span):
+            return self._call(args, times)
+
+    def _call(self, args: tuple, times: int):
         leaves, spec = flatten(args)
         device = _device(leaves)
         if not _captures(device):

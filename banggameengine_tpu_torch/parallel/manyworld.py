@@ -44,6 +44,7 @@ from banggameengine_tpu_torch.state import (
     StaticScene,
     WorldState,
 )
+from banggameengine_tpu_torch.utils.profiling import span
 
 WORLD_AXIS = "world"
 
@@ -332,35 +333,38 @@ def make_flat_many_world_step(
                            **kwargs)
 
     def flatten(s: WorldState) -> WorldState:
-        f = {}
-        for name in _ROW_FIELDS:
-            a = getattr(s, name)
-            f[name] = a.reshape((n,) + a.shape[2:])
-        cf = s.contact_feat
-        f["contact_feat"] = torch.where(
-            cf >= FEAT_STRIDE, cf + feat_off, cf).reshape(n, -1)
-        ov = torch.zeros((w, t1, w, b), dtype=torch.bool, device=dev)
-        ov[di, :, di, :] = s.trigger_overlap
-        f["trigger_overlap"] = ov.reshape(w * t1, n)
-        f["trigger_active"] = s.trigger_active.reshape(w * t1)
-        # lockstep: every world shares the clock
-        f["time"] = s.time[0]
-        f["step_idx"] = s.step_idx[0]
-        return WorldState(**f)
+        with span("manyworld.flatten", dev):
+            f = {}
+            for name in _ROW_FIELDS:
+                a = getattr(s, name)
+                f[name] = a.reshape((n,) + a.shape[2:])
+            cf = s.contact_feat
+            f["contact_feat"] = torch.where(
+                cf >= FEAT_STRIDE, cf + feat_off, cf).reshape(n, -1)
+            ov = torch.zeros((w, t1, w, b), dtype=torch.bool, device=dev)
+            ov[di, :, di, :] = s.trigger_overlap
+            f["trigger_overlap"] = ov.reshape(w * t1, n)
+            f["trigger_active"] = s.trigger_active.reshape(w * t1)
+            # lockstep: every world shares the clock
+            f["time"] = s.time[0]
+            f["step_idx"] = s.step_idx[0]
+            return WorldState(**f)
 
     def unflatten(fs: WorldState) -> WorldState:
-        f = {}
-        for name in _ROW_FIELDS:
-            a = getattr(fs, name)
-            f[name] = a.reshape((w, b) + a.shape[1:])
-        cf = fs.contact_feat.reshape(w, b, -1)
-        f["contact_feat"] = torch.where(cf >= FEAT_STRIDE, cf - feat_off, cf)
-        f["trigger_overlap"] = fs.trigger_overlap.reshape(
-            w, t1, w, b)[di, :, di, :]
-        f["trigger_active"] = fs.trigger_active.reshape(w, t1)
-        f["time"] = fs.time.expand(w).clone()
-        f["step_idx"] = fs.step_idx.expand(w).clone()
-        return WorldState(**f)
+        with span("manyworld.unflatten", dev):
+            f = {}
+            for name in _ROW_FIELDS:
+                a = getattr(fs, name)
+                f[name] = a.reshape((w, b) + a.shape[1:])
+            cf = fs.contact_feat.reshape(w, b, -1)
+            f["contact_feat"] = torch.where(cf >= FEAT_STRIDE,
+                                            cf - feat_off, cf)
+            f["trigger_overlap"] = fs.trigger_overlap.reshape(
+                w, t1, w, b)[di, :, di, :]
+            f["trigger_active"] = fs.trigger_active.reshape(w, t1)
+            f["time"] = fs.time.expand(w).clone()
+            f["step_idx"] = fs.step_idx.expand(w).clone()
+            return WorldState(**f)
 
     program = graphs.Program(
         lambda fs, binp: flat_step(fs, binp)[:1], donate=True,

@@ -61,6 +61,7 @@ from banggameengine_tpu_torch.state import (
     StepEvents,
     WorldState,
 )
+from banggameengine_tpu_torch.utils.profiling import span
 
 GROUND_FRICTION = 0.5  # implicit plane uses Bullet's default friction
 SOLVER_ITERATIONS = 10
@@ -174,36 +175,45 @@ def physics_step(
         raise ValueError(
             "broadphase='static' requires static_neighbors=(idx, valid)")
 
-    dt = static.fixed_dt
-    alive = state.alive
-    has_collider = (state.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
-    is_dynamic = (static.body_type == BODY_DYNAMIC) & alive
-    is_kinematic = (static.body_type == BODY_KINEMATIC) & alive
-    moving = is_dynamic | is_kinematic
+    # the stages, each a span (utils/profiling.py), one after another:
+    # the masks and gravity go to the first, the characters where a slot
+    # is in use, else the broadphase
+    dev = state.pos.device
+    with span("physics.characters" if any_char else "physics.broadphase",
+              dev):
+        dt = static.fixed_dt
+        alive = state.alive
+        has_collider = (state.comp_mask
+                        & (COMP_COLLIDER | COMP_CHARACTER)) != 0
+        is_dynamic = (static.body_type == BODY_DYNAMIC) & alive
+        is_kinematic = (static.body_type == BODY_KINEMATIC) & alive
+        moving = is_dynamic | is_kinematic
 
-    pos = state.pos
-    quat = state.quat
+        pos = state.pos
+        quat = state.quat
 
-    # 1. characters: kinematic capsules with ghost semantics
-    if any_char:
-        pos, char_vel_y, char_on_ground = _step_characters(
-            state, inp, static, pos, quat, alive & has_collider,
-            char_candidates, group)
-    else:
-        char_vel_y, char_on_ground = state.char_vel_y, state.char_on_ground
+        # 1. characters: kinematic capsules with ghost semantics
+        if any_char:
+            pos, char_vel_y, char_on_ground = _step_characters(
+                state, inp, static, pos, quat, alive & has_collider,
+                char_candidates, group)
+        else:
+            char_vel_y = state.char_vel_y
+            char_on_ground = state.char_on_ground
 
-    # 2. rigid bodies: gravity on dynamic bodies (only y changes), then the
-    # contact phase
-    gdt = static.gravity * dt
-    zero = torch.zeros_like(gdt)
-    vel = torch.where(is_dynamic[:, None],
-                      state.lin_vel + torch.stack([zero, gdt, zero]),
-                      state.lin_vel)
-    ang = state.ang_vel
+        # 2. rigid bodies: gravity on dynamic bodies (only y changes),
+        # then the contact phase
+        gdt = static.gravity * dt
+        zero = torch.zeros_like(gdt)
+        vel = torch.where(is_dynamic[:, None],
+                          state.lin_vel + torch.stack([zero, gdt, zero]),
+                          state.lin_vel)
+        ang = state.ang_vel
 
-    is_char = (state.comp_mask & COMP_CHARACTER) != 0
-    # solid = participates in the contact solver (characters are ghosts)
-    solid = alive & has_collider & ~is_char
+        is_char = (state.comp_mask & COMP_CHARACTER) != 0
+        # solid = participates in the contact solver (characters are
+        # ghosts)
+        solid = alive & has_collider & ~is_char
     solve = dict(iterations=solver_iterations, warm_start=warm_start,
                  momentum=solver_momentum)
 
@@ -329,56 +339,60 @@ def _solve(body, cache, pos, quat, vel, ang, contacts, c_feat, dt,
 
 def _contacts_allpairs(state, static, pos, quat, vel, ang, solid,
                        is_dynamic, max_neighbors, **solve):
-    """Broadphase, contacts and solve in Morton-sorted space."""
+    """Broadphase, contacts and solve in Morton-sorted space, each in its
+    span."""
     n = state.capacity
-    # The whole contact phase runs in Morton-sorted space.  The sort must
-    # be stable: tied keys are common (57 of 10,000 at step 0 of the stress
-    # scene), and the tie order fixes the neighbor lists.
-    order = torch.argsort(bk.morton_key_xz(pos), stable=True)
-    inv_order = torch.empty_like(order)
-    inv_order[order] = torch.arange(n, device=order.device)
-    mn, mx = sh_mod.shape_aabb(pos, quat, static.shape_type,
-                               static.shape_size)
-    dyn_flag = torch.where(solid, is_dynamic.to(torch.int32), -1)
+    with span("physics.broadphase", pos.device):
+        # The whole contact phase runs in Morton-sorted space.  The sort must
+        # be stable: tied keys are common (57 of 10,000 at step 0 of the stress
+        # scene), and the tie order fixes the neighbor lists.
+        order = torch.argsort(bk.morton_key_xz(pos), stable=True)
+        inv_order = torch.empty_like(order)
+        inv_order[order] = torch.arange(n, device=order.device)
+        mn, mx = sh_mod.shape_aabb(pos, quat, static.shape_type,
+                                   static.shape_size)
+        dyn_flag = torch.where(solid, is_dynamic.to(torch.int32), -1)
 
-    # one packed gather carries every per-body attribute into sorted order;
-    # int fields ride as their f32 bit patterns
-    feat = torch.cat(
-        [mn, mx, pos, quat, vel, ang, static.shape_size,
-         static.inv_mass[:, None], static.inv_inertia_body,
-         static.friction[:, None], static.restitution[:, None],
-         _bits(dyn_flag)[:, None], _bits(static.layer)[:, None],
-         _bits(static.mask)[:, None]], dim=1)             # [N, 31]
-    sf = feat[order]
+        # one packed gather carries every per-body attribute into sorted order;
+        # int fields ride as their f32 bit patterns
+        feat = torch.cat(
+            [mn, mx, pos, quat, vel, ang, static.shape_size,
+             static.inv_mass[:, None], static.inv_inertia_body,
+             static.friction[:, None], static.restitution[:, None],
+             _bits(dyn_flag)[:, None], _bits(static.layer)[:, None],
+             _bits(static.mask)[:, None]], dim=1)             # [N, 31]
+        sf = feat[order]
 
-    pos_s, quat_s = sf[:, 6:9], sf[:, 9:13]
-    vel_s, ang_s = sf[:, 13:16], sf[:, 16:19]
-    half_s = sf[:, 19:22]
-    dyn_s, layer_s, mask_s = sf[:, 28:31].contiguous().view(
-        torch.int32).unbind(1)
+        pos_s, quat_s = sf[:, 6:9], sf[:, 9:13]
+        vel_s, ang_s = sf[:, 13:16], sf[:, 16:19]
+        half_s = sf[:, 19:22]
+        dyn_s, layer_s, mask_s = sf[:, 28:31].contiguous().view(
+            torch.int32).unbind(1)
 
-    nl = bk.neighbor_lists_aabb(
-        sf[:, 0:3], sf[:, 3:6], dyn_s, layer_s, mask_s,
-        max_neighbors=min(max_neighbors, 8))
-    ground_ok_s = (dyn_s > 0) & static.ground_enabled
-    warm_start = solve["warm_start"]
-    out = contact_t.box_contacts_t(
-        pos_s, quat_s, half_s, nl.idx, nl.valid, ground_ok_s,
-        budget=CONTACT_BUDGET, orig_id=order if warm_start else None)
-    contacts, overflow = out[:9], out[9]
-    c_feat = out[10] if warm_start else None
-    # the cache lives in ORIGINAL id space (stable across the per-step
-    # re-sort): gather to sorted space, match features, gather back
-    cache_s = ((state.contact_feat[order].T,                   # [CB, N]
-                state.contact_imp[order].permute(1, 2, 0))      # [CB, 3, N]
-               if warm_start else None)
-    vel_s, ang_s, cache = _solve(
-        (sf[:, 22], sf[:, 23:26], sf[:, 26], sf[:, 27]), cache_s,
-        pos_s, quat_s, vel_s, ang_s, contacts, c_feat, static.fixed_dt,
-        **solve)
-    out = torch.cat([vel_s, ang_s], dim=1)[inv_order]
-    if cache is not None:
-        cache = (cache[0][inv_order], cache[1][inv_order])
+        nl = bk.neighbor_lists_aabb(
+            sf[:, 0:3], sf[:, 3:6], dyn_s, layer_s, mask_s,
+            max_neighbors=min(max_neighbors, 8))
+        ground_ok_s = (dyn_s > 0) & static.ground_enabled
+        warm_start = solve["warm_start"]
+    with span("physics.narrowphase", pos.device):
+        out = contact_t.box_contacts_t(
+            pos_s, quat_s, half_s, nl.idx, nl.valid, ground_ok_s,
+            budget=CONTACT_BUDGET, orig_id=order if warm_start else None)
+        contacts, overflow = out[:9], out[9]
+        c_feat = out[10] if warm_start else None
+    with span("physics.solver", pos.device):
+        # the cache lives in ORIGINAL id space (stable across the per-step
+        # re-sort): gather to sorted space, match features, gather back
+        cache_s = ((state.contact_feat[order].T,               # [CB, N]
+                    state.contact_imp[order].permute(1, 2, 0))  # [CB, 3, N]
+                   if warm_start else None)
+        vel_s, ang_s, cache = _solve(
+            (sf[:, 22], sf[:, 23:26], sf[:, 26], sf[:, 27]), cache_s,
+            pos_s, quat_s, vel_s, ang_s, contacts, c_feat, static.fixed_dt,
+            **solve)
+        out = torch.cat([vel_s, ang_s], dim=1)[inv_order]
+        if cache is not None:
+            cache = (cache[0][inv_order], cache[1][inv_order])
     return out[:, 0:3], out[:, 3:6], cache, overflow
 
 
@@ -390,28 +404,31 @@ def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
     contiguous already).  A scene with a solid capsule takes the capsule
     slots of the transposed contacts."""
     n = state.capacity
-    nb_idx, nb_valid = static_neighbors
-    both = solid & state.alive
-    # the partners' validity: the JAX route's select over the shift set
-    # reads the same entries as this gather
-    nb_ok = nb_valid & both[nb_idx.to(torch.int64)] & both[:, None]
-    ground_ok = is_dynamic & solid & static.ground_enabled
-    warm_start = solve["warm_start"]
-    out = contact_t.box_contacts_t(
-        pos, quat, static.shape_size, nb_idx, nb_ok, ground_ok,
-        budget=CONTACT_BUDGET,
-        orig_id=(torch.arange(n, dtype=torch.int32, device=pos.device)
-                 if warm_start else None),
-        shape_type=static.shape_type if enable_capsule else None)
-    contacts, overflow = out[:9], out[9]
-    c_feat = out[10] if warm_start else None
-    cache = ((state.contact_feat.T, state.contact_imp.permute(1, 2, 0))
-             if warm_start else None)
-    vel, ang, cache = _solve(
-        (static.inv_mass, static.inv_inertia_body, static.friction,
-         static.restitution), cache,
-        pos, quat, vel, ang, contacts, c_feat, static.fixed_dt,
-        block_size=block_size, block_shifts=block_shifts, **solve)
+    with span("physics.broadphase", pos.device):
+        nb_idx, nb_valid = static_neighbors
+        both = solid & state.alive
+        # the partners' validity: the JAX route's select over the shift set
+        # reads the same entries as this gather
+        nb_ok = nb_valid & both[nb_idx.to(torch.int64)] & both[:, None]
+        ground_ok = is_dynamic & solid & static.ground_enabled
+        warm_start = solve["warm_start"]
+    with span("physics.narrowphase", pos.device):
+        out = contact_t.box_contacts_t(
+            pos, quat, static.shape_size, nb_idx, nb_ok, ground_ok,
+            budget=CONTACT_BUDGET,
+            orig_id=(torch.arange(n, dtype=torch.int32, device=pos.device)
+                     if warm_start else None),
+            shape_type=static.shape_type if enable_capsule else None)
+        contacts, overflow = out[:9], out[9]
+        c_feat = out[10] if warm_start else None
+    with span("physics.solver", pos.device):
+        cache = ((state.contact_feat.T, state.contact_imp.permute(1, 2, 0))
+                 if warm_start else None)
+        vel, ang, cache = _solve(
+            (static.inv_mass, static.inv_inertia_body, static.friction,
+             static.restitution), cache,
+            pos, quat, vel, ang, contacts, c_feat, static.fixed_dt,
+            block_size=block_size, block_shifts=block_shifts, **solve)
     return vel, ang, cache, overflow
 
 
@@ -419,24 +436,26 @@ def _neighbor_lists(static, pos, quat, solid, is_dynamic, broadphase,
                     max_neighbors, cell_size, table_size, cell_capacity):
     """The dense or grid route's neighbor lists and the validity of each
     listed pair (solid, layers both ways, at least one dynamic body)."""
-    if broadphase == "dense":
-        layer_ok = (((static.layer[:, None] & static.mask[None, :]) != 0)
-                    & ((static.layer[None, :] & static.mask[:, None]) != 0))
-        any_dyn = is_dynamic[:, None] | is_dynamic[None, :]
-        pair_mask = solid[:, None] & solid[None, :] & layer_ok & any_dyn
-        nl = build_neighbor_lists_dense(
-            pos, quat, static.shape_type, static.shape_size, pair_mask,
-            max_neighbors=min(max_neighbors, 8))
-        return nl, nl.valid
-    nl = build_neighbor_lists(
-        pos, quat, static.shape_type, static.shape_size, active=solid,
-        cell_size=cell_size, table_size=table_size,
-        cell_capacity=cell_capacity, max_neighbors=max_neighbors)
-    safe_j = nl.idx.clamp_min(0).to(torch.int64)
-    layer_ok = (((static.layer[:, None] & static.mask[safe_j]) != 0)
-                & ((static.layer[safe_j] & static.mask[:, None]) != 0))
-    any_dyn = is_dynamic[:, None] | is_dynamic[safe_j]
-    return nl, nl.valid & layer_ok & any_dyn & solid[:, None]
+    with span("physics.broadphase", pos.device):
+        if broadphase == "dense":
+            layer_ok = (
+                ((static.layer[:, None] & static.mask[None, :]) != 0)
+                & ((static.layer[None, :] & static.mask[:, None]) != 0))
+            any_dyn = is_dynamic[:, None] | is_dynamic[None, :]
+            pair_mask = solid[:, None] & solid[None, :] & layer_ok & any_dyn
+            nl = build_neighbor_lists_dense(
+                pos, quat, static.shape_type, static.shape_size, pair_mask,
+                max_neighbors=min(max_neighbors, 8))
+            return nl, nl.valid
+        nl = build_neighbor_lists(
+            pos, quat, static.shape_type, static.shape_size, active=solid,
+            cell_size=cell_size, table_size=table_size,
+            cell_capacity=cell_capacity, max_neighbors=max_neighbors)
+        safe_j = nl.idx.clamp_min(0).to(torch.int64)
+        layer_ok = (((static.layer[:, None] & static.mask[safe_j]) != 0)
+                    & ((static.layer[safe_j] & static.mask[:, None]) != 0))
+        any_dyn = is_dynamic[:, None] | is_dynamic[safe_j]
+        return nl, nl.valid & layer_ok & any_dyn & solid[:, None]
 
 
 def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
@@ -447,67 +466,70 @@ def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
     of the ground, compaction to the per-body budget, the unified solve.
     Rows are bodies in id order, ``[N, C]``."""
     n = state.capacity
-    safe_j = nl.idx.clamp_min(0).to(torch.int64)
+    with span("physics.narrowphase", pos.device):
+        safe_j = nl.idx.clamp_min(0).to(torch.int64)
 
-    # the narrowphase on the surviving pairs only
-    p_point, p_normal, p_depth, p_gvalid = nf.pair_contacts(
-        pos[:, None], quat[:, None],
-        static.shape_type[:, None], static.shape_size[:, None],
-        pos[safe_j], quat[safe_j],
-        static.shape_type[safe_j], static.shape_size[safe_j],
-        enable_capsule=enable_capsule)
-    p_valid = p_gvalid & (p_depth > 0.0) & pair_ok[..., None]
-    g_point, g_normal, g_depth, g_gvalid = nf.ground_contacts(
-        pos, quat, static.shape_type, static.shape_size)
-    g_valid = (g_gvalid & (g_depth > 0.0) & (is_dynamic & solid)[:, None]
-               & static.ground_enabled)
+        # the narrowphase on the surviving pairs only
+        p_point, p_normal, p_depth, p_gvalid = nf.pair_contacts(
+            pos[:, None], quat[:, None],
+            static.shape_type[:, None], static.shape_size[:, None],
+            pos[safe_j], quat[safe_j],
+            static.shape_type[safe_j], static.shape_size[safe_j],
+            enable_capsule=enable_capsule)
+        p_valid = p_gvalid & (p_depth > 0.0) & pair_ok[..., None]
+        g_point, g_normal, g_depth, g_gvalid = nf.ground_contacts(
+            pos, quat, static.shape_type, static.shape_size)
+        g_valid = (g_gvalid & (g_depth > 0.0) & (is_dynamic & solid)[:, None]
+                   & static.ground_enabled)
 
-    # flatten, fold the ground in (partner -1), compact to the budget.
-    # Feature ids for the cache: (partner + 1) * FEAT_STRIDE + narrowphase
-    # slot k for pair contacts (k names a geometric feature: corner,
-    # SAT centre, capsule sample), the bare slot for ground contacts
-    k_pair = p_depth.shape[2]
-    m_pair = p_depth.shape[1] * k_pair
-    partner = nl.idx[:, :, None].expand(p_depth.shape)
-    slots = torch.arange(k_pair, dtype=torch.int32, device=pos.device)
-    ground_slots = torch.arange(nf.K_GROUND, dtype=torch.int32,
-                                device=pos.device)
-    all_b = torch.cat([partner.reshape(n, m_pair),
-                       torch.full((n, nf.K_GROUND), -1, dtype=torch.int32,
-                                  device=pos.device)], dim=1)
-    all_pt = torch.cat([p_point.reshape(n, m_pair, 3), g_point], dim=1)
-    all_n = torch.cat([p_normal.reshape(n, m_pair, 3), g_normal], dim=1)
-    all_d = torch.cat([p_depth.reshape(n, m_pair), g_depth], dim=1)
-    all_v = torch.cat([p_valid.reshape(n, m_pair), g_valid], dim=1)
-    all_f = torch.cat([((partner + 1) * FEAT_STRIDE + slots).reshape(
-        n, m_pair), ground_slots.expand(n, nf.K_GROUND)], dim=1)
-    c_b, c_pt, c_n, c_d, c_valid, overflow, c_f = sv.compact_contacts(
-        all_b, all_pt, all_n, all_d, all_v, CONTACT_BUDGET, feat=all_f)
-
-    safe_b = c_b.clamp_min(0).to(torch.int64)
-    static_side = c_b < 0
-    fric = static.friction[:, None]
-    c_mu = torch.where(static_side, fric * GROUND_FRICTION,
-                       fric * static.friction[safe_b])
-    c_e = torch.where(static_side, 0.0,
-                      static.restitution[:, None] * static.restitution[safe_b])
-    inv_i_w = sv.inv_inertia_world(quat, static.inv_inertia_body)
-    warm = None
-    if warm_start:
-        # the previous step's impulses by feature match: feature ids are
-        # unique within a row, so the masked sum moves one cached impulse
-        match = ((c_f[:, :, None] == state.contact_feat[:, None, :])
-                 & (c_f >= 0)[:, :, None]).to(torch.float32)  # [N, C, C0]
-        warm = (match[..., None] * state.contact_imp[:, None]).sum(
-            dim=2).unbind(-1)
-    vel, ang, (ln, lt1, lt2) = sv.solve_contacts_unified(
-        vel, ang, pos, static.inv_mass, inv_i_w, c_b, c_pt, c_n, c_d,
-        c_valid, c_mu, c_e, static.fixed_dt, warm, momentum,
-        iterations=iterations, sor=sor)
-    cache = None
-    if warm_start:
-        cache = (c_f, torch.where(c_valid[..., None],
-                                  torch.stack([ln, lt1, lt2], dim=-1), 0.0))
+        # flatten, fold the ground in (partner -1), compact to the budget.
+        # Feature ids for the cache: (partner + 1) * FEAT_STRIDE + narrowphase
+        # slot k for pair contacts (k names a geometric feature: corner,
+        # SAT centre, capsule sample), the bare slot for ground contacts
+        k_pair = p_depth.shape[2]
+        m_pair = p_depth.shape[1] * k_pair
+        partner = nl.idx[:, :, None].expand(p_depth.shape)
+        slots = torch.arange(k_pair, dtype=torch.int32, device=pos.device)
+        ground_slots = torch.arange(nf.K_GROUND, dtype=torch.int32,
+                                    device=pos.device)
+        all_b = torch.cat([partner.reshape(n, m_pair),
+                           torch.full((n, nf.K_GROUND), -1, dtype=torch.int32,
+                                      device=pos.device)], dim=1)
+        all_pt = torch.cat([p_point.reshape(n, m_pair, 3), g_point], dim=1)
+        all_n = torch.cat([p_normal.reshape(n, m_pair, 3), g_normal], dim=1)
+        all_d = torch.cat([p_depth.reshape(n, m_pair), g_depth], dim=1)
+        all_v = torch.cat([p_valid.reshape(n, m_pair), g_valid], dim=1)
+        all_f = torch.cat([((partner + 1) * FEAT_STRIDE + slots).reshape(
+            n, m_pair), ground_slots.expand(n, nf.K_GROUND)], dim=1)
+        c_b, c_pt, c_n, c_d, c_valid, overflow, c_f = sv.compact_contacts(
+            all_b, all_pt, all_n, all_d, all_v, CONTACT_BUDGET, feat=all_f)
+    with span("physics.solver", pos.device):
+        safe_b = c_b.clamp_min(0).to(torch.int64)
+        static_side = c_b < 0
+        fric = static.friction[:, None]
+        c_mu = torch.where(static_side, fric * GROUND_FRICTION,
+                           fric * static.friction[safe_b])
+        c_e = torch.where(
+            static_side, 0.0,
+            static.restitution[:, None] * static.restitution[safe_b])
+        inv_i_w = sv.inv_inertia_world(quat, static.inv_inertia_body)
+        warm = None
+        if warm_start:
+            # the previous step's impulses by feature match: feature ids are
+            # unique within a row, so the masked sum moves one cached impulse
+            match = ((c_f[:, :, None] == state.contact_feat[:, None, :])
+                     & (c_f >= 0)[:, :, None]).to(torch.float32)  # [N, C, C0]
+            warm = (match[..., None] * state.contact_imp[:, None]).sum(
+                dim=2).unbind(-1)
+        vel, ang, (ln, lt1, lt2) = sv.solve_contacts_unified(
+            vel, ang, pos, static.inv_mass, inv_i_w, c_b, c_pt, c_n, c_d,
+            c_valid, c_mu, c_e, static.fixed_dt, warm, momentum,
+            iterations=iterations, sor=sor)
+        cache = None
+        if warm_start:
+            cache = (c_f, torch.where(
+                c_valid[..., None], torch.stack([ln, lt1, lt2], dim=-1),
+                0.0))
     return vel, ang, cache, overflow
 
 
@@ -516,37 +538,48 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                  contact_cache, contact_overflow,
                  group=None,
                  trigger_mode: str = "aabb") -> tuple[WorldState, StepEvents]:
-    """Shared step tail: integrate, triggers, state assembly.  The contact
-    cache is ``contact_cache`` = (feature ids, impulses), or the state's
-    own where it is None (a step without warm start)."""
-    # semi-implicit Euler for dynamic AND kinematic bodies (kinematic
-    # velocity is host-driven and persists until changed)
-    pos = torch.where(moving[:, None], pos + vel * dt, pos)
-    quat = torch.where(moving[:, None], math3d.quat_integrate(quat, ang, dt),
-                       quat)
-    vel = torch.where(moving[:, None], vel, 0.0)
-    ang = torch.where(moving[:, None], ang, 0.0)
+    """Shared step tail: integrate, triggers, state assembly, each in its
+    span.  The contact cache is ``contact_cache`` = (feature ids,
+    impulses), or the state's own where it is None (a step without warm
+    start)."""
+    with span("physics.integrate", pos.device):
+        # semi-implicit Euler for dynamic AND kinematic bodies (kinematic
+        # velocity is host-driven and persists until changed)
+        pos = torch.where(moving[:, None], pos + vel * dt, pos)
+        quat = torch.where(moving[:, None],
+                           math3d.quat_integrate(quat, ang, dt), quat)
+        vel = torch.where(moving[:, None], vel, 0.0)
+        ang = torch.where(moving[:, None], ang, 0.0)
+        time = state.time + dt
+        step_idx = state.step_idx + 1
+        overflow = contact_overflow.to(torch.int32)
+        if not any_trig:
+            # no trigger slot in use: no sweep, and the event diff stays
+            # in this span
+            enter, stay, exit_, new_overlap, new_active = tg.diff_events(
+                state.trigger_overlap,
+                torch.zeros_like(state.trigger_overlap),
+                static.trig_one_shot, state.trigger_active)
 
-    # triggers: AABB overlap (Bullet's ghost pairs) or exact shape
-    # overlap; scenes with no trigger slot in use skip the sweep
+    # triggers: AABB overlap (Bullet's ghost pairs) or exact shape overlap
     if any_trig:
-        overlap_fn = (tg.trigger_aabb_overlaps if trigger_mode == "aabb"
-                      else tg.trigger_overlaps)
-        overlap = overlap_fn(
-            static.trig_entity, static.trig_shape, static.trig_size,
-            static.trig_layer, static.trig_mask, state.trigger_active,
-            pos, quat, static.shape_type, static.shape_size,
-            static.layer, static.mask, alive, has_collider,
-        )
-        if group is not None:
-            # a trigger sees only its own group's (world's) entities
-            safe_te = static.trig_entity.clamp_min(0).to(torch.int64)
-            overlap = overlap & (group[safe_te][:, None] == group[None, :])
-    else:
-        overlap = torch.zeros_like(state.trigger_overlap)
-    enter, stay, exit_, new_overlap, new_active = tg.diff_events(
-        state.trigger_overlap, overlap, static.trig_one_shot,
-        state.trigger_active)
+        with span("physics.triggers", pos.device):
+            overlap_fn = (tg.trigger_aabb_overlaps if trigger_mode == "aabb"
+                          else tg.trigger_overlaps)
+            overlap = overlap_fn(
+                static.trig_entity, static.trig_shape, static.trig_size,
+                static.trig_layer, static.trig_mask, state.trigger_active,
+                pos, quat, static.shape_type, static.shape_size,
+                static.layer, static.mask, alive, has_collider,
+            )
+            if group is not None:
+                # a trigger sees only its own group's (world's) entities
+                safe_te = static.trig_entity.clamp_min(0).to(torch.int64)
+                overlap = overlap & (group[safe_te][:, None]
+                                     == group[None, :])
+            enter, stay, exit_, new_overlap, new_active = tg.diff_events(
+                state.trigger_overlap, overlap, static.trig_one_shot,
+                state.trigger_active)
 
     new_state = dataclasses.replace(
         state,
@@ -558,8 +591,8 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
         char_on_ground=char_on_ground,
         trigger_overlap=new_overlap,
         trigger_active=new_active,
-        time=state.time + dt,
-        step_idx=state.step_idx + 1,
+        time=time,
+        step_idx=step_idx,
         contact_feat=(state.contact_feat if contact_cache is None
                       else contact_cache[0]),
         contact_imp=(state.contact_imp if contact_cache is None
@@ -567,6 +600,6 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
     )
     events = StepEvents(
         trigger_enter=enter, trigger_stay=stay, trigger_exit=exit_,
-        contact_overflow=contact_overflow.to(torch.int32),
+        contact_overflow=overflow,
     )
     return new_state, events

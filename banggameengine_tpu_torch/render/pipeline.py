@@ -37,6 +37,7 @@ from banggameengine_tpu_torch.render.shading import (
     shade_visibility_tiled,
 )
 from banggameengine_tpu_torch.scene.build import BuiltScene, RenderScene
+from banggameengine_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -74,51 +75,59 @@ def render_frame(
         return frame
     if shade_mode not in ("tiled", "fused", "flat"):
         raise ValueError(f"unknown shade_mode {shade_mode!r}")
-    if light is None:
-        light = LightParams.default(world_mats.device)
+    device = world_mats.device
+    with span("render.raster", device):
+        vis_ent = entity_frustum_mask(rs.ent_aabb_min, rs.ent_aabb_max,
+                                      rs.ent_has_mesh, world_mats, view,
+                                      proj)
+        tri_valid = rs.tri_valid & vis_ent[rs.v_entity[::3].to(torch.int64)]
+        _, clip = rz.transform_vertices(rs.v_pos, rs.v_entity, world_mats,
+                                        view, proj)
+        if depth_only:
+            vis, _overflow = rz.rasterize(clip, tri_valid, width, height,
+                                          bin_capacity=bin_capacity,
+                                          backend=raster_backend)
+            return vis.depth
+        if shade_mode == "fused":
+            prep = rz.prepare_fused_raster(clip, tri_valid, width, height,
+                                           bin_capacity=bin_capacity)
+        elif shade_mode == "flat":
+            vis, _overflow = rz.rasterize(clip, tri_valid, width, height,
+                                          bin_capacity=bin_capacity,
+                                          backend=raster_backend, slim=False)
+        else:
+            vis, _overflow, tiled = rz.rasterize(
+                clip, tri_valid, width, height, bin_capacity=bin_capacity,
+                return_tiled=True, backend=raster_backend)
 
-    vis_ent = entity_frustum_mask(rs.ent_aabb_min, rs.ent_aabb_max,
-                                  rs.ent_has_mesh, world_mats, view, proj)
-    tri_valid = rs.tri_valid & vis_ent[rs.v_entity[::3].to(torch.int64)]
-    _, clip = rz.transform_vertices(rs.v_pos, rs.v_entity, world_mats, view,
-                                    proj)
-    if depth_only:
-        vis, _overflow = rz.rasterize(clip, tri_valid, width, height,
-                                      bin_capacity=bin_capacity,
-                                      backend=raster_backend)
-        return vis.depth
-
-    world_nrm = rz.transform_normals(rs.v_nrm, rs.v_entity,
-                                     math3d.normal_matrix(world_mats))
-    w = clip[:, 3]
-    inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
-    shade_args = (world_nrm, rs.v_uv, inv_w, rs.tri_material,
-                  rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color,
-                  rs.mat_tex, rs.textures, rs.tex_size, rs.textures_quad_t,
-                  camera_pos, light)
-    if shade_mode == "fused":
-        prep = rz.prepare_fused_raster(clip, tri_valid, width, height,
-                                       bin_capacity=bin_capacity)
-        return shade_visibility_fused(prep, width, height, *shade_args,
-                                      view, proj, return_depth=return_depth)
-    if shade_mode == "flat":
-        vis, _overflow = rz.rasterize(clip, tri_valid, width, height,
-                                      bin_capacity=bin_capacity,
-                                      backend=raster_backend, slim=False)
-        frame = shade_visibility(vis.tri_id, vis.b1, vis.b2, *shade_args,
-                                 vis.depth, view, proj)
-    else:
-        vis, _overflow, tiled = rz.rasterize(
-            clip, tri_valid, width, height, bin_capacity=bin_capacity,
-            return_tiled=True, backend=raster_backend)
-        # the resolve covers the heavy pass's walk width (K_GLOBAL +
-        # HEAVY_CAPACITY), which is also the raster's slot ceiling, so the
-        # row-gather fallback is statically dead here (JAX pipeline.py:155)
-        frame = shade_visibility_tiled(
-            tiled, width, height, *shade_args, view, proj,
-            shade_slots=rz.K_GLOBAL + rz.LIGHT_CAPACITY,
-            heavy_shade_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY,
-            raster_max_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY)
+    with span("render.shade", device):
+        if light is None:
+            light = LightParams.default(device)
+        world_nrm = rz.transform_normals(rs.v_nrm, rs.v_entity,
+                                         math3d.normal_matrix(world_mats))
+        w = clip[:, 3]
+        inv_w = 1.0 / torch.where(w.abs() > 1e-9, w, 1e-9)
+        shade_args = (world_nrm, rs.v_uv, inv_w, rs.tri_material,
+                      rs.mat_base_tint, rs.mat_uv_scale, rs.mat_spec_color,
+                      rs.mat_tex, rs.textures, rs.tex_size,
+                      rs.textures_quad_t, camera_pos, light)
+        if shade_mode == "fused":
+            return shade_visibility_fused(prep, width, height, *shade_args,
+                                          view, proj,
+                                          return_depth=return_depth)
+        if shade_mode == "flat":
+            frame = shade_visibility(vis.tri_id, vis.b1, vis.b2,
+                                     *shade_args, vis.depth, view, proj)
+        else:
+            # the resolve covers the heavy pass's walk width (K_GLOBAL +
+            # HEAVY_CAPACITY), which is also the raster's slot ceiling, so
+            # the row-gather fallback is statically dead here (JAX
+            # pipeline.py:155)
+            frame = shade_visibility_tiled(
+                tiled, width, height, *shade_args, view, proj,
+                shade_slots=rz.K_GLOBAL + rz.LIGHT_CAPACITY,
+                heavy_shade_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY,
+                raster_max_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY)
     if return_depth:
         return frame, vis.depth
     return frame

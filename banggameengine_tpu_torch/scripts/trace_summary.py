@@ -13,7 +13,11 @@ more execution and a sync; the summary gives, per execution of the 3:
 - the 10 longest idle gaps in that window, each with the innermost host op
   (an op, an annotation, or a CUDA runtime call such as a launch or a
   sync) that spans the gap's midpoint: what the host was doing
-  meanwhile.
+  meanwhile, and the innermost ``program:<name>`` span there (the
+  captured program being called, ``graphs.Program``);
+- the device ms of each stage that ``utils/profiling.span`` marks on the
+  card (``DEVICE_SPANS``): the device ops between a ``bge_span_<x>``
+  marker kernel and the next marker are stage x's.
 
 Programs: ``stress`` (one 50-step dispatch of the 10k-box world from its
 200-step state), ``manyworld`` (one 50-step dispatch of the flat
@@ -86,9 +90,9 @@ from banggameengine_tpu_torch.scripts import profile_render
 from banggameengine_tpu_torch.state import InputFrame
 from banggameengine_tpu_torch.utils.profiling import (
     device_sync,
+    span,
     start_trace,
     stop_trace,
-    trace_annotation,
 )
 
 REPS = 3
@@ -101,6 +105,9 @@ PROGRAMS = ("stress", "manyworld", "demo", "dense", "frame_tiled",
 MAX_NEIGHBORS = 8
 FIRST_EXECUTION = "execution 0"
 COOL_DOWN = "cool-down"
+MARKER = "bge_span_"          # a span's marker kernel: MARKER + stage
+MARKER_END = "bge_span_end"
+PROGRAM = "program:"          # a captured program's host span
 
 
 # ---- the programs -------------------------------------------------------
@@ -264,9 +271,25 @@ def _launched_at(events) -> dict:
             and "correlation" in e.get("args", {})}
 
 
+def span_ms(dev) -> dict:
+    """Device ms of each marked stage over the device ops ``dev`` ((start,
+    end, event), in time order): a marker ``bge_span_<x>`` closes the
+    open stage and opens x, ``bge_span_end`` closes it, every other op
+    adds its time to the open stage; markers add to none."""
+    total, stage = collections.Counter(), None
+    for t0, t1, e in dev:
+        name = e["name"]
+        if name.startswith(MARKER):
+            stage = None if name == MARKER_END else name[len(MARKER):]
+        elif stage is not None:
+            total[stage] += (t1 - t0) / 1e3
+    return dict(total)
+
+
 def summarize(events: list, reps: int = 1) -> dict:
-    """Per-execution kernel times and counts, launches, busy share and the
-    longest idle gaps of a trace of ``reps`` executions (times in ms).
+    """Per-execution kernel times and counts, launches, busy share, device
+    ms by marked stage and the longest idle gaps of a trace of ``reps``
+    executions (times in ms).
 
     Where the trace marks its first execution and the cool-down after the
     last (:func:`trace_and_summarize` does), what was launched before the
@@ -318,11 +341,15 @@ def summarize(events: list, reps: int = 1) -> dict:
     if w1 > end:
         idle.append((end, w1))
 
-    def host_op(mid):
-        inside = [s for s in host if s[0] <= mid <= s[1]]
+    def host_op(mid, keep=lambda name: True, default="(no op)"):
+        inside = [s for s in host if s[0] <= mid <= s[1]
+                  and keep(s[2]["name"])]
         if not inside:
-            return "(no op)"
+            return default
         return max(inside, key=lambda s: (s[0], -s[1]))[2]["name"]
+
+    def program(mid):
+        return host_op(mid, lambda name: name.startswith(PROGRAM), None)
 
     gaps = sorted(idle, key=lambda g: g[0] - g[1])[:TOP]
     n_kernels = sum(1 for s in dev if s[2].get("cat") == "kernel")
@@ -332,8 +359,10 @@ def summarize(events: list, reps: int = 1) -> dict:
         "busy_share": busy / (w1 - w0) if w1 > w0 else 0.0,
         "launches": n_kernels / reps,
         "kernels": kernels,
+        "spans": {k: v / reps for k, v in sorted(span_ms(dev).items())},
         "gaps": [{"ms": (g1 - g0) / 1e3, "at_ms": (g0 - w0) / 1e3,
-                  "host_op": host_op((g0 + g1) / 2)} for g0, g1 in gaps],
+                  "host_op": host_op((g0 + g1) / 2),
+                  "program": program((g0 + g1) / 2)} for g0, g1 in gaps],
     }
 
 
@@ -344,9 +373,12 @@ def print_summary(s: dict) -> None:
     print(f"{s['launches']:g} launches per execution; the card busy "
           f"{100 * s['busy_share']:.1f} % of the window "
           f"({s['busy_ms']:.3f} of {s['window_ms']:.3f} ms per execution)")
+    for name, ms in s["spans"].items():
+        print(f"{ms:10.4f}  ms in stage {name}")
     for g in s["gaps"]:
+        where = f" in {g['program']}" if g["program"] else ""
         print(f"   gap {g['ms']:8.3f} ms at +{g['at_ms']:.3f} ms during "
-              f"[{g['host_op'][:70]}]")
+              f"[{g['host_op'][:70]}]{where}")
 
 
 def parse_trace(path: str, reps: int = 1) -> dict:
@@ -368,13 +400,13 @@ def trace_and_summarize(fn, args, outdir: str | None = None) -> dict:
     outdir = outdir or tempfile.mkdtemp(prefix="trace_")
     start_trace(outdir)
     try:
-        with trace_annotation("warm-up"):
+        with span("warm-up"):
             device_sync(fn(*args))
         for i in range(REPS):
-            with trace_annotation(f"execution {i}"):
+            with span(f"execution {i}"):
                 out = fn(*args)
         device_sync(out)
-        with trace_annotation(COOL_DOWN):
+        with span(COOL_DOWN):
             device_sync(fn(*args))
     finally:
         path = stop_trace()

@@ -2,8 +2,6 @@
 
 Counterpart of ``banggameengine_tpu/utils/profiling.py``:
 
-- :class:`StepTimer`: wall-time accumulator with min/max/mean and an
-  F9-style report line;
 - :func:`device_sync`: waits for the card that holds an output;
 - :func:`measure_throughput` and its chained and multi-trial forms: the
   per-call time of a queued window of calls.  On the card the window is
@@ -16,7 +14,11 @@ Counterpart of ``banggameengine_tpu/utils/profiling.py``:
   time than their wrapper's host work);
 - :func:`bound_ms`: the least time the card could take for given bytes
   and operations;
-- :func:`trace_annotation`: a named region on the profiler's timeline;
+- :class:`span`: a named stage of a step or a frame, a host range on
+  the profiler's timeline while it records, and on the card the marker
+  kernels of ``csrc/spans.cu`` around each stage of
+  :data:`DEVICE_SPANS`, which a captured graph replays, so a trace of
+  replays splits their device time by stage;
 - :func:`start_trace` / :func:`stop_trace`: one whole-program
   ``torch.profiler`` trace (host ops and, on a card, its kernels),
   exported as a Chrome trace.
@@ -24,8 +26,9 @@ Counterpart of ``banggameengine_tpu/utils/profiling.py``:
 
 from __future__ import annotations
 
-import contextlib
+import ctypes
 import dataclasses
+import functools
 import os
 import time
 
@@ -34,44 +37,6 @@ import torch
 # the published H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-
-
-class StepTimer:
-    """Accumulates wall-clock timings for a named phase."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-        self.total = 0.0
-        self.last = 0.0
-        self.min = float("inf")
-        self.max = 0.0
-
-    @contextlib.contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.last = dt
-            self.total += dt
-            self.count += 1
-            self.min = min(self.min, dt)
-            self.max = max(self.max, dt)
-
-    @property
-    def mean(self) -> float:
-        return self.total / self.count if self.count else 0.0
-
-    def report(self) -> str:
-        if not self.count:
-            return f"[{self.name}] no samples"
-        return (
-            f"[{self.name}] last={self.last * 1e3:.3f}ms "
-            f"mean={self.mean * 1e3:.3f}ms min={self.min * 1e3:.3f}ms "
-            f"max={self.max * 1e3:.3f}ms n={self.count}"
-        )
 
 
 def tensor_leaves(out):
@@ -236,9 +201,104 @@ def bound_ms(n_bytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def trace_annotation(name: str):
-    """Named region on the trace timeline."""
-    return torch.profiler.record_function(name)
+# The stages whose device time a trace can split out of a captured graph:
+# ``span(name)`` marks each of them on the card with the marker kernels of
+# ``csrc/spans.cu`` (in this order, then ``bge_span_end``).
+DEVICE_SPANS = (
+    "physics.characters",
+    "physics.broadphase",
+    "physics.narrowphase",
+    "physics.solver",
+    "physics.integrate",
+    "physics.triggers",
+    "ecs.transforms",
+    "manyworld.flatten",
+    "manyworld.unflatten",
+    "render.raster",
+    "render.shade",
+)
+_MARKER_INDEX = {name: i for i, name in enumerate(DEVICE_SPANS)}
+_MARKER_END = len(DEVICE_SPANS)
+_SPANS_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "csrc", "spans.cu")
+
+
+def marker_kernel(name: str) -> str:
+    """The name of the kernel that marks the start of the span ``name``."""
+    return "bge_span_" + name.replace(".", "_")
+
+
+def profiler_on() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) is recording."""
+    return torch.autograd._profiler_enabled()
+
+
+@functools.cache
+def load_span_library() -> ctypes.CDLL:
+    """Build ``csrc/spans.cu`` for sm_90a at first use and load it.  A
+    failed build raises."""
+    from banggameengine_tpu_torch import cuda_build
+
+    lib = cuda_build.load_library("bge_spans", _SPANS_SOURCE)
+    lib.bge_span_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.bge_span_launch.restype = ctypes.c_int
+    lib.bge_span_count.restype = ctypes.c_int
+    lib.bge_span_error_string.argtypes = [ctypes.c_int]
+    lib.bge_span_error_string.restype = ctypes.c_char_p
+    if lib.bge_span_count() != _MARKER_END + 1:
+        raise RuntimeError(
+            f"spans: the library holds {lib.bge_span_count()} markers, "
+            f"the wrapper expects {_MARKER_END + 1}")
+    return lib
+
+
+def _launch_marker(which: int, device: torch.device) -> None:
+    """Marker ``which`` on the current stream of ``device``."""
+    lib = load_span_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.bge_span_launch(which, stream)
+    if err != 0:
+        msg = lib.bge_span_error_string(err).decode()
+        raise RuntimeError(f"span marker launch failed: {msg}")
+
+
+class span:
+    """A named stage: ``with span(name, device): ...``.
+
+    While a profiler records, the stage is a host ``record_function``
+    range; otherwise the host pays one check.  Where ``name`` is one of
+    :data:`DEVICE_SPANS` and ``device`` is a CUDA device, the stage is
+    also marked on the card: :func:`marker_kernel` ``(name)`` is launched
+    on the current stream at entry and ``bge_span_end`` at exit, eagerly
+    or into the graph being captured (so every replay runs them).  The
+    markers read and write no data.  Spans do not nest: the device ops
+    between a marker and the next are that marker's stage's."""
+
+    __slots__ = ("name", "device", "_range", "_marked")
+
+    def __init__(self, name: str, device: torch.device | None = None):
+        self.name = name
+        self.device = device
+
+    def __enter__(self):
+        self._range = None
+        if profiler_on():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._marked = (self.device is not None
+                        and self.device.type == "cuda"
+                        and self.name in _MARKER_INDEX)
+        if self._marked:
+            _launch_marker(_MARKER_INDEX[self.name], self.device)
+        return self
+
+    def __exit__(self, *exc):
+        if self._marked:
+            _launch_marker(_MARKER_END, self.device)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
 
 
 _trace: dict = {}   # the running trace: its profiler and its directory

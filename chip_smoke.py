@@ -1729,14 +1729,27 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
 
 
 def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
-    """``trace_summary``'s summary of one flat step and of its parts,
-    called as the step calls them on its flattened 200-step state: the
-    character step, the box contacts with the solve, and the integration
-    with the trigger sweep over the ``[W*T, W*B]`` planes.  (A step
-    queues far more launches than the card's launch queue holds, so a
-    window held behind a sleep kernel cannot time it: the trace's kernel
-    intervals do.)"""
+    """``trace_summary``'s summary of one flat step and of its parts
+    (:func:`manyworld_part_fns`).  (A step queues far more launches than
+    the card's launch queue holds, so a window held behind a sleep kernel
+    cannot time it: the trace's kernel intervals do.)"""
     from banggameengine_tpu_torch.scripts import trace_summary as ts
+
+    fns = manyworld_part_fns(one, static1, comp_mask, state, inp)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, fn in fns.items():
+            print(f"[profile] trace_summary of {k}, one flat step:")
+            out[k] = ts.trace_and_summarize(fn, (), os.path.join(
+                tmp, k.replace(" ", "_")))
+    return out
+
+
+def manyworld_part_fns(one, static1, comp_mask, state, inp) -> dict:
+    """One flat step and its parts as ``() -> tensor`` calls, each called
+    as the step calls it on its flattened state: the character step, the
+    box contacts with the solve, and the integration with the trigger
+    sweep over the ``[W*T, W*B]`` planes."""
     from banggameengine_tpu_torch.parallel.manyworld import _flat_static
     from banggameengine_tpu_torch.physics import step as ps
     from banggameengine_tpu_torch.state import (
@@ -1751,7 +1764,7 @@ def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
     moving = dyn | ((fst.body_type == BODY_KINEMATIC) & alive)
     solid = alive & has_col & ((fs.comp_mask & COMP_CHARACTER) == 0)
     zero = torch.zeros((), dtype=torch.int32, device=alive.device)
-    fns = {
+    return {
         "whole step": lambda: one.flat_step(fs, inp)[0].pos,
         "characters": lambda: ps._step_characters(
             fs, inp, fst, fs.pos, fs.quat, alive & has_col, cand,
@@ -1767,13 +1780,6 @@ def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
             fst.fixed_dt, True, (fs.contact_feat, fs.contact_imp), zero,
             group=group)[0].trigger_overlap,
     }
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for k, fn in fns.items():
-            print(f"[profile] trace_summary of {k}, one flat step:")
-            out[k] = ts.trace_and_summarize(fn, (), os.path.join(
-                tmp, k.replace(" ", "_")))
-    return out
 
 
 def _timed(fn, *args):
@@ -2050,7 +2056,7 @@ def _app_run(app, frames: int, fps: int, render: bool = False,
     from banggameengine_tpu_torch.scripts import trace_summary as ts
     from banggameengine_tpu_torch.scripts.play_demo import apply_track
     from banggameengine_tpu_torch.utils.profiling import (
-        device_sync, start_trace, stop_trace, trace_annotation)
+        device_sync, span, start_trace, stop_trace)
 
     cj = app.built.find_entity("cj")
     rec = dict(char=[], on_ground=[], steps=[], events=[])
@@ -2068,8 +2074,7 @@ def _app_run(app, frames: int, fps: int, render: bool = False,
             start_trace(trace_dir)
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught, \
-                trace_annotation(ts.FIRST_EXECUTION if i == frames - 1
-                                 else "frame"):
+                span(ts.FIRST_EXECUTION if i == frames - 1 else "frame"):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:

@@ -1,0 +1,7 @@
+"""transforms_device_ms.sim:
+the device ms a step of the stage ``ecs_transforms``, read by
+``portbench.harness.span_readers``."""
+
+from portbench.harness.span_readers import per_step
+
+read = per_step("ecs_transforms")

@@ -1,0 +1,7 @@
+"""triggers_device_ms.worlds:
+the device ms a step of the stage ``physics_triggers``, read by
+``portbench.harness.span_readers``."""
+
+from portbench.harness.span_readers import per_step
+
+read = per_step("physics_triggers")

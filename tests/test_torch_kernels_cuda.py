@@ -500,3 +500,44 @@ def test_failed_capture_raises(device):
     assert program.captures == 0
     torch.cuda.synchronize()
     assert float((x + 1).sum()) == 16.0
+
+
+def test_span_markers_replayed_in_order(device):
+    """The stage markers (``utils/csrc/spans.cu``) are nodes of the
+    captured graphs: a trace of replays shows each stage's entry marker
+    and ``bge_span_end`` in order, step by step and frame by frame."""
+    from banggameengine_tpu_torch.utils import profiling
+
+    state, static = build_falling_boxes(64, seed=0, device=device)
+    run = make_multi_step_fn(static, 2, broadphase="allpairs")
+    inp = InputFrame.zero(device)
+    sc = build_showcase_render(0)
+    rs = convert.render_scene_from_numpy(sc.render, device)
+    w, h = 320, 180
+    render = make_render_fn(rs, w, h)
+    args = (torch.as_tensor(sc.world, device=device),
+            sc.camera.view_matrix(device),
+            sc.camera.proj_matrix(w / h, device),
+            torch.as_tensor(sc.camera.position, device=device))
+    state = run(state, inp)
+    render(*args)
+    torch.cuda.synchronize()
+    replays = graphs.stats["replays"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(state, inp)
+        render(*args)
+        torch.cuda.synchronize()
+    assert graphs.stats["replays"] == replays + 3       # 2 steps, 1 frame
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name.startswith("bge_span_")
+             and e.device_type == torch.autograd.DeviceType.CUDA]
+    # the masks and gravity, then the sort, gather and kernel #1
+    step = ["physics.broadphase", "physics.broadphase",
+            "physics.narrowphase", "physics.solver", "physics.integrate",
+            "ecs.transforms"]
+    want = [n for s in step * 2 + ["render.raster", "render.shade"]
+            for n in (profiling.marker_kernel(s), "bge_span_end")]
+    assert names == want

@@ -9,16 +9,15 @@
   same script) on the same numpy inputs at small sizes: sums of u8 values
   exactly (they are integers below 2**24 here), ``attr_take`` and
   ``onehot_mm`` within rtol 1e-5 (f32 sums in another order).
-- ``StepTimer`` and the ``measure_*`` timers against
-  ``banggameengine_tpu/utils/profiling.py``: the same report for the same
-  scripted clock, the same calls and final states.
+- The ``measure_*`` timers against
+  ``banggameengine_tpu/utils/profiling.py``: the same calls and final
+  states.
 - The trace summary on a hand-made Chrome trace (exact) and on one CPU
   ``torch.profiler`` run; the stage timer and the probe script end to end
   at ``--device cpu --small``.
 """
 
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -214,28 +213,6 @@ def test_gather_bound_counts_distinct_rows():
 
 
 # ---- the timers -----------------------------------------------------------
-
-def _clock(durations):
-    """A perf_counter that returns start, start + d for each duration."""
-    ticks = []
-    for i, d in enumerate(durations):
-        ticks += [10.0 * i, 10.0 * i + d]
-    it = iter(ticks)
-    return lambda: next(it)
-
-
-@pytest.mark.parametrize("durations", [[], [0.001], [0.0042, 0.0001, 0.25]])
-def test_step_timer_report_matches_jax(monkeypatch, durations):
-    reports = []
-    for mod in (jprof, prof):
-        monkeypatch.setattr(time, "perf_counter", _clock(durations))
-        timer = mod.StepTimer("step")
-        for _ in durations:
-            with timer.measure():
-                pass
-        reports.append((timer.report(), timer.count, timer.mean))
-    assert reports[0] == reports[1]
-
 
 class _Counter:
     def __init__(self, make):
