@@ -12,11 +12,16 @@ step W worlds of B entities in lockstep:
   ``physics_step(broadphase="static")``.  Every world's solid bodies are
   each other's neighbors, fixed when the factory builds the flat scene,
   and no neighbor list crosses a world block, so no broadphase runs.
-  Characters read their own world's input row (slot w = world w), and
-  characters and triggers are masked to their world's block.
+  Characters read their own world's input row (slot w = world w) and are
+  masked to their world's block.  The trigger planes are per-world
+  blocks, bool[W*T, B] (row w*T + t: world w's slot t against its own B
+  entities), so no trigger pair crosses a world and no plane of the step
+  grows with the square of W.
 
 :func:`make_many_world_step` picks the flat layout and falls back to the
-vmapped one only when the flat factory refuses the scene.  With a world
+vmapped one only when the flat factory refuses the scene.  The batched
+state that both take and return carries the trigger planes as bool[W, T,
+B]; a single world's state as bool[T, N].  With a world
 mesh (:func:`make_world_mesh`, a ``DeviceMesh`` over the ranks of the
 process group) the world axis is sharded: each rank steps its own worlds
 (:func:`shard_batched`), and the only collective is the metrics' sum.
@@ -281,7 +286,10 @@ def make_flat_many_world_step(
     a call only flattens, steps and unflattens, with no host
     synchronisation.  The contact cache survives the flatten/unflatten
     seam (its feature ids are remapped by an integer offset), so N
-    one-step calls equal one N-step call.
+    one-step calls equal one N-step call.  The flat state carries the
+    trigger overlap as per-world blocks bool[W*T, B], a reshape of the
+    batched bool[W, T, B]; the flat step sweeps each world's triggers
+    against its own B entities, and its events take the same shape.
 
     The neighbor topology is fixed at build time: bodies spawned or
     despawned later do not join or leave the contact graph (dead bodies
@@ -315,11 +323,11 @@ def make_flat_many_world_step(
     flat_static, nb_idx, nb_val, group, char_cand, shifts = _flat_static(
         static, w, comp_mask_1w)
     kwargs = {**scene_census(static), **physics_kwargs}
+    # one world is one group: no mask (and its plane bool[T, B] is square)
     kwargs.update(broadphase="static", static_neighbors=(nb_idx, nb_val),
-                  group=group, char_candidates=char_cand,
+                  group=group if w > 1 else None, char_candidates=char_cand,
                   solver_block_size=b, solver_block_shifts=shifts)
     dev = static.parent.device
-    di = torch.arange(w, device=dev)
     # Contact features encode partner ids: pair features are (partner + 1)
     # * FEAT_STRIDE + slot (>= FEAT_STRIDE), ground features bare slot ids
     # (< FEAT_STRIDE).  The flat partner is w*B + partner, so the
@@ -341,9 +349,7 @@ def make_flat_many_world_step(
             cf = s.contact_feat
             f["contact_feat"] = torch.where(
                 cf >= FEAT_STRIDE, cf + feat_off, cf).reshape(n, -1)
-            ov = torch.zeros((w, t1, w, b), dtype=torch.bool, device=dev)
-            ov[di, :, di, :] = s.trigger_overlap
-            f["trigger_overlap"] = ov.reshape(w * t1, n)
+            f["trigger_overlap"] = s.trigger_overlap.reshape(w * t1, b)
             f["trigger_active"] = s.trigger_active.reshape(w * t1)
             # lockstep: every world shares the clock
             f["time"] = s.time[0]
@@ -359,8 +365,7 @@ def make_flat_many_world_step(
             cf = fs.contact_feat.reshape(w, b, -1)
             f["contact_feat"] = torch.where(cf >= FEAT_STRIDE,
                                             cf - feat_off, cf)
-            f["trigger_overlap"] = fs.trigger_overlap.reshape(
-                w, t1, w, b)[di, :, di, :]
+            f["trigger_overlap"] = fs.trigger_overlap.reshape(w, t1, b)
             f["trigger_active"] = fs.trigger_active.reshape(w, t1)
             f["time"] = fs.time.expand(w).clone()
             f["step_idx"] = fs.step_idx.expand(w).clone()

@@ -20,8 +20,11 @@ The routes differ in where the contacts come from:
 - ``"static"`` (``step.py:394-491``): neighbor lists fixed when the scene
   was built (the flat many-world step, :mod:`parallel.manyworld`), in
   original id order, with the world ``group`` masking the characters'
-  obstacles and the triggers; the transposed contacts take the capsule
-  slots when the scene has a solid capsule.
+  obstacles; the transposed contacts take the capsule slots when the
+  scene has a solid capsule.
+
+The trigger sweep follows the state's trigger plane: bool[T, N] for one
+world, per-world blocks bool[W*T, B] for the flat many-world layout.
 
 Characters step by the planar step over static ``char_candidates`` where
 given, else by the per-slot step of every slot against every entity.
@@ -135,9 +138,10 @@ def physics_step(
 
     ``broadphase="static"`` takes ``static_neighbors=(idx int32[N, K],
     valid bool[N, K])``, partners fixed at build time; ``group`` int32[N]
-    confines each character and trigger to its own group (world), and
+    confines each character to its own group (world), and
     ``solver_block_size``/``solver_block_shifts`` are passed on to
-    :func:`contact_t.solve_contacts_t`.
+    :func:`contact_t.solve_contacts_t`.  The triggers keep to their worlds
+    through the state's per-world trigger blocks (:func:`_finish_step`).
 
     Characters step by the planar step over ``char_candidates`` int32[C,
     K] obstacle ids where given, else by the per-slot step over every
@@ -541,7 +545,20 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
     """Shared step tail: integrate, triggers, state assembly, each in its
     span.  The contact cache is ``contact_cache`` = (feature ids,
     impulses), or the state's own where it is None (a step without warm
-    start)."""
+    start).
+
+    The trigger plane's width picks the sweep: bool[T, N] sweeps every
+    trigger against every entity; bool[W*T, B] with B < N (the flat
+    many-world layout) sweeps each world's triggers against that world's
+    B entities only.  ``group`` with a square plane raises ValueError: a
+    many-world state whose plane spans every world would take pairs
+    across worlds."""
+    if group is not None and state.trigger_overlap.shape[-1] == pos.shape[0]:
+        raise ValueError(
+            "a world group with a square trigger plane: the flat "
+            "many-world layout carries per-world blocks bool[W*T, B], "
+            f"not {tuple(state.trigger_overlap.shape)} over "
+            f"{pos.shape[0]} entities")
     with span("physics.integrate", pos.device):
         # semi-implicit Euler for dynamic AND kinematic bodies (kinematic
         # velocity is host-driven and persists until changed)
@@ -561,7 +578,8 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                 torch.zeros_like(state.trigger_overlap),
                 static.trig_one_shot, state.trigger_active)
 
-    # triggers: AABB overlap (Bullet's ghost pairs) or exact shape overlap
+    # triggers: AABB overlap (Bullet's ghost pairs) or exact shape overlap,
+    # each trigger against its own world's block of the plane's width
     if any_trig:
         with span("physics.triggers", pos.device):
             overlap_fn = (tg.trigger_aabb_overlaps if trigger_mode == "aabb"
@@ -571,12 +589,8 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                 static.trig_layer, static.trig_mask, state.trigger_active,
                 pos, quat, static.shape_type, static.shape_size,
                 static.layer, static.mask, alive, has_collider,
+                block=state.trigger_overlap.shape[-1],
             )
-            if group is not None:
-                # a trigger sees only its own group's (world's) entities
-                safe_te = static.trig_entity.clamp_min(0).to(torch.int64)
-                overlap = overlap & (group[safe_te][:, None]
-                                     == group[None, :])
             enter, stay, exit_, new_overlap, new_active = tg.diff_events(
                 state.trigger_overlap, overlap, static.trig_one_shot,
                 state.trigger_active)

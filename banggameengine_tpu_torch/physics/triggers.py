@@ -6,6 +6,14 @@ over :func:`narrowphase.boolean_overlap_pairs`, and the overlap diff.  The
 filter mirrors Bullet's group/mask test both ways: ``(trig_layer &
 other_mask) && (other_layer & trig_mask)``; oneShot deactivation happens
 inside the step.
+
+The sweeps take ``block``, the entities a trigger row sees: the N
+entities form W = N / ``block`` worlds of ``block`` each, and the trigger
+rows W worlds of T slots, so that trigger row w*T + t is tested against
+world w's entities only and the plane is bool[W*T, block].  One world
+(``block`` None or N) is the square bool[T, N] plane.  The flat
+many-world layout (:mod:`parallel.manyworld`) carries its planes so, and
+never forms a pair across worlds.
 """
 
 from __future__ import annotations
@@ -16,60 +24,76 @@ from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics import shapes as sh
 
 
+def _trig(x, w: int):
+    """Trigger rows [W*T, ...] -> [W, T, 1, ...]."""
+    return x.reshape((w, x.shape[0] // w) + tuple(x.shape[1:])).unsqueeze(2)
+
+
+def _ent(x, w: int):
+    """Entity rows [W*B, ...] -> [W, 1, B, ...]."""
+    return x.reshape((w, x.shape[0] // w) + tuple(x.shape[1:])).unsqueeze(1)
+
+
 def _valid(trig_entity, trig_layer, trig_mask, trigger_active, layer, mask,
-           alive, has_collision):
-    """The pairs a trigger may report: a slot in use and active, a live
-    entity with a collider, not the trigger's own entity, layers agreeing
-    both ways."""
-    n = alive.shape[0]
-    layer_ok = (((trig_layer[:, None] & mask[None, :]) != 0)
-                & ((layer[None, :] & trig_mask[:, None]) != 0))
-    ids = torch.arange(n, device=alive.device)
-    return ((trig_entity[:, None] >= 0)
-            & trigger_active[:, None]
-            & alive[None, :]
-            & has_collision[None, :]
-            & (trig_entity[:, None] != ids[None, :])
+           alive, has_collision, w: int):
+    """The pairs a trigger may report, bool[W, T, B]: a slot in use and
+    active, a live entity with a collider, not the trigger's own entity,
+    layers agreeing both ways."""
+    te = _trig(trig_entity, w)
+    ids = _ent(torch.arange(alive.shape[0], device=alive.device), w)
+    layer_ok = (((_trig(trig_layer, w) & _ent(mask, w)) != 0)
+                & ((_ent(layer, w) & _trig(trig_mask, w)) != 0))
+    return ((te >= 0)
+            & _trig(trigger_active, w)
+            & _ent(alive, w)
+            & _ent(has_collision, w)
+            & (te != ids)
             & layer_ok)
 
 
 def trigger_overlaps(
     trig_entity, trig_shape, trig_size, trig_layer, trig_mask, trigger_active,
     pos, quat, shape_type, size, layer, mask, alive, has_collision,
+    block: int | None = None,
 ):
-    """Exact shape overlap bool[T, N] of each trigger volume against each
-    entity's collision shape (box SAT, capsule distance)."""
+    """Exact shape overlap bool[W*T, block] of each trigger volume against
+    each entity of its world's block (box SAT, capsule distance); one
+    world's bool[T, N] by default."""
+    w = 1 if block is None else pos.shape[0] // block
     safe_te = trig_entity.clamp_min(0).to(torch.int64)
     overlap = nf.boolean_overlap_pairs(
-        pos[safe_te][:, None], quat[safe_te][:, None],
-        trig_shape.to(shape_type.dtype)[:, None], trig_size[:, None],
-        pos[None, :], quat[None, :], shape_type[None, :], size[None, :])
-    return overlap & _valid(trig_entity, trig_layer, trig_mask,
-                            trigger_active, layer, mask, alive,
-                            has_collision)
+        _trig(pos[safe_te], w), _trig(quat[safe_te], w),
+        _trig(trig_shape.to(shape_type.dtype), w), _trig(trig_size, w),
+        _ent(pos, w), _ent(quat, w), _ent(shape_type, w), _ent(size, w))
+    overlap = overlap & _valid(trig_entity, trig_layer, trig_mask,
+                               trigger_active, layer, mask, alive,
+                               has_collision, w)
+    return overlap.reshape(-1, overlap.shape[-1])
 
 
 def trigger_aabb_overlaps(
     trig_entity, trig_shape, trig_size, trig_layer, trig_mask, trigger_active,
     pos, quat, shape_type, size, layer, mask, alive, has_collision,
+    block: int | None = None,
 ):
-    """AABB-level overlap bool[T, N] (Bullet's ghost objects report
-    broadphase pairs)."""
-    n = pos.shape[0]
-    safe_te = trig_entity.clamp_min(0).to(torch.int64)
-    tmn, tmx = sh.shape_aabb(pos[safe_te], quat[safe_te],
-                             trig_shape.to(shape_type.dtype), trig_size)
-    emn, emx = sh.shape_aabb(pos, quat, shape_type, size)
-    overlap = torch.ones((tmn.shape[0], n), dtype=torch.bool,
-                         device=pos.device)
-    for j in range(3):
-        # out of place: under ``torch.func.vmap`` the right-hand side is
-        # batched and the unbatched ``ones`` cannot take it in place
-        overlap = overlap & ((tmn[:, j][:, None] <= emx[:, j][None, :])
-                             & (emn[:, j][None, :] <= tmx[:, j][:, None]))
-    return overlap & _valid(trig_entity, trig_layer, trig_mask,
-                            trigger_active, layer, mask, alive,
-                            has_collision)
+    """AABB-level overlap bool[W*T, block] against each trigger's own
+    world's entities (Bullet's ghost objects report broadphase pairs);
+    one world's bool[T, N] by default."""
+    n, t = pos.shape[0], trig_entity.shape[0]
+    w = 1 if block is None else n // block
+    # one AABB pass over the trigger volumes' rows, then the entities'
+    rows = torch.cat([trig_entity.clamp_min(0).to(torch.int64),
+                      torch.arange(n, device=pos.device)])
+    mn, mx = sh.shape_aabb(pos[rows], quat[rows],
+                           torch.cat([trig_shape.to(shape_type.dtype),
+                                      shape_type]),
+                           torch.cat([trig_size, size]))
+    overlap = ((_trig(mn[:t], w) <= _ent(mx[t:], w))
+               & (_ent(mn[t:], w) <= _trig(mx[:t], w))).all(dim=-1)
+    overlap = overlap & _valid(trig_entity, trig_layer, trig_mask,
+                               trigger_active, layer, mask, alive,
+                               has_collision, w)
+    return overlap.reshape(-1, overlap.shape[-1])
 
 
 def diff_events(prev_overlap, now_overlap, trig_one_shot, trigger_active):

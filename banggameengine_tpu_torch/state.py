@@ -72,7 +72,10 @@ class WorldState:
     char_on_ground: Tensor  # bool[N]
 
     # --- triggers ---
-    trigger_overlap: Tensor  # bool[T, N]
+    # bool[T, N] for one world; a batch of W worlds bool[W, T, B]; the flat
+    # many-world layout its per-world blocks bool[W*T, B] (row w*T + t is
+    # world w's slot t against world w's B entities)
+    trigger_overlap: Tensor
     trigger_active: Tensor   # bool[T]
 
     # --- persistent contact cache (warm starting) ---
@@ -162,9 +165,11 @@ class InputFrame:
 class StepEvents:
     """Events produced by one step, as dense tensors."""
 
-    trigger_enter: Tensor  # bool[T, N]
-    trigger_stay: Tensor   # bool[T, N]
-    trigger_exit: Tensor   # bool[T, N]
+    # the shape of the state's trigger_overlap: bool[T, N] for one world,
+    # bool[W*T, B] for the flat many-world layout
+    trigger_enter: Tensor
+    trigger_stay: Tensor
+    trigger_exit: Tensor
     # contact-slot candidates dropped by the per-body budgets this step
     contact_overflow: Tensor  # int32[]
 

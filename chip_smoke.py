@@ -1749,7 +1749,7 @@ def manyworld_part_fns(one, static1, comp_mask, state, inp) -> dict:
     """One flat step and its parts as ``() -> tensor`` calls, each called
     as the step calls it on its flattened state: the character step, the
     box contacts with the solve, and the integration with the trigger
-    sweep over the ``[W*T, W*B]`` planes."""
+    sweep over the per-world ``[W*T, B]`` planes."""
     from banggameengine_tpu_torch.parallel.manyworld import _flat_static
     from banggameengine_tpu_torch.physics import step as ps
     from banggameengine_tpu_torch.state import (

@@ -215,18 +215,147 @@ def test_flatten_unflatten_round_trip():
     want = np.where(feats >= FEAT_STRIDE, feats + off, feats)
     np.testing.assert_array_equal(fs.contact_feat.numpy(),
                                   want.reshape(w * b, -1))
-    # the overlap plane is block-diagonal, as numpy's ov[di, :, di, :]
-    # (the broadcast index dimension first) builds it
-    ov = np.zeros((w, t1, w, b), bool)
-    ov[np.arange(w), :, np.arange(w), :] = bs.trigger_overlap.numpy()
+    # the overlap plane is the per-world blocks, row w*T + t world w's
+    # slot t against its own B entities: the diagonal blocks of the JAX
+    # package's square [W*T, W*B] plane
+    assert fs.trigger_overlap.shape == (w * t1, b)
     np.testing.assert_array_equal(fs.trigger_overlap.numpy(),
-                                  ov.reshape(w * t1, w * b))
+                                  bs.trigger_overlap.numpy().reshape(
+                                      w * t1, b))
     assert fs.pos.shape == (w * b, 3) and fs.time.shape == ()
     _assert_states_equal(convert.world_state_to_numpy(bs),
                          convert.world_state_to_numpy(step.unflatten(fs)))
 
 
+def test_finish_step_refuses_a_group_with_a_square_plane():
+    """A world group beside a trigger plane over every entity would take
+    trigger pairs across worlds: the step tail refuses it."""
+    from banggameengine_tpu_torch.physics.step import _finish_step
+
+    state, static = _port_world()
+    w, b, t1 = 3, static.capacity, static.num_trigger_slots
+    step = manyworld.make_flat_many_world_step(static, w, state.comp_mask)
+    fs = step.flatten(manyworld.replicate_state(state, w))
+    fst = step.flat_static
+    group = manyworld._flat_static(static, w, state.comp_mask)[3]
+    square = dataclasses.replace(fs, trigger_overlap=torch.zeros(
+        (w * t1, w * b), dtype=torch.bool))
+    args = (fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel, fs.char_vel_y,
+            fs.char_on_ground, fs.alive, fs.alive, fs.alive, fst.fixed_dt,
+            True, None, torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="square trigger plane"):
+        _finish_step(square, *args, group=group)
+    # the per-world blocks with the same group take the block sweep
+    out, events = _finish_step(fs, *args, group=group)
+    assert out.trigger_overlap.shape == events.trigger_enter.shape == (
+        w * t1, b)
+
+
 # ---- the port against the JAX package ---------------------------------------
+
+def _shapes_made(fn):
+    """``fn()`` and the (shape, dtype) of every tensor its ops made."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    made = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in jax.tree.leaves(out):
+                if isinstance(t, torch.Tensor):
+                    made.add((tuple(t.shape), t.dtype))
+            return out
+
+    with Record():
+        result = fn()
+    return result, made
+
+
+@pytest.mark.parametrize("trigger_mode", ["aabb", "shape"])
+def test_block_sweep_matches_the_square_planes(trigger_mode):
+    """One flat step of 3 worlds, each with its character and trigger: the
+    port's per-world trigger blocks [W*T, B] and their events equal the
+    diagonal blocks of the JAX package's square [W*T, W*B] planes bit for
+    bit, and JAX's blocks off the diagonal are all false.  World 0's
+    character stands in its trigger (Enter), world 1's too with a box
+    (Stay), world 2's left it (Exit); a box of world 2 left it too."""
+    from banggameengine_tpu.engine import engine_step as jax_engine_step
+    from banggameengine_tpu.physics.step import (
+        scene_census as jax_scene_census,
+    )
+    from banggameengine_tpu.state import WorldState as JaxWorldState
+
+    w = 3
+    jstate, jstatic = jax_build_falling_boxes(**SCENE)
+    state, static = _port_world()
+    b, t1, n = static.capacity, static.num_trigger_slots, w * static.capacity
+    bs = manyworld.replicate_state(state, w)
+    trig_at = bs.pos[0, int(static.trig_entity[0])].clone()
+    bs.pos[0, CHAR_ROW] = bs.pos[1, CHAR_ROW] = trig_at + torch.tensor(
+        [0.0, 0.6, 0.0])
+    bs.pos[1, 0] = trig_at + torch.tensor([0.8, 0.0, -0.5])
+    prev = torch.zeros((w, t1, b), dtype=torch.bool)
+    prev[1, 0, CHAR_ROW] = prev[1, 0, 0] = True
+    prev[2, 0, CHAR_ROW] = prev[2, 0, 3] = True
+    bs.trigger_overlap = prev
+    inp = manyworld.replicate_input(InputFrame.zero("cpu"), w)
+
+    step = manyworld.make_flat_many_world_step(
+        static, w, state.comp_mask, trigger_mode=trigger_mode)
+    (out, ev), made = _shapes_made(
+        lambda: step.flat_step(step.flatten(bs), inp))
+    # nothing of the flat step, flatten or unflatten is a square plane
+    _, made_back = _shapes_made(lambda: step.unflatten(out))
+    for shape in ((w * t1, n), (w, t1, w, b)):
+        assert (shape, torch.bool) not in made | made_back, shape
+    assert out.trigger_overlap.shape == ev.trigger_enter.shape == (w * t1, b)
+
+    # JAX: its flat scene, the square plane as its flatten builds it, one
+    # engine step as its flat factory's step calls it
+    jflat, nb_idx, nb_val, group, cand, shifts = jax_manyworld._flat_static(
+        jstatic, w, np.asarray(jstate.comp_mask))
+    flat_np = convert.world_state_to_numpy(step.flatten(bs))
+    square = np.zeros((w, t1, w, b), bool)
+    square[np.arange(w), :, np.arange(w), :] = prev.numpy()
+    flat_np["trigger_overlap"] = square.reshape(w * t1, n)
+    jfs = JaxWorldState(**{k: jnp.asarray(v) for k, v in flat_np.items()})
+    jinp = JaxInputFrame(**{k: jnp.asarray(v) for k, v in _np(inp).items()})
+
+    def jax_step(fs, binp):
+        return jax_engine_step(
+            fs, binp, jflat, 10, static_neighbors=(nb_idx, nb_val),
+            group=group, char_candidates=cand, broadphase="static",
+            solver_block_size=b, solver_block_shifts=shifts,
+            trigger_mode=trigger_mode, **jax_scene_census(jstatic))
+
+    # compiled without the CPU backend's optimisations, which are most of
+    # the compile's time; what is compared is bools
+    js2, jev = jax.jit(jax_step).lower(jfs, jinp).compile(
+        compiler_options={"xla_backend_optimization_level": 0,
+                          "xla_llvm_disable_expensive_passes": True})(
+        jfs, jinp)
+
+    off = ~np.eye(w, dtype=bool)[:, None, :, None]
+    for name, got, want in (
+            ("trigger_overlap", out.trigger_overlap, js2.trigger_overlap),
+            ("trigger_enter", ev.trigger_enter, jev.trigger_enter),
+            ("trigger_stay", ev.trigger_stay, jev.trigger_stay),
+            ("trigger_exit", ev.trigger_exit, jev.trigger_exit)):
+        sq = np.asarray(want).reshape(w, t1, w, b)
+        np.testing.assert_array_equal(
+            got.numpy().reshape(w, t1, b),
+            sq[np.arange(w), :, np.arange(w), :], err_msg=name)
+        assert not (sq & off).any(), name
+    np.testing.assert_array_equal(out.trigger_active.numpy(),
+                                  np.asarray(js2.trigger_active))
+    # the worlds do what the set-up says
+    enter, stay, exit_ = (e.reshape(w, t1, b)[:, 0] for e in (
+        ev.trigger_enter, ev.trigger_stay, ev.trigger_exit))
+    assert bool(enter[0, CHAR_ROW]) and bool(stay[1, CHAR_ROW])
+    assert bool(stay[1, 0]) and bool(exit_[2, CHAR_ROW])
+    assert bool(exit_[2, 3])
+
 
 @pytest.mark.parametrize("kind", list(INPUTS))
 def test_flat_matches_jax(kind, jax_runs, port_runs):

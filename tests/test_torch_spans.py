@@ -230,8 +230,10 @@ def test_chip_smoke_manyworld_part_fns_run():
     assert list(fns) == ["whole step", "characters", "contacts + solve",
                          "integrate + triggers"]
     n, t = w * static.capacity, w * static.trig_entity.shape[0]
+    # the trigger plane: each world's slots against its own entities
     want = {"whole step": (n, 3), "characters": (n, 3),
-            "contacts + solve": (n, 3), "integrate + triggers": (t, n)}
+            "contacts + solve": (n, 3),
+            "integrate + triggers": (t, static.capacity)}
     for k, fn in fns.items():
         out = fn()
         assert tuple(out.shape) == want[k], k
