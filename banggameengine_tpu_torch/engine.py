@@ -27,6 +27,7 @@ from banggameengine_tpu_torch.ecs.transform import (
     scatter_rows,
     update_world_matrices,
 )
+from banggameengine_tpu_torch.physics.joints import JointSet, JointState
 from banggameengine_tpu_torch.physics.step import physics_step, scene_census
 from banggameengine_tpu_torch.state import (
     InputFrame,
@@ -57,15 +58,16 @@ def engine_step(
     **physics_kwargs,
 ) -> tuple[WorldState, StepEvents]:
     """One fixed simulation step: physics then world-matrix refresh.
-    ``physics_kwargs`` go to :func:`physics_step`."""
-    state, events = physics_step(state, inp, static, solver_iterations,
-                                 **physics_kwargs)
+    ``physics_kwargs`` go to :func:`physics_step`; with ``joints`` there
+    the step returns the joints' new state last, as it does."""
+    state, events, *joint_state = physics_step(
+        state, inp, static, solver_iterations, **physics_kwargs)
     with span("ecs.transforms", state.pos.device):
         world = update_world_matrices(
             visual_positions(state, static), state.quat, state.scale,
             static.parent, static.level_nodes, state.alive,
         )
-    return tree_replace(state, world=world), events
+    return (tree_replace(state, world=world), events, *joint_state)
 
 
 def interpolated_world(prev_state: WorldState, state: WorldState, alpha,
@@ -162,6 +164,7 @@ def make_multi_step_fn(
     static: StaticScene,
     num_steps: int,
     solver_iterations: int = 10,
+    joints: JointSet | None = None,
     **physics_kwargs,
 ) -> Callable[[WorldState, InputFrame], WorldState]:
     """``num_steps`` fixed steps with constant input in one call; returns
@@ -170,7 +173,16 @@ def make_multi_step_fn(
     On the card: one step's graph that writes the state back into its own
     input buffers, replayed ``num_steps`` times (the JAX package's
     ``lax.scan`` in one dispatch).  The state is donated, as in JAX: the
-    returned state is the graph's buffers, valid until the next call."""
+    returned state is the graph's buffers, valid until the next call.
+
+    With ``joints`` (:class:`physics.joints.JointSet`, bound like the
+    scene; the dense route) a call is ``run(state, inp, joint_state) ->
+    (state, joint_state)``: the joints' impulses are carried and donated
+    with the state, and ``joint_state.limit_rows`` counts the limit rows
+    at their bound in the last step."""
+    if joints is not None:
+        return _multi_step_joints(static, num_steps, solver_iterations,
+                                  joints, physics_kwargs)
     program = graphs.Program(
         _bound_step(static, solver_iterations, physics_kwargs),
         donate=True, by_ref=(2,), name="multi_step")
@@ -179,6 +191,31 @@ def make_multi_step_fn(
         if num_steps < 1:
             return state
         return program(state, inp, static, times=num_steps)[0]
+
+    run.program = program
+    return run
+
+
+def _multi_step_joints(static, num_steps, solver_iterations, joints,
+                       physics_kwargs):
+    """:func:`make_multi_step_fn` with joints: the carried state is the
+    pair (state, joint state), the joint set an argument by reference."""
+    fn = _bound_step(static, solver_iterations, physics_kwargs)
+
+    def body(carry, inp, st, js):
+        state, joint_state = carry
+        state, _, joint_state = fn(state, inp, st, joints=js,
+                                   joint_state=joint_state)
+        return ((state, joint_state),)
+
+    program = graphs.Program(body, donate=True, by_ref=(2, 3),
+                             name="multi_step")
+
+    def run(state: WorldState, inp: InputFrame, joint_state: JointState):
+        if num_steps < 1:
+            return state, joint_state
+        return program((state, joint_state), inp, static, joints,
+                       times=num_steps)[0]
 
     run.program = program
     return run

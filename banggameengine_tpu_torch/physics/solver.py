@@ -23,9 +23,12 @@ carries payload.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -135,6 +138,7 @@ def solve_contacts_unified(
     momentum: float,
     iterations: int = 10,
     sor: float = 1.0,
+    joints=None,
 ):
     """Solve the compacted contact set; returns the post-solve (v, w) and
     the accumulated (ln, lt1, lt2) [N, C] for the caller's contact cache.
@@ -150,96 +154,140 @@ def solve_contacts_unified(
     same operations to each, and the three accumulators as one ``[N, C,
     3]`` block: the same arithmetic per element in fewer launches.  The
     impulse ``dln n + dlt1 t1 + dlt2 t2`` is a sum over the direction axis
-    in that order."""
-    is_static = c_b < 0
-    safe_b = c_b.clamp_min(0).to(torch.int64)
+    in that order.
 
-    ra = c_point - pos[:, None]                    # [N, C, 3]
-    rb = c_point - pos[safe_b]
-    t1, t2 = _orthonormal_tangents(c_normal)
-    dirs = torch.stack([c_normal, t1, t2], dim=-2)  # [N, C, 3 dirs, 3]
+    ``joints`` (:class:`joints.JointRows`, the dense route's joint rows)
+    joins the joints' rows to the iterations: each body's split counts its
+    joints beside its contacts, the rows' warm start goes in after the
+    contacts', and each iteration updates the rows from the velocities at
+    its start (span ``physics.joints``), then the contacts from the same
+    velocities (span ``physics.solver``), and adds both changes: one
+    Jacobi step.  The caller then holds no span open, and the call
+    returns the rows' accumulated impulses [J, ROWS] last."""
+    def stage(name):
+        return (contextlib.nullcontext() if joints is None
+                else span(name, v.device))
 
-    im_b = torch.where(is_static, 0.0, inv_m[safe_b])
-    ib = torch.where(is_static[..., None, None], 0.0, inv_i_world[safe_b])
+    with stage("physics.solver"):
+        is_static = c_b < 0
+        safe_b = c_b.clamp_min(0).to(torch.int64)
 
-    # k along each direction: inv_m_a + inv_m_b + d.((I_a (ra x d)) x ra)
-    # + d.((I_b (rb x d)) x rb), floored at 1e-9
-    ra3, rb3 = ra[..., None, :], rb[..., None, :]
-    ang_a = _cross(_matvec(inv_i_world[:, None, None], _cross(ra3, dirs)),
-                   ra3)
-    ang_b = _cross(_matvec(ib[..., None, :, :], _cross(rb3, dirs)), rb3)
-    k = ((inv_m[:, None] + im_b)[..., None]
-         + (dirs * ang_a).sum(dim=-1) + (dirs * ang_b).sum(dim=-1)
-         ).clamp_min(1e-9)                         # [N, C, 3 dirs]
+        ra = c_point - pos[:, None]                    # [N, C, 3]
+        rb = c_point - pos[safe_b]
+        t1, t2 = _orthonormal_tangents(c_normal)
+        dirs = torch.stack([c_normal, t1, t2], dim=-2)  # [N, C, 3 dirs, 3]
 
-    static6 = is_static[..., None]
+        im_b = torch.where(is_static, 0.0, inv_m[safe_b])
+        ib = torch.where(is_static[..., None, None], 0.0,
+                         inv_i_world[safe_b])
 
-    def rel_vel(v_, w_):
-        va = v_[:, None] + _cross(w_[:, None], ra)
-        # the partner's linear and angular velocity in one gather
-        vw_b = torch.where(static6, 0.0, torch.cat([v_, w_], dim=1)[safe_b])
-        return va - (vw_b[..., :3] + _cross(vw_b[..., 3:], rb))
+        # k along each direction: inv_m_a + inv_m_b + d.((I_a (ra x d)) x ra)
+        # + d.((I_b (rb x d)) x rb), floored at 1e-9
+        ra3, rb3 = ra[..., None, :], rb[..., None, :]
+        ang_a = _cross(_matvec(inv_i_world[:, None, None],
+                               _cross(ra3, dirs)), ra3)
+        ang_b = _cross(_matvec(ib[..., None, :, :], _cross(rb3, dirs)), rb3)
+        k = ((inv_m[:, None] + im_b)[..., None]
+             + (dirs * ang_a).sum(dim=-1) + (dirs * ang_b).sum(dim=-1)
+             ).clamp_min(1e-9)                         # [N, C, 3 dirs]
 
-    def along(vr):
-        """The relative velocity along (normal, tangent 1, tangent 2)."""
-        return (vr[..., None, :] * dirs).sum(dim=-1)
+        static6 = is_static[..., None]
 
-    vn0 = along(rel_vel(v, w))[..., 0]
-    bounce = c_e * (-vn0 - RESTITUTION_THRESHOLD).clamp_min(0.0)
-    # f32 / f32, as JAX evaluates BAUMGARTE / dt
-    baum = (torch.full_like(dt, BAUMGARTE) / dt) * (
-        c_depth - PENETRATION_SLOP).clamp_min(0.0)
-    target = torch.maximum(bounce, baum)
+        def rel_vel(v_, w_):
+            va = v_[:, None] + _cross(w_[:, None], ra)
+            # the partner's linear and angular velocity in one gather
+            vw_b = torch.where(static6, 0.0,
+                               torch.cat([v_, w_], dim=1)[safe_b])
+            return va - (vw_b[..., :3] + _cross(vw_b[..., 3:], rb))
 
-    split = c_valid.sum(dim=-1).to(torch.float32).clamp_min(1.0)
-    inv_m_split = (inv_m / split)[:, None]
+        def along(vr):
+            """The relative velocity along (normal, tangent 1, tangent 2)."""
+            return (vr[..., None, :] * dirs).sum(dim=-1)
 
-    def apply(v_, w_, dl):
-        """Add the impulses ``dl`` [N, C, 3 dirs] along the directions."""
-        imp = (dl[..., None] * dirs).sum(dim=-2)   # [N, C, 3]
-        lin = imp.sum(dim=1)
-        ang = _cross(ra, imp).sum(dim=1)
-        return (v_ + lin * inv_m_split,
-                w_ + _matvec(inv_i_world, ang) / split[:, None])
+        vn0 = along(rel_vel(v, w))[..., 0]
+        bounce = c_e * (-vn0 - RESTITUTION_THRESHOLD).clamp_min(0.0)
+        # f32 / f32, as JAX evaluates BAUMGARTE / dt
+        baum = (torch.full_like(dt, BAUMGARTE) / dt) * (
+            c_depth - PENETRATION_SLOP).clamp_min(0.0)
+        target = torch.maximum(bounce, baum)
 
-    # the cached impulses go in before iterating (the restitution target
-    # above already holds the true pre-solve approach speed)
-    if warm is None:
-        lam = torch.zeros_like(k)
-    else:
-        lam = torch.where(
-            c_valid[..., None],
-            torch.stack([warm[0].clamp_min(0.0), warm[1], warm[2]], dim=-1)
-            * WARM_START_FACTOR, 0.0)
-        v, w = apply(v, w, lam)
+        split = c_valid.sum(dim=-1).to(torch.float32)
+        if joints is not None:
+            split = split + joints.count
+        split = split.clamp_min(1.0)
+        inv_m_split = (inv_m / split)[:, None]
+
+        def apply(v_, w_, dl):
+            """Add the impulses ``dl`` [N, C, 3 dirs] along the directions."""
+            imp = (dl[..., None] * dirs).sum(dim=-2)   # [N, C, 3]
+            lin = imp.sum(dim=1)
+            ang = _cross(ra, imp).sum(dim=1)
+            return (v_ + lin * inv_m_split,
+                    w_ + _matvec(inv_i_world, ang) / split[:, None])
+
+        # the cached impulses go in before iterating (the restitution target
+        # above already holds the true pre-solve approach speed)
+        if warm is None:
+            lam = torch.zeros_like(k)
+        else:
+            lam = torch.where(
+                c_valid[..., None],
+                torch.stack([warm[0].clamp_min(0.0), warm[1], warm[2]],
+                            dim=-1) * WARM_START_FACTOR, 0.0)
+            v, w = apply(v, w, lam)
+        # the accumulators (ln, lt1, lt2) as one [N, C, 3] block: each update
+        # is lam - (v_d - target_d) / k_d, the normal's target the bounce
+        # or Baumgarte speed and the tangents' 0; then the normal is clamped
+        # at 0 (a floor of -inf leaves the tangents), and after the heavy-ball
+        # step the tangents at +-mu ln with the normal's new ln.  -(vn -
+        # target) / kn added is (vn - target) / kn subtracted, exactly.
+        tgt = torch.cat([target[..., None], torch.zeros_like(lam[..., 1:])],
+                        dim=-1)
+        floor = torch.where(torch.arange(3, device=lam.device) == 0, 0.0,
+                            -torch.inf).to(lam.dtype)
+        valid3 = c_valid[..., None]
     plam = lam
-    # the accumulators (ln, lt1, lt2) as one [N, C, 3] block: each update
-    # is lam - (v_d - target_d) / k_d, the normal's target the bounce
-    # or Baumgarte speed and the tangents' 0; then the normal is clamped
-    # at 0 (a floor of -inf leaves the tangents), and after the heavy-ball
-    # step the tangents at +-mu ln with the normal's new ln.  -(vn -
-    # target) / kn added is (vn - target) / kn subtracted, exactly.
-    tgt = torch.cat([target[..., None], torch.zeros_like(lam[..., 1:])],
-                    dim=-1)
-    floor = torch.where(torch.arange(3, device=lam.device) == 0, 0.0,
-                        -torch.inf).to(lam.dtype)
-    valid3 = c_valid[..., None]
+    if joints is not None:
+        with stage("physics.joints"):
+            jlam = joints.warm
+            v, w = _add_joints(v, w, joints.body_impulse(jlam), inv_m,
+                               inv_i_world, split)
+        jplam = jlam
 
     for _ in range(iterations):
-        step = along(rel_vel(v, w)) - tgt
-        if sor != 1.0:
-            step = sor * step
-        new = torch.maximum(lam - step / k, floor)
-        if momentum:
-            # heavy-ball extrapolation over the lambda iterates, projected
-            # back onto the cone
-            new = new + momentum * (new - plam)
-        ln_new = new[..., 0].clamp_min(0.0)
-        max_f = (c_mu * torch.where(c_valid, ln_new, lam[..., 0]))[..., None]
-        new = torch.cat([ln_new[..., None],
-                         torch.clamp(new[..., 1:], -max_f, max_f)], dim=-1)
-        dl = torch.where(valid3, new - lam, 0.0)
-        plam = lam
-        lam = torch.where(valid3, new, lam)
-        v, w = apply(v, w, dl)
-    return v, w, lam.unbind(-1)
+        if joints is not None:
+            with stage("physics.joints"):
+                jnew = joints.update(v, w, jlam, jplam, momentum)
+                jimp = joints.body_impulse(jnew - jlam)
+                jplam, jlam = jlam, jnew
+        with stage("physics.solver"):
+            step = along(rel_vel(v, w)) - tgt
+            if sor != 1.0:
+                step = sor * step
+            new = torch.maximum(lam - step / k, floor)
+            if momentum:
+                # heavy-ball extrapolation over the lambda iterates,
+                # projected back onto the cone
+                new = new + momentum * (new - plam)
+            ln_new = new[..., 0].clamp_min(0.0)
+            max_f = (c_mu * torch.where(c_valid, ln_new, lam[..., 0])
+                     )[..., None]
+            new = torch.cat([ln_new[..., None],
+                             torch.clamp(new[..., 1:], -max_f, max_f)],
+                            dim=-1)
+            dl = torch.where(valid3, new - lam, 0.0)
+            plam = lam
+            lam = torch.where(valid3, new, lam)
+            v, w = apply(v, w, dl)
+            if joints is not None:
+                v, w = _add_joints(v, w, jimp, inv_m, inv_i_world, split)
+    if joints is None:
+        return v, w, lam.unbind(-1)
+    return v, w, lam.unbind(-1), jlam
+
+
+def _add_joints(v, w, imp, inv_m, inv_i_world, split):
+    """``v``, ``w`` with the joints' impulses ``imp`` [N, 6] added, each
+    body's share divided by its split."""
+    return (v + imp[:, :3] * (inv_m / split)[:, None],
+            w + _matvec(inv_i_world, imp[:, 3:]) / split[:, None])

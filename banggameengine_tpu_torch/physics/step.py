@@ -43,6 +43,7 @@ from banggameengine_tpu_torch.ecs.transform import scatter_rows
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import character as chr_mod
 from banggameengine_tpu_torch.physics import contact_t
+from banggameengine_tpu_torch.physics import joints as jt
 from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics import shapes as sh_mod
 from banggameengine_tpu_torch.physics import solver as sv
@@ -116,6 +117,8 @@ def physics_step(
     solver_momentum: float = SOLVER_MOMENTUM,
     solver_block_size: int | None = None,
     solver_block_shifts: tuple | None = None,
+    joints: jt.JointSet | None = None,
+    joint_state: jt.JointState | None = None,
 ) -> tuple[WorldState, StepEvents]:
     """One fixed physics step, ``(WorldState, InputFrame, StaticScene) ->
     (WorldState, StepEvents)``.
@@ -157,6 +160,14 @@ def physics_step(
     (exact overlap).  ``any_char``, ``enable_capsule`` and ``any_trig`` are
     the census's; None reads the scene to the host (a step factory does
     that once).
+
+    ``joints`` (:class:`joints.JointSet`) with ``joint_state`` (the
+    joints' impulses from the last step) puts the scene's hinges and
+    cone-twists into the dense route: the jointed pairs leave the pair
+    mask before the neighbor lists are cut to their width, the joints'
+    rows join the unified solve, and each body's damping follows gravity.
+    The step then returns ``(WorldState, StepEvents, JointState)``.
+    Another route given joints raises ValueError.
     """
     if broadphase not in ("dense", "grid", "allpairs", "static"):
         raise ValueError(
@@ -165,6 +176,13 @@ def physics_step(
             "ROADMAP 'Not to port') and 'static'")
     if trigger_mode not in ("aabb", "shape"):
         raise ValueError(f"unknown trigger_mode {trigger_mode!r}")
+    if joints is not None:
+        if broadphase != "dense":
+            raise ValueError(
+                f"joints run on broadphase='dense' only, not "
+                f"{broadphase!r}")
+        if joint_state is None:
+            raise ValueError("joints need their joint_state")
     if any_char is None or enable_capsule is None or any_trig is None:
         census = scene_census(static)
         any_char = census["any_char"] if any_char is None else any_char
@@ -213,6 +231,8 @@ def physics_step(
                           state.lin_vel + torch.stack([zero, gdt, zero]),
                           state.lin_vel)
         ang = state.ang_vel
+        if joints is not None:
+            vel, ang = jt.apply_damping(vel, ang, is_dynamic, joints, dt)
 
         is_char = (state.comp_mask & COMP_CHARACTER) != 0
         # solid = participates in the contact solver (characters are
@@ -224,10 +244,11 @@ def physics_step(
     if broadphase in ("dense", "grid"):
         nl, pair_ok = _neighbor_lists(
             static, pos, quat, solid, is_dynamic, broadphase, max_neighbors,
-            grid_cell_size, grid_table_size, grid_cell_capacity)
-        vel, ang, cache, overflow = _contacts_dense(
+            grid_cell_size, grid_table_size, grid_cell_capacity, joints)
+        vel, ang, cache, overflow, joint_state = _contacts_dense(
             state, static, pos, quat, vel, ang, solid, is_dynamic, nl,
-            pair_ok, enable_capsule, sor=solver_sor, **solve)
+            pair_ok, enable_capsule, sor=solver_sor, joints=joints,
+            joint_state=joint_state, **solve)
     elif broadphase == "allpairs":
         vel, ang, cache, overflow = _contacts_allpairs(
             state, static, pos, quat, vel, ang, solid, is_dynamic,
@@ -237,11 +258,12 @@ def physics_step(
             state, static, pos, quat, vel, ang, solid, is_dynamic,
             static_neighbors, enable_capsule, solver_block_size,
             solver_block_shifts, **solve)
-    return _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
-                        char_on_ground, moving, alive, has_collider, dt,
-                        any_trig, contact_cache=cache,
-                        contact_overflow=overflow, group=group,
-                        trigger_mode=trigger_mode)
+    out = _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
+                       char_on_ground, moving, alive, has_collider, dt,
+                       any_trig, contact_cache=cache,
+                       contact_overflow=overflow, group=group,
+                       trigger_mode=trigger_mode)
+    return out if joints is None else (*out, joint_state)
 
 
 def _step_characters(state, inp, static, pos, quat, obstacle_base,
@@ -437,9 +459,11 @@ def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
 
 
 def _neighbor_lists(static, pos, quat, solid, is_dynamic, broadphase,
-                    max_neighbors, cell_size, table_size, cell_capacity):
+                    max_neighbors, cell_size, table_size, cell_capacity,
+                    joints=None):
     """The dense or grid route's neighbor lists and the validity of each
-    listed pair (solid, layers both ways, at least one dynamic body)."""
+    listed pair (solid, layers both ways, at least one dynamic body; on
+    the dense route, no joint between them)."""
     with span("physics.broadphase", pos.device):
         if broadphase == "dense":
             layer_ok = (
@@ -447,6 +471,9 @@ def _neighbor_lists(static, pos, quat, solid, is_dynamic, broadphase,
                 & ((static.layer[None, :] & static.mask[:, None]) != 0))
             any_dyn = is_dynamic[:, None] | is_dynamic[None, :]
             pair_mask = solid[:, None] & solid[None, :] & layer_ok & any_dyn
+            if joints is not None:
+                pair_mask = pair_mask & ~jt.jointed_pairs(joints,
+                                                          pos.shape[0])
             nl = build_neighbor_lists_dense(
                 pos, quat, static.shape_type, static.shape_size, pair_mask,
                 max_neighbors=min(max_neighbors, 8))
@@ -464,11 +491,13 @@ def _neighbor_lists(static, pos, quat, solid, is_dynamic, broadphase,
 
 def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
                     nl, pair_ok, enable_capsule, iterations, warm_start,
-                    momentum, sor):
+                    momentum, sor, joints=None, joint_state=None):
     """The dense and grid routes' contacts (``step.py:527-623``):
     narrowphase manifolds of each listed pair that ``pair_ok`` passes and
-    of the ground, compaction to the per-body budget, the unified solve.
-    Rows are bodies in id order, ``[N, C]``."""
+    of the ground, compaction to the per-body budget, the unified solve
+    (with the joints' rows, set up in their own span, where ``joints`` is
+    given).  Rows are bodies in id order, ``[N, C]``.  Returns (vel, ang,
+    the contact cache, overflow, the new joint state or None)."""
     n = state.capacity
     with span("physics.narrowphase", pos.device):
         safe_j = nl.idx.clamp_min(0).to(torch.int64)
@@ -525,16 +554,28 @@ def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
                      & (c_f >= 0)[:, :, None]).to(torch.float32)  # [N, C, C0]
             warm = (match[..., None] * state.contact_imp[:, None]).sum(
                 dim=2).unbind(-1)
-        vel, ang, (ln, lt1, lt2) = sv.solve_contacts_unified(
-            vel, ang, pos, static.inv_mass, inv_i_w, c_b, c_pt, c_n, c_d,
-            c_valid, c_mu, c_e, static.fixed_dt, warm, momentum,
-            iterations=iterations, sor=sor)
-        cache = None
-        if warm_start:
-            cache = (c_f, torch.where(
-                c_valid[..., None], torch.stack([ln, lt1, lt2], dim=-1),
-                0.0))
-    return vel, ang, cache, overflow
+        solve = (vel, ang, pos, static.inv_mass, inv_i_w, c_b, c_pt, c_n,
+                 c_d, c_valid, c_mu, c_e, static.fixed_dt, warm, momentum)
+
+        def cache_of(lams):
+            if not warm_start:
+                return None
+            return (c_f, torch.where(c_valid[..., None],
+                                     torch.stack(lams, dim=-1), 0.0))
+
+        if joints is None:
+            vel, ang, lams = sv.solve_contacts_unified(
+                *solve, iterations=iterations, sor=sor)
+            return vel, ang, cache_of(lams), overflow, None
+    with span("physics.joints", pos.device):
+        rows = jt.joint_rows(joints, joint_state, pos, quat, state.alive,
+                             static.inv_mass, inv_i_w, static.fixed_dt)
+    vel, ang, lams, impulse = sv.solve_contacts_unified(
+        *solve, iterations=iterations, sor=sor, joints=rows)
+    with span("physics.solver", pos.device):
+        cache = cache_of(lams)
+    return (vel, ang, cache, overflow,
+            jt.JointState(impulse=impulse, limit_rows=rows.limit_rows))
 
 
 def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,

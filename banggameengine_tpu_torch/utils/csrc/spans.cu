@@ -26,6 +26,7 @@ extern "C" __global__ void bge_span_manyworld_flatten() {}
 extern "C" __global__ void bge_span_manyworld_unflatten() {}
 extern "C" __global__ void bge_span_render_raster() {}
 extern "C" __global__ void bge_span_render_shade() {}
+extern "C" __global__ void bge_span_physics_joints() {}
 extern "C" __global__ void bge_span_end() {}
 
 namespace {
@@ -44,6 +45,7 @@ const Marker kMarkers[] = {
     bge_span_manyworld_unflatten,
     bge_span_render_raster,
     bge_span_render_shade,
+    bge_span_physics_joints,
     bge_span_end,
 };
 

@@ -216,6 +216,7 @@ DEVICE_SPANS = (
     "manyworld.unflatten",
     "render.raster",
     "render.shade",
+    "physics.joints",
 )
 _MARKER_INDEX = {name: i for i, name in enumerate(DEVICE_SPANS)}
 _MARKER_END = len(DEVICE_SPANS)
