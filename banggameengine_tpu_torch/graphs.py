@@ -95,6 +95,7 @@ cpu_graph_class = None
 _COUNTED = (
     ("banggameengine_tpu_torch.physics.broadphase_kernel",
      "neighbor_lists_aabb"),
+    ("banggameengine_tpu_torch.physics.contacts_kernel", "box_contacts"),
     ("banggameengine_tpu_torch.render.raster_walk", "raster_walk"),
     ("banggameengine_tpu_torch.render.resolve", "resolve_tiles_wide"),
     ("banggameengine_tpu_torch.render.raster_resolve",

@@ -6,8 +6,11 @@ to their plain versions.
   walk's and the full-carry raster's contracts, which the main path's
   inputs rarely reach.  Plain numpy from a seed, so the same arrays feed
   the JAX package, the plain PyTorch versions and the CUDA kernels;
-- :func:`sorted_broadphase_inputs` and :func:`recorded_render_inputs`: the
-  inputs the main path itself gives the kernels.
+- :func:`box_contact_cases`: the box contact kernel's inputs at the edges
+  of its contract (ties, parallel edges, the caps and the budget);
+- :func:`sorted_broadphase_inputs`, :func:`sorted_contact_inputs` and
+  :func:`recorded_render_inputs`: the inputs the main path itself gives
+  the kernels.
 
 ``chip_smoke.py``, ``scripts/compare_kernels.py`` and the tests use them;
 no entry point of the port does.
@@ -102,6 +105,124 @@ def broadphase_edge_cases(seed: int = 0) -> dict:
 
     for n in (20, 65):
         cases[f"n{n}"] = (*_random_boxes(rng, n), *_filters(rng, n))
+    return cases
+
+
+def _quat(axis, angle: float) -> np.ndarray:
+    """The unit quaternion (x, y, z, w) of a turn about ``axis``."""
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    return np.float32([*(axis * np.sin(angle / 2)), np.cos(angle / 2)])
+
+
+def listed_pairs(pairs, n: int, k: int):
+    """Neighbor lists (int32[n, k], -1 padded; bool[n, k]) holding each
+    listed pair both ways, in the order given."""
+    idx = np.full((n, k), -1, np.int32)
+    fill = np.zeros(n, np.int64)
+    for a, b in pairs:
+        for i, j in ((a, b), (b, a)):
+            idx[i, fill[i]] = j
+            fill[i] += 1
+    return idx, idx >= 0
+
+
+def box_contact_cases(seed: int = 0) -> dict:
+    """Box contact inputs (pos, quat, half f32[N, 3|4|3], nb_idx
+    int32[N, K], nb_valid bool[N, K], ground_valid bool[N], orig_id
+    int64[N]) by name, for ``contact_t.box_contacts_t``:
+
+    - ``random_k1``, ``_k7``, ``_k8``, ``_k16``: 300 randomly turned boxes
+      packed into a 5 m cube that dips below the ground, each listing its
+      K nearest others; 15 % of slots -1 padded, 10 % of the rest listed
+      but not valid, 20 % of rows off the ground: deep overlaps, pairs
+      over the 4-point cap and bodies over a budget of 12;
+    - ``resting``: a box resting flat on one of its size (the two face
+      axes along y tie; the first, a's, wins), a box resting on a wide
+      slab, both grounded: every edge of a pair parallel to one of the
+      other's, so 3 of its 9 cross axes are skipped;
+    - ``edges``: two boxes turned 45 degrees about z and about x whose
+      edges cross (an edge axis wins: slot 16 holds the edges' closest
+      points), and two boxes turned alike about y, side by side;
+    - ``overflow``: two boxes deep in each other (8 candidates a side), a
+      box with 16 partners around it (over the budget), a box under the
+      ground (8 ground corners);
+    - ``random_k256``, ``random_k257``, ``far_first_k299``: lists as long
+      as a block of the kernel (256 pairs) and longer (its wide form,
+      which takes a list in chunks of 256), over another 300 boxes like
+      the random cases; the last lists every other box farthest first, so
+      its contacts lie in the second chunk.
+    """
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for k in (1, 7, 8, 16):
+        n = 300
+        pos = rng.uniform(-2.5, 2.5, (n, 3)).astype(np.float32)
+        pos[:, 1] += 2.0
+        quat = rng.normal(size=(n, 4))
+        quat = (quat / np.linalg.norm(quat, axis=1, keepdims=True)).astype(
+            np.float32)
+        half = rng.uniform(0.2, 1.0, (n, 3)).astype(np.float32)
+        d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        idx = np.argsort(d2, axis=1, kind="stable")[:, :k].astype(np.int32)
+        idx[rng.random((n, k)) < 0.15] = -1
+        valid = (idx >= 0) & (rng.random((n, k)) >= 0.1)
+        cases[f"random_k{k}"] = (pos, quat, half, idx, valid,
+                                 rng.random(n) >= 0.2,
+                                 rng.permutation(n).astype(np.int64))
+
+    def case(boxes, pairs, k):
+        n = len(boxes)
+        pos = np.float32([b[0] for b in boxes])
+        quat = np.float32([b[1] for b in boxes])
+        half = np.float32([b[2] for b in boxes])
+        idx, valid = listed_pairs(pairs, n, k)
+        return (pos, quat, half, idx, valid, np.ones(n, bool),
+                rng.permutation(n).astype(np.int64))
+
+    ident = np.float32([0, 0, 0, 1])
+    unit = (1.0, 1.0, 1.0)
+    cases["resting"] = case(
+        [((0.0, 0.99, 0.0), ident, unit), ((0.0, 2.98, 0.0), ident, unit),
+         ((10.0, 0.49, 0.0), ident, (3.0, 0.5, 3.0)),
+         ((10.5, 1.98, 0.3), ident, unit)], [(0, 1), (2, 3)], 8)
+    r2 = float(np.sqrt(2.0))
+    yaw = _quat((0, 1, 0), 0.3)
+    cases["edges"] = case(
+        [((0.0, 5.0, 0.0), _quat((0, 0, 1), np.pi / 4), unit),
+         ((0.1, 5.0 + 2 * r2 - 0.05, 0.2), _quat((1, 0, 0), np.pi / 4),
+          unit),
+         ((20.0, 1.0, 0.0), yaw, (1.0, 1.0, 0.5)),
+         ((20.0 + 1.99 * np.cos(0.3), 1.0, -1.99 * np.sin(0.3)), yaw,
+          (1.0, 1.0, 0.5))], [(0, 1), (2, 3)], 8)
+    ring = [((40.0 + 1.5 * np.cos(a), 3.0 + 0.3 * np.sin(3 * a),
+              1.5 * np.sin(a)), _quat((0, 1, 0), a), (0.8, 0.8, 0.8))
+            for a in np.linspace(0.0, 2 * np.pi, 16, endpoint=False)]
+    cases["overflow"] = case(
+        [((0.0, 5.0, 0.0), ident, unit), ((0.2, 6.5, 0.1), ident, unit),
+         ((40.0, 3.0, 0.0), _quat((1, 1, 0), 0.4), (1.2, 1.2, 1.2)),
+         *ring, ((-20.0, -2.0, 0.0), _quat((0, 1, 1), 0.2), unit)],
+        [(0, 1)] + [(2, 3 + i) for i in range(16)], 16)
+
+    n = 300
+    pos = rng.uniform(-2.5, 2.5, (n, 3)).astype(np.float32)
+    pos[:, 1] += 2.0
+    quat = rng.normal(size=(n, 4))
+    quat = (quat / np.linalg.norm(quat, axis=1, keepdims=True)).astype(
+        np.float32)
+    half = rng.uniform(0.2, 1.0, (n, 3)).astype(np.float32)
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    near = np.argsort(d2, axis=1, kind="stable")[:, :n - 1].astype(np.int32)
+    for name, idx in (("random_k256", near[:, :256]),
+                      ("random_k257", near[:, :257]),
+                      ("far_first_k299", near[:, ::-1])):
+        idx = np.ascontiguousarray(idx)
+        idx[rng.random(idx.shape) < 0.15] = -1
+        valid = (idx >= 0) & (rng.random(idx.shape) >= 0.1)
+        cases[name] = (pos, quat, half, idx, valid, rng.random(n) >= 0.2,
+                       rng.permutation(n).astype(np.int64))
     return cases
 
 
@@ -223,6 +344,22 @@ def sorted_broadphase_inputs(state, static):
     dyn = torch.where(solid, is_dyn.to(torch.int32), -1)
     return (mn[order], mx[order], dyn[order], static.layer[order],
             static.mask[order])
+
+
+def sorted_contact_inputs(state, static, k: int = 8):
+    """The box contact inputs of one stress step, in Morton order, as the
+    all-pairs route builds them (the broadphase kernel's lists on the
+    card, its plain version on the CPU): (pos, quat, half, nb_idx,
+    nb_valid, ground_valid, order)."""
+    import torch
+
+    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+
+    mn, mx, dyn, layer, mask = sorted_broadphase_inputs(state, static)
+    order = torch.argsort(bk.morton_key_xz(state.pos), stable=True)
+    nl = bk.neighbor_lists_aabb(mn, mx, dyn, layer, mask, max_neighbors=k)
+    return (state.pos[order], state.quat[order], static.shape_size[order],
+            nl.idx, nl.valid, dyn > 0, order)
 
 
 def render_kernel_modules() -> dict:

@@ -15,6 +15,10 @@ Compaction: where the JAX module moves the c-th valid candidate by a sum
 of one-hot selects, this one finds the candidate's row with a stable sort
 of the validity mask and gathers it.  Both pick the same row, so integer
 outputs are equal and float outputs equal up to the sign of zero.
+
+On the card a box-only call runs as one CUDA kernel
+(``contacts_kernel.box_contacts``); :func:`box_contacts_t_reference` is
+its plain version and runs for CPU tensors and mixed scenes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from banggameengine_tpu_torch import math3d
+from banggameengine_tpu_torch.physics import contacts_kernel
 from banggameengine_tpu_torch.physics.solver import (
     BAUMGARTE,
     PENETRATION_SLOP,
@@ -120,6 +125,33 @@ def _gather_rows(planes: Tensor, rows: Tensor, got: Tensor, fill) -> Tensor:
 
 
 def box_contacts_t(
+    pos: Tensor,        # f32[N,3]
+    quat: Tensor,       # f32[N,4]
+    half: Tensor,       # f32[N,3] box half extents
+    nb_idx: Tensor,     # int32[N,K] partner ids (-1 padded)
+    nb_valid: Tensor,   # bool[N,K]
+    ground_valid: Tensor,  # bool[N] row may contact the ground plane
+    budget: int = 12,
+    orig_id: Tensor | None = None,  # int[N] original (unsorted) body ids
+    shape_type: Tensor | None = None,  # int8[N] SHAPE_BOX/SHAPE_CAPSULE
+):
+    """Box-box SAT manifolds + ground contacts, compacted per body: the
+    contract of :func:`box_contacts_t_reference`.
+
+    CUDA tensors of a box-only call (no ``shape_type``) go through the
+    CUDA kernel (``contacts_kernel.box_contacts``, any K, which raises
+    ValueError on inputs it does not take, such as a wrong dtype); CPU
+    tensors and mixed scenes through the plain version.
+    """
+    if pos.device.type == "cuda" and shape_type is None:
+        return contacts_kernel.box_contacts(
+            pos, quat, half, nb_idx, nb_valid, ground_valid, budget, orig_id)
+    return box_contacts_t_reference(
+        pos, quat, half, nb_idx, nb_valid, ground_valid, budget, orig_id,
+        shape_type)
+
+
+def box_contacts_t_reference(
     pos: Tensor,        # f32[N,3]
     quat: Tensor,       # f32[N,4]
     half: Tensor,       # f32[N,3] box half extents

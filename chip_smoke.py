@@ -16,10 +16,11 @@ phase checks leaves out the launches of each capture's eager warm-up
 run eagerly (``graphs.eager()``).  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles the six kernels for sm_90a, all at once
+2. build: compiles the seven kernels for sm_90a, all at once
    (``physics/csrc/neighbor_lists.cu``, ``render/csrc/raster_walk.cu``,
    ``render/csrc/resolve_wide.cu``, ``render/csrc/raster_resolve.cu``,
-   ``render/csrc/raster_tile.cu``, ``scripts/csrc/gather_rows.cu``);
+   ``render/csrc/raster_tile.cu``, ``scripts/csrc/gather_rows.cu``,
+   ``physics/csrc/box_contacts.cu``);
 3. kernel vs plain: the broadphase kernel against its plain PyTorch
    version, exactly equal (idx, count, overflow; through the wrapper and
    on the raw boxes) on the stress scene at step 0 and after 200 steps, a
@@ -33,10 +34,17 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
 4. slice: 200 steps of the 10k-box scene through
    ``make_multi_step_fn(static, 50, broadphase="allpairs", max_neighbors=8)``
    with the kernel, with no host synchronisation (CUDA sync debug mode
-   "error"); the kernel launches are counted; the state is finite,
-   above the ground and bit-equal to the same 200 steps taken with the
-   plain broadphase; a 32-box scene tracks the JAX package's trajectory
-   (``tests/data/stress32_jax_golden.json``);
+   "error"); the launches of kernels #1 and #8 (the box contacts) are
+   counted, one each a step; the state is finite, above the ground and
+   bit-equal to the same 200 steps taken with the plain broadphase and
+   the plain box contacts; a 32-box scene tracks the JAX package's
+   trajectory (``tests/data/stress32_jax_golden.json``); then kernel #8
+   against its plain version, every output exactly equal, on the inputs
+   that eager steps hand it (recorded in ``box_contacts_t``): the stress
+   step at step 0 and after 200 steps (N=10,000, K=8), the packed pile
+   and the flat many-world step at ``ROLLOUT_WORLDS`` worlds after 200
+   steps, its launches counted there too (N=65,536, K=7); the kernel's
+   device time on each, the plain version's and the bound;
 5. times: the broadphase kernel alone on stress cases a and b (its union
    pre-pass and main kernel, two launches a call), the card's own time
    through ``cuda_idx_count`` (see below) and one call by CUDA events,
@@ -109,11 +117,11 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    launches, busy share, longest gaps) and on the gather alone; the
    gather kernel and its two library calls by the card's own time.  Every
    timer is ``banggameengine_tpu_torch/utils/profiling.py``'s;
-15. the many-world slice, no hand kernel on it:
+15. the many-world slice, kernel #8 its only hand kernel:
    ``parallel.make_flat_many_world_step`` at 1,000 worlds of 8 boxes, a
    character and a trigger (16,000 entities in one flat world): 200 steps
    in 4 dispatches of 50 with zero input and again with per-world input
-   (seeded), no host synchronisation and no hand-kernel launch; the
+   (seeded), no host synchronisation and one launch of kernel #8 a step; the
    states finite and above the ground; the zero-input worlds bit-equal
    to world 0, the per-world characters apart; 50 one-step dispatches
    bit-equal to one 50-step dispatch; a 4-world run against the JAX
@@ -213,7 +221,8 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    the frames' times.  Phase 16 prints the demo's launches a step beside
    the planar character step's;
 20. the sharded modes, the native loader and the windows, no hand kernel
-   on them, on a one-rank NCCL group (``parallel.ranks.init_rank``); each
+   on them but kernel #8 on the flat step's, on a one-rank NCCL group
+   (``parallel.ranks.init_rank``); each
    sharded program runs as a CUDA graph with its collectives inside, and
    through ``graphs.eager()`` from the same start, every output of every
    call bit-equal between the two routes with no host sync in a call,
@@ -275,7 +284,8 @@ plain versions take milliseconds).  Each kernel's bound is the larger
 of its bytes (each input read once, each output written once) over 3.35
 TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
 inputs as the work they need: the pairs that the broadphase's unions and
-the raster kernels' cover boxes keep, not every pair.  The line before
+the raster kernels' cover boxes keep, not every pair (kernel #8: every
+listed pair, ``CONTACT_PAIR_OPS`` each).  The line before
 the last is the kernel table as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check raises, so the run exits non-zero
 and prints no result.  Without a CUDA device it exits 1.  Phases 16 to
@@ -339,6 +349,14 @@ TILE_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_tile.cu"
 TILE_TPU_KERNEL = "banggameengine_tpu/render/raster_pallas.py:27"
 GATHER_SOURCE = "banggameengine_tpu_torch/scripts/csrc/gather_rows.cu"
 GATHER_TPU_KERNEL = "scripts/profile_shade_parts.py:93"
+CONTACTS_SOURCE = "banggameengine_tpu_torch/physics/csrc/box_contacts.cu"
+# no Pallas kernel: XLA fuses the JAX package's box_contacts_t
+CONTACTS_TPU_FUNCTION = "banggameengine_tpu/physics/contact_t.py:104"
+# f32 operations per listed pair of the box contacts: both rotations
+# (~60), the SAT's 15 axes (~500), the 16 corners against the other box
+# (~700), slot 16 and the candidates kept (~140)
+CONTACT_PAIR_OPS = 1400
+ROLLOUT_WORLDS = 4096   # the flat step of the rollout cell: 65,536 rows
 # a probe's f32 sum against the same sum in f64: within this share of the
 # sum of its terms' magnitudes (up to 2 M terms, summed in another order)
 PROBE_RTOL = 1e-5
@@ -500,6 +518,44 @@ def plain_broadphase():
         bk.neighbor_lists_aabb = kernel
 
 
+@contextlib.contextmanager
+def _contacts_route(route):
+    """The factories run eagerly inside, their box contacts through
+    ``route`` in place of ``contact_t.box_contacts_t``."""
+    from banggameengine_tpu_torch.physics import contact_t
+
+    saved = contact_t.box_contacts_t
+    contact_t.box_contacts_t = route
+    try:
+        with graphs.eager():
+            yield
+    finally:
+        contact_t.box_contacts_t = saved
+
+
+def plain_contacts():
+    """Route the step's box contacts through the plain PyTorch version,
+    for the comparison runs only (eagerly, as :func:`plain_broadphase`)."""
+    from banggameengine_tpu_torch.physics import contact_t
+
+    return _contacts_route(contact_t.box_contacts_t_reference)
+
+
+def recorded_contacts(calls: list):
+    """Run the factories eagerly and append each call of
+    ``contact_t.box_contacts_t`` inside to ``calls`` as (args, kwargs):
+    the inputs the main path hands kernel #8."""
+    from banggameengine_tpu_torch.physics import contact_t
+
+    route = contact_t.box_contacts_t
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return route(*args, **kwargs)
+
+    return _contacts_route(recording)
+
+
 def own(tree):
     """A copy of ``tree`` that the caller owns: a donating program's result
     is its buffers, which its next call overwrites.  (Not counted in
@@ -535,17 +591,20 @@ def replayed_counts() -> dict:
 def hand_launches() -> int:
     """Launches of every hand kernel since the counts were last set to 0."""
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.scripts import gather_rows as gr
 
-    return (bk.neighbor_lists_aabb.launches + gr.gather_rows_u8.launches
-            + sum(launch_counts().values()))
+    return (bk.neighbor_lists_aabb.launches + ck.box_contacts.launches
+            + gr.gather_rows_u8.launches + sum(launch_counts().values()))
 
 
 def reset_hand_launches() -> None:
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.scripts import gather_rows as gr
 
     bk.neighbor_lists_aabb.launches = 0
+    ck.box_contacts.launches = 0
     gr.gather_rows_u8.launches = 0
     graphs.warmup_launches.clear()
     reset_launch_counts()
@@ -683,6 +742,18 @@ def broadphase_bound(mn, mx) -> tuple[float, str]:
     return bound_ms(36 * n + 4 * (MAX_NEIGHBORS + 1) * n, ops)
 
 
+def contacts_bound(args, budget: int, orig_id) -> tuple[float, str]:
+    """Kernel #8: each input read once (poses, extents, lists, flags and
+    ids), the ``[budget, N]`` rows written once; ``CONTACT_PAIR_OPS``
+    operations a listed pair."""
+    pos, quat, half, nb_idx, nb_valid, ground_valid = args
+    n, k = nb_idx.shape
+    ids = 0 if orig_id is None else orig_id.element_size()
+    n_in = 40 * n + 5 * n * k + n + ids * n
+    n_out = budget * n * (33 + (4 if ids else 0)) + 4
+    return bound_ms(n_in + n_out, CONTACT_PAIR_OPS * int(nb_valid.sum()))
+
+
 def random_walk_case(n_tiles: int, k_pad: int, tiles_x: int, seed: int,
                      device):
     """Random triangles over each tile, counts 0..k_pad, rows at and past
@@ -758,6 +829,105 @@ def random_tile_case(n: int, k: int, tiles_x: int, seed: int, device):
             t(pack[..., 9].astype(np.int32)), tiles_x)
 
 
+def contacts_phase(dev, card: str, static, state0, state, inp,
+                   launches: int) -> dict:
+    """Phase 4's check of kernel #8, the box contacts, on the inputs that
+    eager steps of the main path hand ``box_contacts_t``: the stress step
+    at step 0 and after 200 steps (N=10,000, K=8; few boxes touch yet),
+    phase 3's packed pile (N=96, every box in contact) and the flat
+    many-world step of ``ROLLOUT_WORLDS`` worlds after 200 steps of its
+    own, whose launches are counted (N=65,536, K=7).  Every output of the kernel
+    exactly equal to its plain version's; the kernel's device time on
+    each, the plain version's and the bound.  Returns the kernel's row of
+    the kernel table (its times on the stress step's inputs at step 0,
+    ``launches`` phase 4's)."""
+    from banggameengine_tpu_torch.engine import make_step_fn
+    from banggameengine_tpu_torch.parallel.manyworld import (
+        make_flat_many_world_step, replicate_input, replicate_state)
+    from banggameengine_tpu_torch.physics import contact_t
+    from banggameengine_tpu_torch.physics import contacts_kernel as ck
+    from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
+    from banggameengine_tpu_torch.state import InputFrame
+
+    calls = []
+    step = make_step_fn(static, broadphase="allpairs",
+                        max_neighbors=MAX_NEIGHBORS)
+    pile, pile_static = packed_pile(dev)
+    with recorded_contacts(calls):
+        step(state0, inp)
+        step(state, inp)
+        make_step_fn(pile_static, broadphase="allpairs",
+                     max_neighbors=MAX_NEIGHBORS)(pile, inp)
+
+    # the rollout's flat step: 200 steps through its graphs, then one
+    # eager step recorded
+    w = ROLLOUT_WORLDS
+    state1, static1 = build_falling_boxes(**MW_SCENE, device=dev)
+    run = make_flat_many_world_step(static1, w, state1.comp_mask,
+                                    num_steps=STEPS_PER_DISPATCH)
+    one = make_flat_many_world_step(static1, w, state1.comp_mask)
+    zero = replicate_input(InputFrame.zero(dev), w)
+    ck.box_contacts.launches = 0
+    graphs.warmup_launches.clear()
+    steps = DISPATCHES * STEPS_PER_DISPATCH
+    with no_host_sync():
+        flat = replicate_state(state1, w)
+        for _ in range(DISPATCHES):
+            flat = run(flat, zero)
+    torch.cuda.synchronize()
+    flat_launches = ck.box_contacts.launches
+    flat_warm = graphs.warmup_launches["box_contacts"]
+    check(flat_launches - flat_warm == steps,
+          f"the flat step at {w} worlds launched kernel #8 {flat_launches} "
+          f"times ({flat_warm} in the capture's warm-up) in {steps} steps")
+    with recorded_contacts(calls):
+        one(flat, zero)
+    print(f"[contacts] the flat many-world step at {w} worlds: {steps} "
+          f"steps in {DISPATCHES} dispatches of {STEPS_PER_DISPATCH} (no "
+          f"host sync), kernel #8 launched {flat_launches} times "
+          f"({flat_warm} in the capture's warm-up)")
+
+    names = (f"stress {N_STRESS}, step 0", f"stress {N_STRESS}, step {steps}",
+             "packed 96-box pile", f"flat {w} worlds, step {steps}")
+    check(len(calls) == len(names),
+          f"kernel #8: {len(calls)} box_contacts_t calls recorded")
+    rows = []
+    for name, (args, kw) in zip(names, calls):
+        check(kw.get("shape_type") is None, f"kernel #8, {name}: mixed call")
+        budget, orig = kw["budget"], kw["orig_id"]
+        n, k = args[3].shape
+        got = ck.box_contacts(*args, budget=budget, orig_id=orig)
+        want = contact_t.box_contacts_t_reference(*args, **kw)
+        torch.cuda.synchronize()
+        check(len(got) == len(want)
+              and all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(got, want)),
+              f"kernel #8, {name}: differs from the plain version")
+        ms = device_ms(lambda: ck.box_contacts(*args, budget=budget,
+                                               orig_id=orig))
+        plain_ms = measure_throughput(
+            lambda: contact_t.box_contacts_t_reference(*args, **kw),
+            calls=5, warmup=2) * 1e3
+        bound = contacts_bound(args, budget, orig)
+        prt, valid = want[0], want[8]
+        print(f"[contacts] kernel #8 vs plain, {name} (N={n}, K={k}, "
+              f"budget {budget}, feature ids "
+              f"{'on' if orig is not None else 'off'}): every output exactly "
+              f"equal ({int(args[4].sum())} listed pairs, "
+              f"{int((valid & (prt >= 0)).sum())} pair and "
+              f"{int((valid & (prt < 0)).sum())} ground contacts, overflow "
+              f"{int(want[9])}); kernel {ms:.4f} ms of device time, plain "
+              f"{plain_ms:.3f} ms a call (events), bound {bound[0]:.4f} ms "
+              f"({bound[1]}) {card}")
+        rows.append((ms, plain_ms, bound))
+    ms, plain_ms, bound = rows[0]
+    return {"name": "box_contacts", "route": "cuda",
+            "source": CONTACTS_SOURCE, "replaces": CONTACTS_TPU_FUNCTION,
+            "launches": launches, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
 def render_phases(dev, card: str, stress_state, static,
                   build_s) -> tuple[list[dict], dict]:
     """Phases 6-9: the render slice.  Returns the walk's and the resolve's
@@ -765,6 +935,7 @@ def render_phases(dev, card: str, stress_state, static,
     kernel inputs the route phases reuse."""
     from banggameengine_tpu_torch import convert
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.render import raster_walk as rwk
     from banggameengine_tpu_torch.render import resolve as rsv
     from banggameengine_tpu_torch.render.camera import Camera
@@ -935,6 +1106,7 @@ def render_phases(dev, card: str, stress_state, static,
     inp = InputFrame.zero()
     state = stress_state
     bk.neighbor_lists_aabb.launches = 0
+    ck.box_contacts.launches = 0
     reset_launch_counts()
     graphs.warmup_launches.clear()
     t0 = time.perf_counter()
@@ -948,10 +1120,12 @@ def render_phases(dev, card: str, stress_state, static,
     torch.cuda.synchronize()
     tick_s = time.perf_counter() - t0
     launches = {"neighbor_lists": bk.neighbor_lists_aabb.launches,
+                "box_contacts": ck.box_contacts.launches,
                 "raster_walk": rwk.raster_walk.launches,
                 "resolve_wide": rsv.resolve_tiles_wide.launches}
     warm = {k: graphs.warmup_launches[w] for k, w in (
         ("neighbor_lists", "neighbor_lists_aabb"),
+        ("box_contacts", "box_contacts"),
         ("raster_walk", "raster_walk"),
         ("resolve_wide", "resolve_tiles_wide"))}
     check(all(n - warm[k] == FRAME_TICKS for k, n in launches.items()),
@@ -961,7 +1135,7 @@ def render_phases(dev, card: str, stress_state, static,
           and bool(torch.isfinite(state.pos).all()),
           "tick: bad frame or non-finite state")
     s_k, img_k, _ = tick(state, inp, *tick_args)
-    with plain_broadphase(), plain_render_kernels():
+    with plain_broadphase(), plain_contacts(), plain_render_kernels():
         s_p, img_p, _ = tick(state, inp, *tick_args)
     torch.cuda.synchronize()
     check(torch.equal(img_k, img_p), "tick frame differs from the plain one")
@@ -1548,7 +1722,8 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
 
 def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
     """Phase 15: the flat many-world step at 1,000 worlds of 8 boxes, a
-    character and a trigger (no hand kernel on this path)."""
+    character and a trigger (kernel #8 the only hand kernel on this path,
+    once a step)."""
     from banggameengine_tpu_torch.parallel.manyworld import (
         make_flat_many_world_step, replicate_input, replicate_state)
     from banggameengine_tpu_torch.physics import shapes
@@ -1588,7 +1763,8 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
               f"{what}: a box corner went through the ground: {lowest}")
         return lowest
 
-    # the run: 200 steps, 4 dispatches of 50, no host sync, no hand kernel
+    # the run: 200 steps, 4 dispatches of 50, no host sync, kernel #8 the
+    # only hand kernel
     reset_hand_launches()
     steps = DISPATCHES * STEPS_PER_DISPATCH
     t0 = time.perf_counter()
@@ -1605,7 +1781,12 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
     hand = hand_launches()
-    check(hand == 0, f"the many-world path launched {hand} hand kernels")
+    box = _hand_counts()["box_contacts"]
+    box_warm = _hand_counts(warm=True)["box_contacts"]
+    check(hand == box and box - box_warm == 2 * steps,
+          f"the many-world path launched {hand} hand kernels, kernel #8 "
+          f"{box} times ({box_warm} in the capture's warm-up) in "
+          f"{2 * steps} steps")
     lowest = checked(state, "zero input")
     check(state.step_idx.tolist() == [steps] * w,
           "step_idx not in lockstep")
@@ -1616,8 +1797,9 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
           f"character and a trigger each), factory built in {build_s:.2f} s; "
           f"{steps} steps in {DISPATCHES} dispatches of "
           f"{STEPS_PER_DISPATCH}, zero input, then again with per-world "
-          f"input ({slice_s:.1f} s wall for both, no host sync, no hand "
-          f"kernel launched): state finite, lowest box corner "
+          f"input ({slice_s:.1f} s wall for both, no host sync, kernel #8 "
+          f"the only hand kernel, {box - box_warm} launches through the "
+          f"replays): state finite, lowest box corner "
           f"{lowest:.4f} > -0.08, characters on the ground {grounded} of "
           f"{w}, contact_overflow of step {steps + 1}: "
           f"{int(events.contact_overflow)}")
@@ -2928,7 +3110,8 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
     step's world mesh, the fully sharded world, the entity-sharded
     contact phase, all on a one-rank NCCL group, each a CUDA graph held
     bit-equal to its eager route; the native OBJ loader and the windows;
-    ``dryrun_multichip(1)`` (no hand kernel on these paths)."""
+    ``dryrun_multichip(1)`` (no hand kernel on these paths but kernel #8
+    on the flat step's)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -3313,12 +3496,15 @@ def _hand_counts(warm: bool = False) -> dict:
     """Every path kernel's launches since the counts were set to 0, or
     (``warm``) those of them made in the captures' eager warm-ups."""
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import contacts_kernel as ck
 
     if warm:
         return {"neighbor_lists": graphs.warmup_launches[
-            "neighbor_lists_aabb"], **warmup_counts()}
+            "neighbor_lists_aabb"],
+            "box_contacts": graphs.warmup_launches["box_contacts"],
+            **warmup_counts()}
     return {"neighbor_lists": bk.neighbor_lists_aabb.launches,
-            **launch_counts()}
+            "box_contacts": ck.box_contacts.launches, **launch_counts()}
 
 
 def _route_run(runner, n: int, eager: bool, sync_free: bool) -> dict:
@@ -3426,9 +3612,10 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
                  views: dict) -> None:
     """Phase 21: every factory of the JAX package's one-dispatch programs,
     through its CUDA graphs and through ``graphs.eager()`` in the same
-    run, from the same start: the stress multi-step (kernel #1), the tick
-    (#1, #3, #2) and its merged form, the fused (#4) and flat (#5) frames,
-    the flat and vmapped many-world steps at 1,000 worlds, the demo step,
+    run, from the same start: the stress multi-step (kernels #1, #8), the
+    tick (#1, #8, #3, #2) and its merged form, the fused (#4) and flat (#5)
+    frames, the flat (#8) and vmapped many-world steps at 1,000 worlds, the
+    demo step,
     the app's fused and default display frames, a hot reload and a spawn
     that grows the level table."""
     from banggameengine_tpu_torch.app.application import Application
@@ -3458,7 +3645,8 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
         f"stress multi-step, {N_STRESS} boxes, {STEPS_PER_DISPATCH} steps a "
         f"call (one step's graph replayed)", card,
         _chain(stress_run, stress_state, inp), 2,
-        _ops_of(stress_run, stress_state, inp), kernels=("neighbor_lists",))
+        _ops_of(stress_run, stress_state, inp),
+        kernels=("neighbor_lists", "box_contacts"))
     check(res["stress"]["graph_host"] <= G_STRESS_HOST_MAX,
           f"graphs: a {STEPS_PER_DISPATCH}-step stress dispatch took "
           f"{res['stress']['graph_host']} host launches")
@@ -3480,7 +3668,7 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
             card,
             _chain(tick, stress_state, inp, *tick_args), G_CALLS,
             _ops_of(tick, stress_state, inp, *tick_args),
-            kernels=("neighbor_lists", "walk", "resolve"))
+            kernels=("neighbor_lists", "box_contacts", "walk", "resolve"))
 
     # the fused and flat frames of the showcase
     show_rs, show_args, _ = views["showcase"]
@@ -3515,10 +3703,12 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
                                         num_steps=G_MW_STEPS)
     vmapped = mw.make_sharded_many_world_step(static1, None,
                                               num_steps=G_MW_STEPS)
-    for key, fn in (("flat", flat), ("vmapped", vmapped)):
+    for key, fn, used in (("flat", flat, ("box_contacts",)),
+                          ("vmapped", vmapped, ())):
         res[f"mw_{key}"] = _compare_routes(
             f"{key} many-world step, {w} worlds, {G_MW_STEPS} steps a call",
-            card, _chain(fn, bs0, drive), 2, _ops_of(fn, bs0, drive))
+            card, _chain(fn, bs0, drive), 2, _ops_of(fn, bs0, drive),
+            kernels=used)
 
     # the flat call against its traced device time: a one-step call is
     # flatten, the flat step and unflatten (three graphs), plus the copies
@@ -3653,6 +3843,7 @@ def main() -> int:
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn)
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+    from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
     from banggameengine_tpu_torch.scripts import gather_rows as gr
@@ -3682,7 +3873,7 @@ def main() -> int:
     build_s = build_in_parallel([bk.load_kernel_library] + [
         render_mods[k][0].load_kernel_library
         for k in ("walk", "resolve", "fused", "tile")]
-        + [gr.load_kernel_library])
+        + [gr.load_kernel_library, ck.load_kernel_library])
     print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
           f"{build_s[0]:.1f} s ({len(build_s)} libraries in parallel, "
           f"{time.perf_counter() - t0:.1f} s in all)")
@@ -3694,9 +3885,9 @@ def main() -> int:
                              broadphase="allpairs",
                              max_neighbors=MAX_NEIGHBORS)
 
-    # the 200-step run with the plain broadphase, for case (b) and for the
-    # bit-equality check of phase 4
-    with plain_broadphase():
+    # the 200-step run with the plain broadphase and box contacts, for case
+    # (b) and for the bit-equality check of phase 4
+    with plain_broadphase(), plain_contacts():
         plain_state = state0
         for _ in range(DISPATCHES):
             plain_state = run(plain_state, inp)
@@ -3760,6 +3951,7 @@ def main() -> int:
     # first dispatch captures it (its eager warm-up launches the kernel
     # once more)
     bk.neighbor_lists_aabb.launches = 0
+    ck.box_contacts.launches = 0
     graphs.warmup_launches.clear()
     state = state0
     t0 = time.perf_counter()
@@ -3774,10 +3966,15 @@ def main() -> int:
     slice_s = time.perf_counter() - t0
     launches = bk.neighbor_lists_aabb.launches
     warm = graphs.warmup_launches["neighbor_lists_aabb"]
+    box_launches = ck.box_contacts.launches
+    box_warm = graphs.warmup_launches["box_contacts"]
     steps = DISPATCHES * STEPS_PER_DISPATCH
     check(launches - warm == steps,
           f"kernel launched {launches} times ({warm} in the capture's "
           f"warm-up) in {steps} steps")
+    check(box_launches - box_warm == steps,
+          f"kernel #8 launched {box_launches} times ({box_warm} in the "
+          f"capture's warm-up) in {steps} steps")
     alive = state.alive
     check(bool(torch.isfinite(state.pos).all())
           and bool(torch.isfinite(state.lin_vel).all())
@@ -3797,12 +3994,14 @@ def main() -> int:
           f"dispatches of {STEPS_PER_DISPATCH} ({slice_s:.1f} s wall, no "
           f"host sync, one step's graph replayed): "
           f"{launches} kernel launches ({warm} in the capture's warm-up), "
-          f"state finite, lowest corner "
+          f"kernel #8 {box_launches} ({box_warm}), state finite, lowest "
+          f"corner "
           f"{lowest:.4f} > -0.08, step_idx {int(state.step_idx)}, "
           f"contact_overflow of step {steps + 1}: "
           f"{int(events.contact_overflow)}")
     print(f"[slice] pos, quat, lin_vel, ang_vel, contact cache bit-equal to "
-          f"the same {steps} steps with the plain broadphase")
+          f"the same {steps} steps with the plain broadphase and box "
+          f"contacts")
 
     with open(GOLDEN) as f:
         golden = json.load(f)
@@ -3825,6 +4024,9 @@ def main() -> int:
                  else "")
         print(f"[reference] 32 boxes vs the JAX package at step {i}: "
               f"{feats}max |pos - JAX| {err:.3g} (< {GOLDEN_ATOL})")
+
+    contacts = contacts_phase(dev, card, static, state0, state, inp,
+                              box_launches)
 
     # ---- 5. times -------------------------------------------------------
     mn, mx, dyn, layer, mask = cases[0][1]
@@ -3884,7 +4086,7 @@ def main() -> int:
         "replaces": TPU_KERNEL, "launches": launches,
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bp_bound[0], "bound_by": bp_bound[1], "library_ms": None,
-    }] + render + routes + profiling}))
+    }, contacts] + render + routes + profiling}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

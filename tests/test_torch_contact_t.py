@@ -23,7 +23,10 @@ from banggameengine_tpu.scene.synthetic import (
     build_falling_boxes as jax_build_falling_boxes,
 )
 from banggameengine_tpu.state import InputFrame
-from banggameengine_tpu_torch.physics import contact_t
+from banggameengine_tpu_torch import kernel_cases
+from banggameengine_tpu_torch.physics import contact_t, contacts_kernel
+from banggameengine_tpu_torch.state import FEAT_STRIDE as FEAT
+from banggameengine_tpu_torch.state import SHAPE_BOX
 
 NAMES = ("c_prt", "c_ptx", "c_pty", "c_ptz", "c_nx", "c_ny", "c_nz", "c_dep",
          "c_valid", "overflow", "c_feat")
@@ -149,3 +152,113 @@ def test_unported_options_raise(sorted_scene):
     block = contact_t.solve_contacts_t(*args, block_size=8)
     gather = contact_t.solve_contacts_t(*args)
     assert all(torch.equal(a, b) for a, b in zip(block, gather))
+
+
+# ---- the contract the CUDA kernel copies (physics/csrc/box_contacts.cu) ----
+
+def _boxes(centres, halves, pairs, k, orig):
+    """Axis-aligned boxes with each listed pair in both rows' lists, in the
+    order given, -1 padded to K (``kernel_cases.listed_pairs``)."""
+    n = len(centres)
+    idx, valid = map(torch.as_tensor, kernel_cases.listed_pairs(pairs, n, k))
+    quat = torch.tensor([[0.0, 0.0, 0.0, 1.0]] * n)
+    return (torch.tensor(centres), quat, torch.tensor(halves), idx, valid,
+            torch.ones(n, dtype=torch.bool),
+            torch.tensor(orig, dtype=torch.int64))
+
+
+def _corner(centre, half, c):
+    """Corner c of an axis-aligned box (sign bits x, y, z = bits 2, 1, 0)."""
+    return [centre[a] + (half[a] if (c >> (2 - a)) & 1 else -half[a])
+            for a in range(3)]
+
+
+def _expect_rows(out, body, rows):
+    """Row ``body`` of the compacted contacts holds ``rows`` = [(partner,
+    feature id, point, normal, depth)] in order, then nothing valid."""
+    prt, pts, nrm, dep, valid, feat = (out[0], out[1:4], out[4:7], out[7],
+                                       out[8], out[10])
+    assert int(valid[:, body].sum()) == len(rows)
+    for s, (p, f, pt, n, d) in enumerate(rows):
+        assert bool(valid[s, body])
+        assert (int(prt[s, body]), int(feat[s, body])) == (p, f)
+        got = [float(c[s, body]) for c in pts]
+        np.testing.assert_allclose(got, pt, atol=1e-6)
+        assert [float(c[s, body]) for c in nrm] == n
+        assert abs(float(dep[s, body]) - d) < 1e-6
+    assert (prt[len(rows):, body] == -1).all()
+    assert (feat[len(rows):, body] == -1).all()
+
+
+def _box_on_box(monkeypatch):
+    """A unit box 0.02 m into a wide slab: its 4 lower corners (slots 0, 1,
+    4, 5) against the slab; the slab's row holds the same points as slots
+    8, 9, 12, 13 (the partner's corners), the normal turned; no ground
+    contact (the slab's underside is on y = 0, not below)."""
+    a, ha, b, hb = (0.0, 1.98, 0.0), (1.0, 1.0, 1.0), (0.0, 0.5, 0.0), (
+        3.0, 0.5, 3.0)
+    case = _boxes([a, b], [ha, hb], [(0, 1)], 1, [7, 3])
+    out = contact_t.box_contacts_t(*case[:6], budget=12, orig_id=case[6])
+    _expect_rows(out, 0, [(1, 4 * FEAT + s, _corner(a, ha, s), [0, 1, 0],
+                           0.02) for s in (0, 1, 4, 5)])
+    _expect_rows(out, 1, [(0, 8 * FEAT + 8 + s, _corner(a, ha, s),
+                           [0, -1, 0], 0.02) for s in (0, 1, 4, 5)])
+    assert int(out[9]) == 0
+
+
+def _pairs_then_ground(monkeypatch):
+    """A grounded unit box between two others, 0.02 m into each: its
+    pair contacts in the order c * K + k (partner 1's corners 4..7 and
+    partner 2's 0..3, alternating), then its 4 ground corners with their
+    bare corner ids, which fill the budget of 12."""
+    mid, h = (0.0, 0.95, 0.0), (1.0, 1.0, 1.0)
+    case = _boxes([mid, (1.98, 0.95, 0.0), (-1.98, 0.95, 0.0)], [h] * 3,
+                  [(0, 1), (0, 2)], 2, [0, 1, 2])
+    out = contact_t.box_contacts_t(*case[:6], budget=12, orig_id=case[6])
+    pair = {1: ([4, 5, 6, 7], [-1, 0, 0]), 2: ([0, 1, 2, 3], [1, 0, 0])}
+    rows = [(p, (p + 1) * FEAT + pair[p][0][c], _corner(mid, h, pair[p][0][c]),
+             pair[p][1], 0.02) for c in range(4) for p in (1, 2)]
+    rows += [(-1, g, _corner(mid, h, g), [0, 1, 0], 0.05)
+             for g in (0, 1, 4, 5)]
+    _expect_rows(out, 0, rows)
+    # each pair has 8 candidates a side (4 over the cap), no budget over
+    assert int(out[9]) == 4 * 4
+
+
+def _overflows(monkeypatch):
+    """The overflow count adds the pairs' candidates over the 4-point cap
+    (two boxes half into each other: 8 candidates a side), the ground's
+    over its cap (a box under the ground: 8 corners) and the budget's."""
+    case = _boxes([(-20.0, -2.0, 0.0), (10.0, 5.0, 0.0), (10.0, 6.5, 0.0)],
+                  [(1.0, 1.0, 1.0)] * 3, [(1, 2)], 1, [0, 1, 2])
+    pair_over, ground_over = 4 + 4, 8 - 4
+    for budget, budget_over in ((12, 0), (4, 0), (3, 3), (1, 9)):
+        out = contact_t.box_contacts_t(*case[:6], budget=budget)
+        assert int(out[9]) == pair_over + ground_over + budget_over, budget
+        assert out[8].sum(dim=0).tolist() == [min(budget, 4)] * 3
+
+
+def _plain_route(monkeypatch):
+    """CPU tensors, box-only or mixed, never reach the kernel's wrapper and
+    give the plain version's outputs."""
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(contacts_kernel, "box_contacts", no_kernel)
+    case = _boxes([(0.0, 0.95, 0.0), (1.98, 0.95, 0.0)],
+                  [(1.0, 1.0, 1.0)] * 2, [(0, 1)], 1, [0, 1])
+    for shape_type in (None, torch.tensor([SHAPE_BOX] * 2, dtype=torch.int8)):
+        got = contact_t.box_contacts_t(*case[:6], orig_id=case[6],
+                                       shape_type=shape_type)
+        want = contact_t.box_contacts_t_reference(*case[:6], orig_id=case[6],
+                                                  shape_type=shape_type)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("scene", [_box_on_box, _pairs_then_ground,
+                                   _overflows, _plain_route],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_box_contacts_contract(scene, monkeypatch):
+    """The order, feature ids and overflow count of ``box_contacts_t`` on
+    hand-built scenes, which the CUDA kernel copies bit for bit."""
+    scene(monkeypatch)

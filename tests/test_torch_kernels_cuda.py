@@ -14,7 +14,10 @@ import torch
 
 from banggameengine_tpu_torch import convert, graphs, kernel_cases
 from banggameengine_tpu_torch.engine import make_multi_step_fn
+from banggameengine_tpu_torch.engine import make_step_fn
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
+from banggameengine_tpu_torch.physics import contact_t
+from banggameengine_tpu_torch.physics import contacts_kernel as ck
 from banggameengine_tpu_torch.physics import shapes
 from banggameengine_tpu_torch.render import raster_resolve as rr
 from banggameengine_tpu_torch.render import raster_tile as rt
@@ -26,7 +29,7 @@ from banggameengine_tpu_torch.scene.synthetic import (
     build_showcase_render,
 )
 from banggameengine_tpu_torch.scripts import gather_rows as gr
-from banggameengine_tpu_torch.state import InputFrame
+from banggameengine_tpu_torch.state import FEAT_STRIDE, InputFrame
 
 pytestmark = pytest.mark.cuda
 
@@ -122,6 +125,139 @@ def test_kernel_counts_launches_and_rejects_bad_input(device):
     assert bk.neighbor_lists_aabb.launches == before + 1
     with pytest.raises(ValueError):
         bk.neighbor_lists_aabb(case[0], case[1], case[2].float(), *case[3:])
+
+
+# ---- the box contact kernel -------------------------------------------------
+
+CONTACT_NAMES = ("c_prt", "c_ptx", "c_pty", "c_ptz", "c_nx", "c_ny", "c_nz",
+                 "c_dep", "c_valid", "overflow", "c_feat")
+
+
+def _assert_contacts_equal_plain(case, budget=12):
+    """The kernel's outputs (through ``box_contacts_t``, one launch a
+    call) equal the plain version's bit for bit, with ``orig_id`` and
+    without; returns the plain outputs with feature ids."""
+    for with_feat in (False, True):
+        args = list(case[:6])
+        orig = case[6] if with_feat else None
+        before = ck.box_contacts.launches
+        got = contact_t.box_contacts_t(*args, budget=budget, orig_id=orig)
+        assert ck.box_contacts.launches == before + 1
+        want = contact_t.box_contacts_t_reference(*args, budget=budget,
+                                                  orig_id=orig)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == (11 if with_feat else 10)
+        for name, w, g in zip(CONTACT_NAMES, want, got):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, w), name
+    return want
+
+
+@pytest.mark.parametrize("name", sorted(kernel_cases.box_contact_cases()))
+def test_box_contact_cases_exact(device, name):
+    """Random poses at K = 1, 7, 8, 16, 256, 257 and 299 (the last two on
+    the wide kernel, one with its contacts in the second chunk) with
+    -1-padded and invalid partners, a box resting flat on another (the SAT
+    tie), parallel and crossing edges, pairs over the 4-point cap, a body
+    over the budget and one under the ground: every output bit-equal to
+    the plain version's."""
+    case = [torch.as_tensor(a, device=device)
+            for a in kernel_cases.box_contact_cases()[name]]
+    out = _assert_contacts_equal_plain(case)
+    valid, prt, feat = out[8], out[0], out[10]
+    assert bool((valid & (prt >= 0)).any())
+    if name == "overflow":
+        assert int(out[9]) > 0
+        for budget in (3, 40):
+            _assert_contacts_equal_plain(case, budget)
+    k = case[3].shape[1]
+    if k > 256:                       # the wide kernel: every level, then
+        for budget in (3, 4 * k + 100):   # the ground and unused rows
+            _assert_contacts_equal_plain(case, budget)
+    if name == "edges":               # slot 16 holds the edges' points
+        assert bool((valid & (feat % 64 == 16)).any())
+
+
+def test_box_contacts_sorted_scene_exact(device):
+    """The falling boxes of tests/test_torch_contact_t.py (24, seed 7)
+    stepped 120 times on the card, in Morton order with the broadphase
+    kernel's lists, as the all-pairs route hands them over: once from
+    contiguous rows, once from the rows of a packed [N, 16] tensor."""
+    state, static = build_falling_boxes(24, seed=7, spread=2.5,
+                                        device=device)
+    step = make_step_fn(static)
+    for _ in range(120):
+        state, _ = step(state, InputFrame.zero(device))
+    case = list(kernel_cases.sorted_contact_inputs(state, static))
+    out = _assert_contacts_equal_plain(case)
+    valid, prt = out[8], out[0]
+    assert bool((valid & (prt >= 0)).any())
+    assert bool((valid & (prt < 0)).any())
+    n = case[0].shape[0]
+    packed = torch.cat([torch.zeros(n, 2, device=device), *case[:3],
+                        torch.zeros(n, 3, device=device)], dim=1)
+    _assert_contacts_equal_plain(
+        [packed[:, 2:5], packed[:, 5:9], packed[:, 9:12], *case[3:]])
+
+
+def test_box_contacts_route_and_bad_input(device):
+    """A mixed scene (``shape_type`` given) runs the plain version on the
+    card; inputs the kernel does not take raise ValueError, an empty list
+    (K = 0, which the plain version does not take either) among them."""
+    case = [torch.as_tensor(a, device=device)
+            for a in kernel_cases.box_contact_cases()["random_k8"]]
+    before = ck.box_contacts.launches
+    shape_type = torch.ones(case[0].shape[0], dtype=torch.int8,
+                            device=device)
+    mixed = contact_t.box_contacts_t(*case[:6], orig_id=case[6],
+                                     shape_type=shape_type)
+    plain = contact_t.box_contacts_t_reference(*case[:6], orig_id=case[6],
+                                               shape_type=shape_type)
+    assert ck.box_contacts.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(mixed, plain))
+    bad = {0: case[0].double(), 1: case[1][:, :3], 3: case[3].long(),
+           4: case[4].to(torch.uint8), 5: case[5][:-1]}
+    for i, t in bad.items():
+        args = list(case[:6])
+        args[i] = t
+        with pytest.raises(ValueError):
+            contact_t.box_contacts_t(*args)
+    with pytest.raises(ValueError):
+        contact_t.box_contacts_t(*case[:6], orig_id=case[6].float())
+    n = case[0].shape[0]
+    empty = torch.zeros((n, 0), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="K=0"):
+        contact_t.box_contacts_t(*case[:3], empty, empty >= 0, case[5])
+    assert ck.box_contacts.launches == before
+
+
+def test_flat_step_lists_longer_than_a_block(device, monkeypatch):
+    """The flat many-world step over worlds of 300 boxes lists 299
+    partners a body, past a block of the kernel (its wide form): after 240
+    steps (the boxes rain in a column 12 m wide) one more step equals the
+    same step with the plain contacts bit for bit, pair contacts in its
+    cache."""
+    from banggameengine_tpu_torch.parallel import manyworld as mw
+
+    state1, static1 = build_falling_boxes(300, seed=5, spread=6.0,
+                                          device=device)
+    run = mw.make_flat_many_world_step(static1, 2, state1.comp_mask,
+                                       num_steps=240)
+    one = mw.make_flat_many_world_step(static1, 2, state1.comp_mask)
+    inp = mw.replicate_input(InputFrame.zero(device), 2)
+    state = graphs.clone_tree(run(mw.replicate_state(state1, 2), inp))
+    before = ck.box_contacts.launches
+    with graphs.eager():
+        got = one(state, inp)
+        assert ck.box_contacts.launches == before + 1
+        monkeypatch.setattr(contact_t, "box_contacts_t",
+                            contact_t.box_contacts_t_reference)
+        want = one(state, inp)
+    torch.cuda.synchronize()
+    assert ck.box_contacts.launches == before + 1
+    assert bool((got.contact_feat >= FEAT_STRIDE).any())
+    for a, b in zip(graphs.flatten(got)[0], graphs.flatten(want)[0]):
+        assert torch.equal(a, b)
 
 
 # ---- the render kernels: the visibility walk and the attribute resolve ----
@@ -443,7 +579,8 @@ def test_gather_rows_rejects_bad_input(device):
 
 
 def test_graph_replays_count_kernel_launches(device):
-    """A frame's graph and a stress multi-step's graph: after the capture
+    """A frame's graph and a stress multi-step's graph (the broadphase and
+    the box contact kernel once a step): after the capture
     (whose eager warm-up launches each kernel once, counted apart in
     ``graphs.warmup_launches``) every replay adds the launches its graph
     holds to the wrappers' counters, as many as the eager route launches;
@@ -460,29 +597,33 @@ def test_graph_replays_count_kernel_launches(device):
     inp = InputFrame.zero(device)
     graphs.warmup_launches.clear()
     rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
-    bk.neighbor_lists_aabb.launches = 0
+    bk.neighbor_lists_aabb.launches = ck.box_contacts.launches = 0
     frame_g = render(*args)
     state_g = graphs.clone_tree(run(state, inp))
     torch.cuda.synchronize()
     assert {k: n for k, n in graphs.warmup_launches.items() if n} == {
-        "neighbor_lists_aabb": 1, "raster_walk": 1, "resolve_tiles_wide": 1}
+        "neighbor_lists_aabb": 1, "box_contacts": 1, "raster_walk": 1,
+        "resolve_tiles_wide": 1}
     assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
-            bk.neighbor_lists_aabb.launches) == (2, 2, 6)
+            bk.neighbor_lists_aabb.launches,
+            ck.box_contacts.launches) == (2, 2, 6, 6)
     for _ in range(3):
         render(*args)
         run(state, inp)
     torch.cuda.synchronize()
     assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
-            bk.neighbor_lists_aabb.launches) == (5, 5, 21)
+            bk.neighbor_lists_aabb.launches,
+            ck.box_contacts.launches) == (5, 5, 21, 21)
     assert render.program.captures == run.program.captures == 1
     rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
-    bk.neighbor_lists_aabb.launches = 0
+    bk.neighbor_lists_aabb.launches = ck.box_contacts.launches = 0
     with graphs.eager():
         frame_e = render(*args)
         state_e = run(state, inp)
     torch.cuda.synchronize()
     assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
-            bk.neighbor_lists_aabb.launches) == (1, 1, 5)
+            bk.neighbor_lists_aabb.launches,
+            ck.box_contacts.launches) == (1, 1, 5, 5)
     for a, b in zip(graphs.flatten((frame_g, state_g))[0],
                     graphs.flatten((frame_e, state_e))[0]):
         assert torch.equal(a, b)
