@@ -42,10 +42,10 @@ later call.
   one ``n`` times with its first output fed back in as its first
   argument.  The eager route is the CPU's and the reference.
 - **Launch counts.**  Each graph records how many launches of each hand
-  kernel it holds, and every replay adds them to the wrappers'
-  ``launches`` counters, so the counters read what the card ran: the
-  replays and the captures' warm-ups, which :data:`warmup_launches`
-  counts apart.
+  kernel of the registry (``cuda_build.KERNELS``) it holds, and every
+  replay adds them to the kernels' ``launches`` counts, so the counts
+  read what the card ran: the replays and the captures' warm-ups, which
+  :data:`warmup_launches` counts apart.
 
 :func:`eager` is the counterpart of ``jax.disable_jit()``: inside it
 every factory runs its eager code.  On the CPU the factories are always
@@ -63,11 +63,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
-import sys
 import time
 
 import torch
 
+from banggameengine_tpu_torch.cuda_build import KERNELS
 from banggameengine_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
@@ -79,8 +79,8 @@ _eager_depth = 0
 stats = {"captures": 0, "replays": 0, "copies": 0, "clones": 0,
          "capture_s": 0.0}
 
-# the hand-kernel launches of the captures' eager warm-ups, by wrapper
-# name (real launches, counted by the wrappers too)
+# the hand-kernel launches of the captures' eager warm-ups, by the
+# registry's key (real launches, in the kernels' counts too)
 warmup_launches: collections.Counter = collections.Counter()
 
 # A stand-in for the graph class on CPU tensors: the CPU tests install one
@@ -89,21 +89,6 @@ warmup_launches: collections.Counter = collections.Counter()
 # input buffers, which a capture must leave as it found them) and
 # ``replay()``.
 cpu_graph_class = None
-
-# the hand-kernel wrappers whose ``launches`` counters replays add to:
-# (module, function name)
-_COUNTED = (
-    ("banggameengine_tpu_torch.physics.broadphase_kernel",
-     "neighbor_lists_aabb"),
-    ("banggameengine_tpu_torch.physics.contacts_kernel", "box_contacts"),
-    ("banggameengine_tpu_torch.render.raster_walk", "raster_walk"),
-    ("banggameengine_tpu_torch.render.resolve", "resolve_tiles_wide"),
-    ("banggameengine_tpu_torch.render.raster_resolve",
-     "raster_resolve_tiles"),
-    ("banggameengine_tpu_torch.render.raster_tile", "raster_tiles"),
-    ("banggameengine_tpu_torch.scripts.gather_rows", "gather_rows_u8"),
-)
-
 
 @contextlib.contextmanager
 def eager():
@@ -296,17 +281,6 @@ def _capture_stream(device: torch.device):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def _counters() -> list:
-    """The hand-kernel wrappers (function objects with a ``launches``
-    count) of the modules imported so far."""
-    out = []
-    for module, name in _COUNTED:
-        fn = getattr(sys.modules.get(module), name, None)
-        if hasattr(fn, "launches"):
-            out.append(fn)
-    return out
-
-
 def _write_back(dst, new, name: str):
     """Write the tree ``new`` into the tensors of ``dst`` (its donated
     buffers, of the same structure and shapes); returns ``dst``."""
@@ -351,27 +325,27 @@ class _Entry:
                           for spec, n in per_arg)
         self.graphs: list = []          # (graph, held launch counts)
         with _capture_stream(device) as stream:
-            counters = _counters()
-            before = [fn.launches for fn in counters]
+            counters = list(KERNELS.values())
+            before = [k.launches for k in counters]
             p.run_eager(self.args, 1)        # warm-up: builds, handles
-            for fn, n0 in zip(counters, before):
-                if fn.launches != n0:
-                    warmup_launches[fn.__name__] += fn.launches - n0
+            for k, n0 in zip(counters, before):
+                if k.launches != n0:
+                    warmup_launches[k.key] += k.launches - n0
 
             def capture(body, inputs):
                 graph = (_CudaGraph() if device.type == "cuda"
                          else cpu_graph_class())
-                before = [fn.launches for fn in counters]
+                before = [k.launches for k in counters]
                 try:
                     return graph.capture(body, stream, inputs)
                 finally:
                     # the capture launched nothing: its counts go to the
                     # replays
                     held = []
-                    for fn, n0 in zip(counters, before):
-                        if fn.launches != n0:
-                            held.append((fn, fn.launches - n0))
-                            fn.launches = n0
+                    for k, n0 in zip(counters, before):
+                        if k.launches != n0:
+                            held.append((k, k.launches - n0))
+                            k.launches = n0
                     self.graphs.append((graph, held))
 
             if p.enter is None:
@@ -417,8 +391,8 @@ class _Entry:
         graph, held = self.graphs[i]
         graph.replay()
         stats["replays"] += 1
-        for fn, n in held:
-            fn.launches += n
+        for kernel, n in held:
+            kernel.launches += n
 
     def run(self, times: int) -> None:
         """``times`` replays of the function's graph (between those of

@@ -9,8 +9,10 @@ to their plain versions.
 - :func:`box_contact_cases`: the box contact kernel's inputs at the edges
   of its contract (ties, parallel edges, the caps and the budget);
 - :func:`sorted_broadphase_inputs`, :func:`sorted_contact_inputs` and
-  :func:`recorded_render_inputs`: the inputs the main path itself gives
-  the kernels.
+  :func:`recorded_inputs`: the inputs the main path itself gives the
+  kernels;
+- :func:`hand_kernels`, :func:`plain_twins`: the registry of the hand
+  kernels, and its kernels routed to their plain twins.
 
 ``chip_smoke.py``, ``scripts/compare_kernels.py`` and the tests use them;
 no entry point of the port does.
@@ -19,6 +21,8 @@ no entry point of the port does.
 from __future__ import annotations
 
 import contextlib
+import inspect
+import sys
 
 import numpy as np
 
@@ -362,51 +366,68 @@ def sorted_contact_inputs(state, static, k: int = 8):
             nl.idx, nl.valid, dyn > 0, order)
 
 
-def render_kernel_modules() -> dict:
-    """The render kernels by short name: (module, wrapper, launcher, plain
-    version)."""
-    from banggameengine_tpu_torch.render import raster_resolve as rr
-    from banggameengine_tpu_torch.render import raster_tile as rt
-    from banggameengine_tpu_torch.render import raster_walk as rwk
-    from banggameengine_tpu_torch.render import resolve as rsv
+def hand_kernels() -> dict:
+    """The registry (``cuda_build.KERNELS``) with every hand kernel in it:
+    the modules that launch them imported (the step, the frame and the
+    shade-parts probe)."""
+    import banggameengine_tpu_torch.engine  # noqa: F401
+    import banggameengine_tpu_torch.render.pipeline  # noqa: F401
+    import banggameengine_tpu_torch.scripts.profile_shade_parts  # noqa: F401
+    from banggameengine_tpu_torch.cuda_build import KERNELS
 
-    return {
-        "walk": (rwk, "raster_walk", "cuda_raster_walk",
-                 rwk.raster_walk_reference),
-        "resolve": (rsv, "resolve_tiles_wide", "cuda_resolve_tiles_wide",
-                    rsv.resolve_tiles_wide_reference),
-        "fused": (rr, "raster_resolve_tiles", "cuda_raster_resolve_tiles",
-                  rr.raster_resolve_tiles_reference),
-        "tile": (rt, "raster_tiles", "cuda_raster_tiles",
-                 rt.raster_tiles_reference),
-    }
+    return KERNELS
 
 
 @contextlib.contextmanager
-def recorded_render_inputs():
-    """Record the arguments of every render kernel launch made inside: the
-    inputs the main path gives the kernels, by short name.  The wrappers
-    (and their launch counts) stay in place; only the launchers they call
-    are wrapped.  The factories run eagerly inside (:func:`graphs.eager`),
-    so every launch is recorded once, with the values it ran on."""
+def _wrappers_replaced(keys, make):
+    """Inside, the wrapper of each hand kernel of ``keys`` (all of them
+    when empty) is ``make(kernel)`` in its module, where the main path
+    looks it up, and the factories run eagerly (:func:`graphs.eager`), so
+    no captured graph replays the kernels."""
     from banggameengine_tpu_torch import graphs
 
-    mods = render_kernel_modules()
-    rec = {k: [] for k in mods}
-    saved = {k: getattr(m, launcher)
-             for k, (m, _, launcher, _) in mods.items()}
-
-    def recorder(key):
-        def run(*args):
-            rec[key].append(args)
-            return saved[key](*args)
-        return run
-
-    for k, (m, _, launcher, _) in mods.items():
-        setattr(m, launcher, recorder(k))
+    kernels = hand_kernels()
+    saved = []
+    for key in keys or tuple(kernels):
+        k = kernels[key]
+        mod = sys.modules[k.wrapper.__module__]
+        name = k.wrapper.__name__
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, make(k))
     try:
         with graphs.eager():
-            yield rec
+            yield
     finally:
-        for k, (m, _, launcher, _) in mods.items():
-            setattr(m, launcher, saved[k])
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def plain_twins(*keys):
+    """Route the hand kernels ``keys`` (all of them when none is given)
+    to their plain twins inside, eagerly: the comparison runs of the card's
+    checks."""
+    return _wrappers_replaced(keys, lambda k: k.plain)
+
+
+@contextlib.contextmanager
+def recorded_inputs(*keys):
+    """Record the arguments of every call of the hand kernels ``keys``
+    (all of them when none is given) made inside: the inputs the main path
+    gives the kernels, ``{key: [positional arguments of each call]}``,
+    defaults filled in.  The kernels still run, eagerly, so every call is
+    recorded once, with the values it ran on."""
+    rec = {}
+
+    def recorder(k):
+        sig = inspect.signature(k.wrapper)
+        calls = rec.setdefault(k.key, [])
+
+        def run(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls.append(bound.args)
+            return k.wrapper(*args, **kwargs)
+        return run
+
+    with _wrappers_replaced(keys, recorder):
+        yield rec

@@ -320,13 +320,12 @@ def make_flat_many_world_step(
     b = static.capacity
     t1 = static.num_trigger_slots
     n = w * b
-    flat_static, nb_idx, nb_val, group, char_cand, shifts = _flat_static(
+    flat_static, nb_idx, nb_val, group, char_cand, _ = _flat_static(
         static, w, comp_mask_1w)
     kwargs = {**scene_census(static), **physics_kwargs}
     # one world is one group: no mask (and its plane bool[T, B] is square)
     kwargs.update(broadphase="static", static_neighbors=(nb_idx, nb_val),
-                  group=group if w > 1 else None, char_candidates=char_cand,
-                  solver_block_size=b, solver_block_shifts=shifts)
+                  group=group if w > 1 else None, char_candidates=char_cand)
     dev = static.parent.device
     # Contact features encode partner ids: pair features are (partner + 1)
     # * FEAT_STRIDE + slot (>= FEAT_STRIDE), ground features bare slot ids

@@ -25,7 +25,6 @@ not call them.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -151,17 +150,10 @@ def neighbor_lists_aabb_reference(
     return _to_neighbor_lists(idx, count, max_neighbors)
 
 
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/neighbor_lists.cu`` for sm_90a at first use and load
-    it.  A failed build raises."""
-    lib = cuda_build.load_library("bge_neighbor_lists", _SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.neighbor_lists_launch.argtypes = ([ptr] * 5 + [i32, i32]
-                                          + [ptr] * 4)
-    lib.neighbor_lists_launch.restype = i32
-    lib.neighbor_lists_error_string.argtypes = [i32]
-    lib.neighbor_lists_error_string.restype = ctypes.c_char_p
+def _check_shape(lib: ctypes.CDLL) -> None:
+    """Raise unless the library prunes by :data:`GROUP_COLS` and
+    :data:`BAND_ROWS`."""
+    i32 = ctypes.c_int
     lib.neighbor_lists_shape.argtypes = [ctypes.POINTER(i32)] * 2
     lib.neighbor_lists_shape.restype = None
     group, band = i32(), i32()
@@ -171,7 +163,6 @@ def load_kernel_library() -> ctypes.CDLL:
             f"neighbor_lists: the library prunes by groups of {group.value} "
             f"and bands of {band.value}, the wrapper expects {GROUP_COLS} "
             f"and {BAND_ROWS}")
-    return lib
 
 
 def cuda_idx_count(lo: Tensor, hi: Tensor, dyn: Tensor, layer: Tensor,
@@ -191,7 +182,6 @@ def cuda_idx_count(lo: Tensor, hi: Tensor, dyn: Tensor, layer: Tensor,
             raise ValueError(
                 f"neighbor_lists: {name} must be {dtype}{list(shape)} on "
                 f"{device}, got {t.dtype}{list(t.shape)} on {t.device}")
-    lib = load_kernel_library()
     lo_t = lo.t().contiguous()            # SoA planes [3, n]
     hi_t = hi.t().contiguous()
     dyn, layer, mask = dyn.contiguous(), layer.contiguous(), mask.contiguous()
@@ -199,16 +189,9 @@ def cuda_idx_count(lo: Tensor, hi: Tensor, dyn: Tensor, layer: Tensor,
                          device=device)   # scratch: the group unions
     idx = torch.empty((n, k), dtype=torch.int32, device=device)
     count = torch.empty((n,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.neighbor_lists_launch(
-            lo_t.data_ptr(), hi_t.data_ptr(), dyn.data_ptr(),
-            layer.data_ptr(), mask.data_ptr(), n, k, bounds.data_ptr(),
-            idx.data_ptr(), count.data_ptr(), stream)
-    if err != 0:
-        msg = lib.neighbor_lists_error_string(err).decode()
-        raise RuntimeError(f"neighbor_lists kernel launch failed: {msg}")
-    neighbor_lists_aabb.launches += 1
+    KERNEL.launch(device, lo_t.data_ptr(), hi_t.data_ptr(), dyn.data_ptr(),
+                  layer.data_ptr(), mask.data_ptr(), n, k, bounds.data_ptr(),
+                  idx.data_ptr(), count.data_ptr())
     return idx, count
 
 
@@ -224,8 +207,7 @@ def neighbor_lists_aabb(
 
     CUDA tensors always go through the CUDA kernel; CPU tensors through the
     plain version; any other device raises.  Indices in the result refer to
-    the order of the inputs.  ``neighbor_lists_aabb.launches`` counts kernel
-    launches.
+    the order of the inputs.
     """
     lo, hi = with_margin(mn, mx)
     if mn.device.type == "cuda":
@@ -240,4 +222,10 @@ def neighbor_lists_aabb(
     return _to_neighbor_lists(idx, count, max_neighbors)
 
 
-neighbor_lists_aabb.launches = 0
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "broadphase", "bge_neighbor_lists", _SOURCE,
+    [_ptr] * 5 + [_i32, _i32] + [_ptr] * 4, on_load=_check_shape,
+    wrapper=neighbor_lists_aabb, plain=neighbor_lists_aabb_reference,
+    replaces="banggameengine_tpu/physics/broadphase_pallas.py:40")
+load_kernel_library = KERNEL.load

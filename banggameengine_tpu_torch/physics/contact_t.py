@@ -617,8 +617,6 @@ def solve_contacts_t(
     warm=None,
     return_lambdas: bool = False,
     momentum: float = 0.0,
-    block_size: int | None = None,
-    block_shifts: tuple | None = None,
 ):
     """Mass-splitting Jacobi contact solve on the gather route; returns
     (vel, ang) and, with ``return_lambdas``, the accumulated (ln, lt1, lt2).
@@ -628,15 +626,13 @@ def solve_contacts_t(
     accumulators.  ``momentum`` is the heavy-ball factor over the lambda
     iterates.
 
-    ``block_size``/``block_shifts`` declare a block-diagonal scene (the
-    flat many-world step).  They are accepted for the JAX signature's sake
-    and change nothing: the JAX route reads partners by lane rolls over
-    the shift set, which it states equal to the gather for every pair
-    slot, and the port reads every partner by the gather.  Ground slots
-    differ: the rolls read 0.0 there and the gather body 0, and every
-    consumer masks them on ``is_static``.
+    Every route reads partners by the gather, the flat many-world step's
+    block-diagonal scene too: the JAX package's ``block_size`` route reads
+    them by lane rolls over the shift set, which it states equal to the
+    gather for every pair slot.  Ground slots differ: the rolls read 0.0
+    there and the gather body 0, and every consumer masks them on
+    ``is_static``.
     """
-    del block_size, block_shifts  # every route reads partners by gather
     vx, vy, vz = vel.unbind(1)
     wx, wy, wz = ang.unbind(1)
     px, py, pz = pos.unbind(1)

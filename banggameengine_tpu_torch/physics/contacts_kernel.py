@@ -15,7 +15,6 @@ of a box-only call here and everything else to the plain version.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -28,20 +27,6 @@ _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                        "box_contacts.cu")
 # uncontracted f32 arithmetic, as PyTorch's eager ops round it
 _EXTRA_FLAGS = ("--fmad=false",)
-
-
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/box_contacts.cu`` for sm_90a at first use and load it.
-    A failed build raises."""
-    lib = cuda_build.load_library("bge_box_contacts", _SOURCE, _EXTRA_FLAGS)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.box_contacts_launch.argtypes = ([ptr, i32] * 3 + [ptr] * 4
-                                        + [i32] * 4 + [ptr] * 6)
-    lib.box_contacts_launch.restype = i32
-    lib.box_contacts_error_string.argtypes = [i32]
-    lib.box_contacts_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def check_inputs(pos: Tensor, quat: Tensor, half: Tensor, nb_idx: Tensor,
@@ -94,13 +79,11 @@ def box_contacts(pos: Tensor, quat: Tensor, half: Tensor, nb_idx: Tensor,
     the CUDA kernel on the current stream: (c_prt, c_ptx, c_pty, c_ptz,
     c_nx, c_ny, c_nz, c_dep, c_valid, overflow), each [budget, N], the
     overflow an int32 scalar, then c_feat with ``orig_id``.  Invalid
-    inputs raise ValueError (:func:`check_inputs`).
-    ``box_contacts.launches`` counts kernel launches."""
+    inputs raise ValueError (:func:`check_inputs`)."""
     check_inputs(pos, quat, half, nb_idx, nb_valid, ground_valid, budget,
                  orig_id)
     n, k = nb_idx.shape
     device = pos.device
-    lib = load_kernel_library()
     pos, quat, half = _rows(pos), _rows(quat), _rows(half)
     nb_idx, nb_valid = nb_idx.contiguous(), nb_valid.contiguous()
     ground_valid = ground_valid.contiguous()
@@ -112,23 +95,30 @@ def box_contacts(pos: Tensor, quat: Tensor, half: Tensor, nb_idx: Tensor,
                        device=device)
     valid = torch.empty((budget, n), dtype=torch.bool, device=device)
     overflow = torch.empty((), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.box_contacts_launch(
-            pos.data_ptr(), pos.stride(0), quat.data_ptr(), quat.stride(0),
-            half.data_ptr(), half.stride(0), nb_idx.data_ptr(),
-            nb_valid.data_ptr(), ground_valid.data_ptr(),
-            orig_id.data_ptr() if want_feat else None,
-            orig_id.element_size() if want_feat else 0, n, k, budget,
-            ints[0].data_ptr(), floats.data_ptr(), valid.data_ptr(),
-            ints[1].data_ptr() if want_feat else None, overflow.data_ptr(),
-            stream)
-    if err != 0:
-        msg = lib.box_contacts_error_string(err).decode()
-        raise RuntimeError(f"box_contacts kernel launch failed: {msg}")
-    box_contacts.launches += 1
+    KERNEL.launch(
+        device, pos.data_ptr(), pos.stride(0), quat.data_ptr(),
+        quat.stride(0), half.data_ptr(), half.stride(0), nb_idx.data_ptr(),
+        nb_valid.data_ptr(), ground_valid.data_ptr(),
+        orig_id.data_ptr() if want_feat else None,
+        orig_id.element_size() if want_feat else 0, n, k, budget,
+        ints[0].data_ptr(), floats.data_ptr(), valid.data_ptr(),
+        ints[1].data_ptr() if want_feat else None, overflow.data_ptr())
     out = (ints[0], *floats.unbind(0), valid, overflow)
     return out + (ints[1],) if want_feat else out
 
 
-box_contacts.launches = 0
+def box_contacts_reference(*args, **kwargs):
+    """Plain PyTorch version of :func:`box_contacts`, on any device:
+    :func:`contact_t.box_contacts_t_reference`."""
+    from banggameengine_tpu_torch.physics import contact_t
+
+    return contact_t.box_contacts_t_reference(*args, **kwargs)
+
+
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "contacts", "bge_box_contacts", _SOURCE,
+    [_ptr, _i32] * 3 + [_ptr] * 4 + [_i32] * 4 + [_ptr] * 6,
+    flags=_EXTRA_FLAGS, wrapper=box_contacts, plain=box_contacts_reference,
+    replaces=None)
+load_kernel_library = KERNEL.load

@@ -115,8 +115,6 @@ def physics_step(
     char_candidates: torch.Tensor | None = None,
     solver_sor: float = 1.0,
     solver_momentum: float = SOLVER_MOMENTUM,
-    solver_block_size: int | None = None,
-    solver_block_shifts: tuple | None = None,
     joints: jt.JointSet | None = None,
     joint_state: jt.JointState | None = None,
 ) -> tuple[WorldState, StepEvents]:
@@ -141,10 +139,9 @@ def physics_step(
 
     ``broadphase="static"`` takes ``static_neighbors=(idx int32[N, K],
     valid bool[N, K])``, partners fixed at build time; ``group`` int32[N]
-    confines each character to its own group (world), and
-    ``solver_block_size``/``solver_block_shifts`` are passed on to
-    :func:`contact_t.solve_contacts_t`.  The triggers keep to their worlds
-    through the state's per-world trigger blocks (:func:`_finish_step`).
+    confines each character to its own group (world).  The triggers keep
+    to their worlds through the state's per-world trigger blocks
+    (:func:`_finish_step`).
 
     Characters step by the planar step over ``char_candidates`` int32[C,
     K] obstacle ids where given, else by the per-slot step over every
@@ -256,8 +253,7 @@ def physics_step(
     else:
         vel, ang, cache, overflow = _contacts_static(
             state, static, pos, quat, vel, ang, solid, is_dynamic,
-            static_neighbors, enable_capsule, solver_block_size,
-            solver_block_shifts, **solve)
+            static_neighbors, enable_capsule, **solve)
     out = _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                        char_on_ground, moving, alive, has_collider, dt,
                        any_trig, contact_cache=cache,
@@ -340,7 +336,7 @@ def _warm_start(c_feat, cache_feat, cache_imp):
 
 
 def _solve(body, cache, pos, quat, vel, ang, contacts, c_feat, dt,
-           iterations, warm_start, momentum, **block):
+           iterations, warm_start, momentum):
     """The transposed solve of the allpairs and static routes, over their
     rows (sorted or not): ``body`` = the rows' (inv_mass,
     inv_inertia_body, friction, restitution), ``cache`` = their contact
@@ -350,7 +346,7 @@ def _solve(body, cache, pos, quat, vel, ang, contacts, c_feat, dt,
     inv_m, inertia, fric, rest = body
     args = (vel, ang, pos, quat, inv_m, inertia, *contacts, fric, rest, dt)
     kw = dict(iterations=iterations, ground_friction=GROUND_FRICTION,
-              momentum=momentum, **block)
+              momentum=momentum)
     if not warm_start:
         return (*contact_t.solve_contacts_t(*args, **kw), None)
     warm = _warm_start(c_feat, *cache)
@@ -423,8 +419,7 @@ def _contacts_allpairs(state, static, pos, quat, vel, ang, solid,
 
 
 def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
-                     static_neighbors, enable_capsule, block_size,
-                     block_shifts, **solve):
+                     static_neighbors, enable_capsule, **solve):
     """Contacts and solve over neighbor lists fixed at build time, in
     original id order (no sort: the flat many-world's world blocks are
     contiguous already).  A scene with a solid capsule takes the capsule
@@ -453,8 +448,7 @@ def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
         vel, ang, cache = _solve(
             (static.inv_mass, static.inv_inertia_body, static.friction,
              static.restitution), cache,
-            pos, quat, vel, ang, contacts, c_feat, static.fixed_dt,
-            block_size=block_size, block_shifts=block_shifts, **solve)
+            pos, quat, vel, ang, contacts, c_feat, static.fixed_dt, **solve)
     return vel, ang, cache, overflow
 
 

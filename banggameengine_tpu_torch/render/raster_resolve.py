@@ -27,7 +27,6 @@ table, so a table of any width resolves.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -55,21 +54,6 @@ def raster_resolve_tiles_reference(counts: Tensor, tri_pack: Tensor,
     return depth, slot, resolved
 
 
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/raster_resolve.cu`` for sm_90a at first use and load it.
-    A failed build raises."""
-    lib = cuda_build.load_library("bge_raster_resolve", _SOURCE,
-                                  _EXTRA_FLAGS)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.raster_resolve_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32,
-                                          i32, ptr, ptr, ptr, ptr]
-    lib.raster_resolve_launch.restype = i32
-    lib.raster_resolve_error_string.argtypes = [i32]
-    lib.raster_resolve_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_inputs(counts: Tensor, tri_pack: Tensor,
                   tables: Tensor | None) -> None:
     rwk.check_walk_inputs(counts, tri_pack)
@@ -91,7 +75,6 @@ def cuda_raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
     n_tiles, k_pad, _ = tri_pack.shape
     c, kl = (0, 0) if tables is None else tables.shape[1:]
     device = tri_pack.device
-    lib = load_kernel_library()
     counts, tri_pack = counts.contiguous(), tri_pack.contiguous()
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=device)
@@ -101,17 +84,11 @@ def cuda_raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
         tables = tables.contiguous()
         resolved = torch.empty((c, n_tiles, TILE_PX), dtype=torch.float32,
                                device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.raster_resolve_launch(
-            counts.data_ptr(), tri_pack.data_ptr(), n_tiles, k_pad, tiles_x,
-            None if tables is None else tables.data_ptr(), c, kl,
-            depth.data_ptr(), slot.data_ptr(),
-            None if resolved is None else resolved.data_ptr(), stream)
-    if err != 0:
-        msg = lib.raster_resolve_error_string(err).decode()
-        raise RuntimeError(f"raster_resolve kernel launch failed: {msg}")
-    raster_resolve_tiles.launches += 1
+    KERNEL.launch(
+        device, counts.data_ptr(), tri_pack.data_ptr(), n_tiles, k_pad,
+        tiles_x, None if tables is None else tables.data_ptr(), c, kl,
+        depth.data_ptr(), slot.data_ptr(),
+        None if resolved is None else resolved.data_ptr())
     return depth, slot, resolved
 
 
@@ -122,8 +99,7 @@ def raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
     int32[tiles, 4096], resolved f32[C, tiles, 4096] or None).
 
     CUDA tensors always go through the CUDA kernel; CPU tensors through
-    the plain version; any other device raises.
-    ``raster_resolve_tiles.launches`` counts kernel launches."""
+    the plain version; any other device raises."""
     if tri_pack.device.type == "cuda":
         return cuda_raster_resolve_tiles(counts, tri_pack, tables, tiles_x)
     if tri_pack.device.type == "cpu":
@@ -134,4 +110,11 @@ def raster_resolve_tiles(counts: Tensor, tri_pack: Tensor,
         f"raster_resolve_tiles: no kernel for device {tri_pack.device}")
 
 
-raster_resolve_tiles.launches = 0
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "fused", "bge_raster_resolve", _SOURCE,
+    [_ptr, _ptr, _i32, _i32, _i32, _ptr, _i32, _i32, _ptr, _ptr, _ptr, _ptr],
+    flags=_EXTRA_FLAGS, wrapper=raster_resolve_tiles,
+    plain=raster_resolve_tiles_reference,
+    replaces="banggameengine_tpu/render/raster_resolve_pallas.py:68")
+load_kernel_library = KERNEL.load

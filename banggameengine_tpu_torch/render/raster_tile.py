@@ -29,7 +29,6 @@ is the plain version of the boxes it skips by.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -100,20 +99,6 @@ def raster_tiles_reference(tile_idx: Tensor, x: Tensor, y: Tensor, z: Tensor,
                  for a in (depth, tri, b1b, b2b, slotb))
 
 
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/raster_tile.cu`` for sm_90a at first use and load it.
-    A failed build raises."""
-    lib = cuda_build.load_library("bge_raster_tile", _SOURCE, _EXTRA_FLAGS)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.raster_tile_launch.argtypes = ([ptr] * 8 + [i32, i32, i32]
-                                       + [ptr] * 6)
-    lib.raster_tile_launch.restype = i32
-    lib.raster_tile_error_string.argtypes = [i32]
-    lib.raster_tile_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_inputs(tile_idx, x, y, z, oid, cb1, cb2, ok) -> None:
     if (ok.dtype != torch.int32 or ok.dim() != 2 or ok.shape[0] < 1):
         raise ValueError(f"raster_tiles: ok must be int32[n >= 1, K], got "
@@ -138,7 +123,6 @@ def cuda_raster_tiles(tile_idx: Tensor, x: Tensor, y: Tensor, z: Tensor,
     _check_inputs(tile_idx, x, y, z, oid, cb1, cb2, ok)
     n, k = ok.shape
     device = ok.device
-    lib = load_kernel_library()
     ins = [a.contiguous() for a in (tile_idx, x, y, z, oid, cb1, cb2, ok)]
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -147,15 +131,8 @@ def cuda_raster_tiles(tile_idx: Tensor, x: Tensor, y: Tensor, z: Tensor,
             torch.empty((n, TILE_H, TILE_W), **f32),
             torch.empty((n, TILE_H, TILE_W), **f32),
             torch.empty((n, TILE_H, TILE_W), **i32))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.raster_tile_launch(
-            *(a.data_ptr() for a in ins), n, k, tiles_x,
-            *(a.data_ptr() for a in outs), stream)
-    if err != 0:
-        msg = lib.raster_tile_error_string(err).decode()
-        raise RuntimeError(f"raster_tile kernel launch failed: {msg}")
-    raster_tiles.launches += 1
+    KERNEL.launch(device, *(a.data_ptr() for a in ins), n, k, tiles_x,
+                  *(a.data_ptr() for a in outs))
     return outs
 
 
@@ -166,8 +143,7 @@ def raster_tiles(tile_idx: Tensor, x: Tensor, y: Tensor, z: Tensor,
     slot), each ``[n, 32, 128]``.
 
     CUDA tensors always go through the CUDA kernel; CPU tensors through
-    the plain version; any other device raises.
-    ``raster_tiles.launches`` counts kernel launches."""
+    the plain version; any other device raises."""
     if ok.device.type == "cuda":
         return cuda_raster_tiles(tile_idx, x, y, z, oid, cb1, cb2, ok,
                                  tiles_x)
@@ -179,4 +155,10 @@ def raster_tiles(tile_idx: Tensor, x: Tensor, y: Tensor, z: Tensor,
         f"raster_tiles: no kernel for device {ok.device}")
 
 
-raster_tiles.launches = 0
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "tile", "bge_raster_tile", _SOURCE,
+    [_ptr] * 8 + [_i32, _i32, _i32] + [_ptr] * 6, flags=_EXTRA_FLAGS,
+    wrapper=raster_tiles, plain=raster_tiles_reference,
+    replaces="banggameengine_tpu/render/raster_pallas.py:27")
+load_kernel_library = KERNEL.load

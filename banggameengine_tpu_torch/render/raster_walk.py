@@ -31,7 +31,6 @@ call it.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -188,19 +187,6 @@ def raster_walk_reference(counts: Tensor, tri_pack: Tensor,
     return depth, slotb.to(torch.int32)
 
 
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/raster_walk.cu`` for sm_90a at first use and load it.
-    A failed build raises."""
-    lib = cuda_build.load_library("bge_raster_walk", _SOURCE, _EXTRA_FLAGS)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.raster_walk_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
-    lib.raster_walk_launch.restype = i32
-    lib.raster_walk_error_string.argtypes = [i32]
-    lib.raster_walk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def check_walk_inputs(counts: Tensor, tri_pack: Tensor) -> None:
     if (tri_pack.dtype != torch.float32 or tri_pack.dim() != 3
             or tri_pack.shape[0] < 1 or tri_pack.shape[2] != PACK_CH):
@@ -222,20 +208,12 @@ def cuda_raster_walk(counts: Tensor, tri_pack: Tensor,
     check_walk_inputs(counts, tri_pack)
     n_tiles, k_pad, _ = tri_pack.shape
     device = tri_pack.device
-    lib = load_kernel_library()
     counts, tri_pack = counts.contiguous(), tri_pack.contiguous()
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=device)
     slot = torch.empty((n_tiles, TILE_PX), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.raster_walk_launch(
-            counts.data_ptr(), tri_pack.data_ptr(), n_tiles, k_pad, tiles_x,
-            depth.data_ptr(), slot.data_ptr(), stream)
-    if err != 0:
-        msg = lib.raster_walk_error_string(err).decode()
-        raise RuntimeError(f"raster_walk kernel launch failed: {msg}")
-    raster_walk.launches += 1
+    KERNEL.launch(device, counts.data_ptr(), tri_pack.data_ptr(), n_tiles,
+                  k_pad, tiles_x, depth.data_ptr(), slot.data_ptr())
     return depth, slot
 
 
@@ -244,8 +222,7 @@ def raster_walk(counts: Tensor, tri_pack: Tensor,
     """Visibility walk -> (depth f32[tiles, 4096], slot int32[tiles, 4096]).
 
     CUDA tensors always go through the CUDA kernel; CPU tensors through
-    the plain version; any other device raises.
-    ``raster_walk.launches`` counts kernel launches."""
+    the plain version; any other device raises."""
     if tri_pack.device.type == "cuda":
         return cuda_raster_walk(counts, tri_pack, tiles_x)
     if tri_pack.device.type == "cpu":
@@ -255,4 +232,10 @@ def raster_walk(counts: Tensor, tri_pack: Tensor,
         f"raster_walk: no kernel for device {tri_pack.device}")
 
 
-raster_walk.launches = 0
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "walk", "bge_raster_walk", _SOURCE,
+    [_ptr, _ptr, _i32, _i32, _i32, _ptr, _ptr, _ptr], flags=_EXTRA_FLAGS,
+    wrapper=raster_walk, plain=raster_walk_reference,
+    replaces="banggameengine_tpu/render/raster_resolve_pallas.py:291")
+load_kernel_library = KERNEL.load

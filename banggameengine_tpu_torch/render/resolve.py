@@ -19,7 +19,6 @@ only for finite tables (``0 * inf`` is NaN in the product), and returns
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -42,20 +41,6 @@ def resolve_tiles_wide_reference(slot: Tensor, table: Tensor) -> Tensor:
     return torch.where(valid[None], g.permute(1, 0, 2), 0.0).contiguous()
 
 
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/resolve_wide.cu`` for sm_90a at first use and load it.
-    A failed build raises."""
-    lib = cuda_build.load_library("bge_resolve_wide", _SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.resolve_wide_launch.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr,
-                                        ptr]
-    lib.resolve_wide_launch.restype = i32
-    lib.resolve_wide_error_string.argtypes = [i32]
-    lib.resolve_wide_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_inputs(slot: Tensor, table: Tensor) -> None:
     if (slot.dtype != torch.int32 or slot.dim() != 2 or slot.shape[0] < 1
             or slot.shape[1] < 1):
@@ -75,19 +60,11 @@ def cuda_resolve_tiles_wide(slot: Tensor, table: Tensor) -> Tensor:
     _check_inputs(slot, table)
     n_tiles, px = slot.shape
     c, kl = table.shape[1], table.shape[2]
-    lib = load_kernel_library()
     slot, table = slot.contiguous(), table.contiguous()
     out = torch.empty((c, n_tiles, px), dtype=torch.float32,
                       device=slot.device)
-    with torch.cuda.device(slot.device):
-        stream = torch.cuda.current_stream(slot.device).cuda_stream
-        err = lib.resolve_wide_launch(slot.data_ptr(), table.data_ptr(),
-                                      n_tiles, px, c, kl, out.data_ptr(),
-                                      stream)
-    if err != 0:
-        msg = lib.resolve_wide_error_string(err).decode()
-        raise RuntimeError(f"resolve_wide kernel launch failed: {msg}")
-    resolve_tiles_wide.launches += 1
+    KERNEL.launch(slot.device, slot.data_ptr(), table.data_ptr(), n_tiles,
+                  px, c, kl, out.data_ptr())
     return out
 
 
@@ -96,8 +73,7 @@ def resolve_tiles_wide(slot: Tensor, table: Tensor) -> Tensor:
     per-tile tables f32[tiles, C, KL] -> f32[C, tiles, px].
 
     CUDA tensors always go through the CUDA kernel; CPU tensors through
-    the plain version; any other device raises.
-    ``resolve_tiles_wide.launches`` counts kernel launches."""
+    the plain version; any other device raises."""
     if slot.device.type == "cuda":
         return cuda_resolve_tiles_wide(slot, table)
     if slot.device.type == "cpu":
@@ -107,4 +83,10 @@ def resolve_tiles_wide(slot: Tensor, table: Tensor) -> Tensor:
         f"resolve_tiles_wide: no kernel for device {slot.device}")
 
 
-resolve_tiles_wide.launches = 0
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "resolve", "bge_resolve_wide", _SOURCE,
+    [_ptr, _ptr, _i32, _i32, _i32, _i32, _ptr, _ptr],
+    wrapper=resolve_tiles_wide, plain=resolve_tiles_wide_reference,
+    replaces="banggameengine_tpu/render/resolve_pallas.py:117")
+load_kernel_library = KERNEL.load

@@ -15,7 +15,6 @@ of its row.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
@@ -37,20 +36,6 @@ def gather_rows_u8_reference(table: Tensor, idx: Tensor) -> Tensor:
     return torch.where(ok[:, None], rows, 255)
 
 
-@functools.cache
-def load_kernel_library() -> ctypes.CDLL:
-    """Build ``csrc/gather_rows.cu`` for sm_90a at first use and load it.
-    A failed build raises."""
-    lib = cuda_build.load_library("bge_gather_rows", _SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gather_rows_launch.argtypes = [ptr, ptr, ctypes.c_longlong, i32, i32,
-                                       ptr, ptr]
-    lib.gather_rows_launch.restype = i32
-    lib.gather_rows_error_string.argtypes = [i32]
-    lib.gather_rows_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_inputs(table: Tensor, idx: Tensor) -> None:
     if (table.dtype != torch.uint8 or table.dim() != 2 or table.shape[0] < 1
             or table.shape[1] < 1 or table.shape[0] >= 2**31):
@@ -69,17 +54,10 @@ def cuda_gather_rows_u8(table: Tensor, idx: Tensor) -> Tensor:
     _check_inputs(table, idx)
     r, w = table.shape
     p = idx.shape[0]
-    lib = load_kernel_library()
     table, idx = table.contiguous(), idx.contiguous()
     out = torch.empty((p, w), dtype=torch.uint8, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.gather_rows_launch(table.data_ptr(), idx.data_ptr(), p, r,
-                                     w, out.data_ptr(), stream)
-    if err != 0:
-        msg = lib.gather_rows_error_string(err).decode()
-        raise RuntimeError(f"gather_rows kernel launch failed: {msg}")
-    gather_rows_u8.launches += 1
+    KERNEL.launch(table.device, table.data_ptr(), idx.data_ptr(), p, r, w,
+                  out.data_ptr())
     return out
 
 
@@ -88,8 +66,7 @@ def gather_rows_u8(table: Tensor, idx: Tensor) -> Tensor:
     uint8[P, W] (255 for an index outside ``[-R, R)``).
 
     CUDA tensors always go through the CUDA kernel; CPU tensors through
-    the plain version; any other device raises.
-    ``gather_rows_u8.launches`` counts kernel launches."""
+    the plain version; any other device raises."""
     if table.device.type == "cuda":
         return cuda_gather_rows_u8(table, idx)
     if table.device.type == "cpu":
@@ -99,4 +76,10 @@ def gather_rows_u8(table: Tensor, idx: Tensor) -> Tensor:
         f"gather_rows_u8: no kernel for device {table.device}")
 
 
-gather_rows_u8.launches = 0
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = cuda_build.HandKernel(
+    "gather", "bge_gather_rows", _SOURCE,
+    [_ptr, _ptr, ctypes.c_longlong, _i32, _i32, _ptr, _ptr],
+    wrapper=gather_rows_u8, plain=gather_rows_u8_reference,
+    replaces="scripts/profile_shade_parts.py:93")
+load_kernel_library = KERNEL.load

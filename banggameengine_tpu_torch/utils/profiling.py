@@ -28,11 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import os
 import time
 
 import torch
+
+from banggameengine_tpu_torch import cuda_build
 
 # the published H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -234,34 +235,21 @@ def profiler_on() -> bool:
     return torch.autograd._profiler_enabled()
 
 
-@functools.cache
-def load_span_library() -> ctypes.CDLL:
-    """Build ``csrc/spans.cu`` for sm_90a at first use and load it.  A
-    failed build raises."""
-    from banggameengine_tpu_torch import cuda_build
-
-    lib = cuda_build.load_library("bge_spans", _SPANS_SOURCE)
-    lib.bge_span_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.bge_span_launch.restype = ctypes.c_int
+def _check_count(lib: ctypes.CDLL) -> None:
+    """Raise unless the library holds a marker for each of
+    :data:`DEVICE_SPANS` and one for the end."""
     lib.bge_span_count.restype = ctypes.c_int
-    lib.bge_span_error_string.argtypes = [ctypes.c_int]
-    lib.bge_span_error_string.restype = ctypes.c_char_p
     if lib.bge_span_count() != _MARKER_END + 1:
         raise RuntimeError(
             f"spans: the library holds {lib.bge_span_count()} markers, "
             f"the wrapper expects {_MARKER_END + 1}")
-    return lib
 
 
-def _launch_marker(which: int, device: torch.device) -> None:
-    """Marker ``which`` on the current stream of ``device``."""
-    lib = load_span_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.bge_span_launch(which, stream)
-    if err != 0:
-        msg = lib.bge_span_error_string(err).decode()
-        raise RuntimeError(f"span marker launch failed: {msg}")
+# the markers are no hand kernels: built and launched as one, counted apart
+# from the registry, so no kernel's launch count holds a marker
+SPAN_LIBRARY = cuda_build.Library(
+    "bge_spans", _SPANS_SOURCE, [ctypes.c_int, ctypes.c_void_p],
+    symbols="bge_span", on_load=_check_count)
 
 
 class span:
@@ -291,12 +279,12 @@ class span:
                         and self.device.type == "cuda"
                         and self.name in _MARKER_INDEX)
         if self._marked:
-            _launch_marker(_MARKER_INDEX[self.name], self.device)
+            SPAN_LIBRARY.launch(self.device, _MARKER_INDEX[self.name])
         return self
 
     def __exit__(self, *exc):
         if self._marked:
-            _launch_marker(_MARKER_END, self.device)
+            SPAN_LIBRARY.launch(self.device, _MARKER_END)
         if self._range is not None:
             self._range.__exit__(*exc)
         return False

@@ -12,15 +12,18 @@ runs as the JAX package's jitted programs do, one dispatch a call: on the
 card it replays CUDA graphs (``banggameengine_tpu_torch/graphs.py``), so
 a launch count below counts each kernel a replay ran, and the count a
 phase checks leaves out the launches of each capture's eager warm-up
-(``graphs.warmup_launches``).  The comparisons with the plain versions
-run eagerly (``graphs.eager()``).  Phases, one line each:
+(``graphs.warmup_launches``).  The hand kernels are those of the
+registry (``cuda_build.KERNELS``, every one entered by
+``kernel_cases.hand_kernels``), and the comparisons route them to their
+plain twins and run eagerly (``kernel_cases.plain_twins``).  The script
+checks and prints no time: ``scripts/compare_kernels.py`` times a kernel
+change against another tree on the card, and ``portbench/`` measures.
+Phases 5, 6, 9 and 12 timed kernels, frames and builds and are retired;
+the others keep their numbers.  Phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles the seven kernels for sm_90a, all at once
-   (``physics/csrc/neighbor_lists.cu``, ``render/csrc/raster_walk.cu``,
-   ``render/csrc/resolve_wide.cu``, ``render/csrc/raster_resolve.cu``,
-   ``render/csrc/raster_tile.cu``, ``scripts/csrc/gather_rows.cu``,
-   ``physics/csrc/box_contacts.cu``);
+2. build: builds every hand kernel of the registry for sm_90a, all at
+   once;
 3. kernel vs plain: the broadphase kernel against its plain PyTorch
    version, exactly equal (idx, count, overflow; through the wrapper and
    on the raw boxes) on the stress scene at step 0 and after 200 steps, a
@@ -40,19 +43,10 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    the plain box contacts; a 32-box scene tracks the JAX package's
    trajectory (``tests/data/stress32_jax_golden.json``); then kernel #8
    against its plain version, every output exactly equal, on the inputs
-   that eager steps hand it (recorded in ``box_contacts_t``): the stress
+   that eager steps hand it (``kernel_cases.recorded_inputs``): the stress
    step at step 0 and after 200 steps (N=10,000, K=8), the packed pile
    and the flat many-world step at ``ROLLOUT_WORLDS`` worlds after 200
-   steps, its launches counted there too (N=65,536, K=7); the kernel's
-   device time on each, the plain version's and the bound;
-5. times: the broadphase kernel alone on stress cases a and b (its union
-   pre-pass and main kernel, two launches a call), the card's own time
-   through ``cuda_idx_count`` (see below) and one call by CUDA events,
-   with the share its unions keep; through ``neighbor_lists_aabb`` (CUDA
-   events over 10 queued calls, host work included, as earlier ports
-   timed it) beside the plain version and the bound; steps/s by
-   CUDA events, 2 warm-up and the median of 3 timed dispatches;
-6. render build: the build times of the walk and the resolve;
+   steps, its launches counted there too (N=65,536, K=7);
 7. render kernels vs plain: the walk (depth, slot) and the resolve against
    their plain PyTorch versions, exactly equal, on the inputs the showcase
    frame and the 10k-box frame give them at 1920x1080, on random packs
@@ -70,12 +64,6 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    200-step state, seen from the ground looking up into the falling boxes,
    each kernel launched once per tick, one tick bit-equal with the plain
    versions;
-9. render times: the walk kernel alone on both views, with the share of
-   (warp, slot) pairs its cover boxes skip, and the resolve kernel alone
-   beside its library call (one ``torch.gather``): each the card's own
-   time and one call by CUDA events, beside the plain version and the
-   bound; the frames and the tick by CUDA events, 2 warm-up and the
-   median of 5;
 10. route kernels vs plain: the fused walk + resolve (with tables and
    depth-only) and the full-carry tile raster (light and heavy passes)
    against their plain versions, exactly equal, on the inputs the fused
@@ -94,13 +82,6 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    equal to the walk's on the showcase (printed, with the pixels that
    differ, on the 10k-box view, where the top-64 heavy cap drops more);
    every frame bit-equal with the plain versions;
-12. route times: both route kernels alone, the card's own time and one
-   call by CUDA events, beside the walk then the resolve kernels, their
-   plain versions and bounds, with the share of (warp, slot) pairs the
-   cover boxes skip in the fused walk and in each tile-raster pass (the
-   three kernels share one banded walk, ``render/csrc/tile_walk.cuh``);
-   then the frames of each view by CUDA events: tiled, fused, flat,
-   tiled again;
 13. gather kernel vs plain: the u8 row gather against its plain version,
    exactly equal, on the shade-parts probe's inputs (u8[524288, 16] at
    1920x1080 rows) and on random cases (row counts that are no power of
@@ -111,12 +92,10 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
 14. the profiling path: every probe of ``scripts/profile_shade_parts`` and
    every stage of ``scripts/profile_render`` run once with host syncs
    raising, each probe within 1e-5 of its f64 sum; then both scripts'
-   timers (what their ``main`` runs) on those probes and stages (the
-   gather's launches counted in the probe's),
-   ``scripts/trace_summary`` on ``frame_tiled`` and ``tick`` (kernels,
-   launches, busy share, longest gaps) and on the gather alone; the
-   gather kernel and its two library calls by the card's own time.  Every
-   timer is ``banggameengine_tpu_torch/utils/profiling.py``'s;
+   timers (what their ``main`` runs) on those probes and stages, each
+   time positive and the gather launched by the probe's (no time
+   printed); ``scripts/trace_summary`` on ``frame_tiled`` and ``tick``:
+   each of their hand kernels once an execution, a busy share in (0, 1];
 15. the many-world slice, kernel #8 its only hand kernel:
    ``parallel.make_flat_many_world_step`` at 1,000 worlds of 8 boxes, a
    character and a trigger (16,000 entities in one flat world): 200 steps
@@ -127,9 +106,7 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    bit-equal to one 50-step dispatch; a 4-world run against the JAX
    package's flat step with per-world inputs
    (``tests/data/flat4_jax_golden.json``: floats within the bars it
-   stores, bools exact); world-steps/s by CUDA events (2 warm-up, median
-   of 5), the peak memory, and one flat step's device time by part
-   (characters, contacts + solve, integrate + the trigger planes);
+   stores, bools exact);
 16. the default route (``broadphase="dense"``: all-pairs AABB neighbor
    lists, the narrowphase manifolds, the unified solver, the character
    step against every entity), no hand kernel on it: ``build_demo_like``
@@ -140,19 +117,14 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    synchronisation, no hand-kernel launch: the character's position
    within the JAX golden's bar (``tests/data/demo_jax_golden.json``) after
    the landing and every 60 walking steps, the trigger's Enter and Exit
-   on the golden's steps; demo steps/s by CUDA events over the settling
-   run's 100-step dispatches (the first the warm-up, the median of the
-   other 3); then 200 boxes and a character sprinting into an exact shape
-   trigger (``trigger_mode="shape"``) for 300 steps in 6 events
-   dispatches of 50, held to the same golden: trigger events exact at
+   on the golden's steps; then 200 boxes and a character sprinting into
+   an exact shape trigger (``trigger_mode="shape"``) for 300 steps in 6
+   events dispatches of 50, held to the same golden: trigger events exact at
    every step, the character's position and on-ground flag every 50
    steps, the boxes' positions every 50 steps through step 250, each
    within the bar the golden stores; finite, every box above y = 0.2,
    ``contact_overflow`` and the neighbor lists' ``nbr_overflow`` printed;
-   steps/s over those dispatches (the first the warm-up, the median of
-   5) and the peak memory; the 12-box world after 60 steps against the
-   golden; one demo step and one 200-box step traced (launches, device
-   time, busy share);
+   the 12-box world after 60 steps against the golden;
 17. the application shell (``app.Application`` on the asset tree
    ``tests/data/app_assets``, ``play_demo``'s scripted track), no hand
    kernel of its own: the fused tick (``fused_tick=True``, 4 substeps
@@ -167,10 +139,8 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    level of the golden's 1280x720 frame on >= 99.9 % of pixels with the
    sky mask equal elsewhere; the walk and the resolve launched once a
    rendered frame; one state of each run rendered bit-equal with the
-   kernels and with their plain versions; display frames/s and fixed
-   steps/s of each path by the host clock, the host synchronisations a
-   display frame (CUDA sync debug mode "warn") and, from the run's last
-   frame traced, the launches and device time a display frame;
+   kernels and with their plain versions; the host synchronisations a
+   display frame (CUDA sync debug mode "warn");
 18. the app's overlays and the runtime scene, no hand kernel of their
    own: the default-path app at 1280x720 with the physics overlay (F3)
    and ``render_current_frame(hud=True)`` every display frame through the
@@ -181,8 +151,7 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    equal to it and its HUD frame equal to the HUD composed on it,
    bit-equal with the plain walk and resolve; one F1 frame (no raster
    kernel); the walk and the resolve launched once a rendered frame;
-   display frames/s, blocking host syncs and, from the last frame traced,
-   launches and device time a display frame; the JAX app's inputs
+   the blocking host syncs a display frame; the JAX app's inputs
    (``tests/data/overlay_jax_golden.npz``) rendered at 128x32, plain, F3
    and F1, each within 1 level of the JAX app's frame on >= 99.9 % of
    pixels; then ``build_scene(capacity=16, max_trigger_slots=2)`` on the
@@ -206,38 +175,31 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    overflows printed, finite and above the ground, its trajectory within
    the JAX test's bars (``tests/test_contact_t.py:193-199``) of phase 4's
    all-pairs run (kernel #1), the 32-box grid golden
-   (``tests/data/grid32_jax_golden.json``), steps/s by CUDA events and
-   one traced step of each route; 1,000 worlds of the capsule scene
+   (``tests/data/grid32_jax_golden.json``); 1,000 worlds of the capsule scene
    (``tests/data/capsule_flat_jax_golden.npz``) on the flat static route
    for 240 steps: every world equal to world 0 within 1e-6, world 0
    within 2e-4 of JAX's flat step over the golden's 50 steps, the
-   upright capsule at rest at hh + r +- 0.1, world-steps/s; the tiled
+   upright capsule at rest at hh + r +- 0.1; the tiled
    shade over the tile raster on both 1080p views (launches counted, no
    host sync, bit-equal to the plain versions, the showcase bit-equal to
    the tiled frame over the walk, the pixels apart on the 10k-box view
    printed), its row-gather fallback at a resolve of 80 slots (the pixels
    that take it counted, the frame bit-equal to the full resolve), the
-   256x160 frame against ``tests/data/tiled_tile_jax_golden.npz``, and
-   the frames' times.  Phase 16 prints the demo's launches a step beside
-   the planar character step's;
+   256x160 frame against ``tests/data/tiled_tile_jax_golden.npz``;
 20. the sharded modes, the native loader and the windows, no hand kernel
    on them but kernel #8 on the flat step's, on a one-rank NCCL group
    (``parallel.ranks.init_rank``); each
    sharded program runs as a CUDA graph with its collectives inside, and
    through ``graphs.eager()`` from the same start, every output of every
    call bit-equal between the two routes with no host sync in a call,
-   with its ms a call (CUDA events) and host launches a call on both
-   routes beside one call's traced device time: (a)
+   with its host launches a call on both routes: (a)
    ``make_sharded_many_world_step`` (``torch.func.vmap`` of the engine
    step) on the world mesh at 1,000 worlds of phase 15's scene, 100
    steps in dispatches of 50 with zero and with per-world input, no host
    sync, no functorch BatchedFallback warning, finite and above the
    ground, within 2e-4 of the flat step after 25 steps (bools exact), its
    ``with_metrics`` form (two 10-step calls on both routes, the means
-   finite), world-steps/s by CUDA events beside the flat step's
-   (dispatches of 10, median of 3 after 2 warm-up), the peak memory of
-   each and the vmapped step's launches (a trace of one step; the flat
-   step's are phase 15's); (b) the router's layout on the one-rank mesh
+   finite); (b) the router's layout on the one-rank mesh
    (``"flat"``), the flat step with ``mesh=`` bit-equal to ``mesh=None``
    and two 10-step calls on both routes; (c) ``SW_SHARDED_STEPS``
    donated fully sharded steps of phase 4's 10k-box state on both
@@ -246,7 +208,7 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    and the state's contact cache is the all-pairs route's), and the demo
    topology's 120 steps on both routes, the graph route's against
    ``tests/data/sharded_world_jax_golden.json`` (events exact, floats
-   within the bar it stores), with steps/s; (d) the entity-sharded
+   within the bar it stores); (d) the entity-sharded
    contact phase on the 10k-box state on both routes, within 1e-5 of the
    same phase on the CPU (a gloo group); (e) the native library built with
    g++ into ``banggameengine_tpu_torch/_build/``, every mesh of
@@ -270,31 +232,20 @@ run eagerly (``graphs.eager()``).  Phases, one line each:
    that grow the level table (the next step captures anew); each with
    its host launches a call (graph: replays, input copies and output
    clones, at most ``G_STRESS_HOST_MAX`` for the stress dispatch; eager:
-   ATen ops and hand kernels) and a call's time by CUDA events on both
-   routes; and a one-step flat many-world call (flatten, the flat step
-   and unflatten: three graphs) by CUDA events against its traced
-   device time.
+   ATen ops and hand kernels); and a one-step flat many-world call
+   (flatten, the flat step and unflatten: three graphs) traced, its
+   kernels in the trace.
 
-Every kernel's ``ms`` and ``library_ms`` in the JSON line is the card's
-own time for one call through the kernel's launcher (``cuda_*``, the
-function its wrapper calls on CUDA tensors): ``measure_device_trials``,
-the median of 5 windows of 10 calls queued behind a sleep kernel, so the
-host's per-call work stays out.  ``plain_ms`` is by CUDA events (the
-plain versions take milliseconds).  Each kernel's bound is the larger
-of its bytes (each input read once, each output written once) over 3.35
-TB/s and its f32 operations over 67 TFLOP/s, counted from this run's
-inputs as the work they need: the pairs that the broadphase's unions and
-the raster kernels' cover boxes keep, not every pair (kernel #8: every
-listed pair, ``CONTACT_PAIR_OPS`` each).  The line before
-the last is the kernel table as JSON; the last line is ``{"ok": true,
-"device": {...}}``.  Any failed check raises, so the run exits non-zero
-and prints no result.  Without a CUDA device it exits 1.  Phases 16 to
-21 print their own times.
+The line before the last is the registry as JSON: each hand kernel's
+key, library, source and the TPU kernel it stands for; the last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the run
+exits non-zero and prints no result.  Without a CUDA device it exits 1.
 
     python3 chip_smoke.py
 
-``banggameengine_tpu_torch/scripts/compare_kernels.py`` times these
-kernels against another tree's, such as the parent commit's.
+:func:`broadphase_bound`, :func:`walk_bound` and :func:`resolve_bound`
+are the kernels' rooflines that ``portbench/harness/roofline.py`` froze;
+``portbench/tests/test_portbench_roofline.py`` holds the copies to them.
 """
 
 from __future__ import annotations
@@ -302,6 +253,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -309,15 +261,15 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
 
 from banggameengine_tpu_torch import convert, graphs, kernel_cases
 from banggameengine_tpu_torch.kernel_cases import (
-    recorded_render_inputs,
-    render_kernel_modules,
+    hand_kernels,
+    plain_twins,
+    recorded_inputs,
     sorted_broadphase_inputs,
 )
 from banggameengine_tpu_torch.scene.synthetic import (
@@ -325,37 +277,12 @@ from banggameengine_tpu_torch.scene.synthetic import (
     TICK_CAMERA_YAW_PITCH,
 )
 from banggameengine_tpu_torch.state import FEAT_STRIDE
-from banggameengine_tpu_torch.utils.profiling import (
-    bound_ms,
-    measure_device_trials,
-    measure_throughput,
-    measure_trials,
-    measure_trials_chained,
-)
+from banggameengine_tpu_torch.utils.profiling import bound_ms
 
 N_STRESS = 10_000
 STEPS_PER_DISPATCH = 50
 DISPATCHES = 4                 # 200 steps
 MAX_NEIGHBORS = 8
-KERNEL_SOURCE = "banggameengine_tpu_torch/physics/csrc/neighbor_lists.cu"
-TPU_KERNEL = "banggameengine_tpu/physics/broadphase_pallas.py:40"
-WALK_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_walk.cu"
-WALK_TPU_KERNEL = "banggameengine_tpu/render/raster_resolve_pallas.py:291"
-RESOLVE_SOURCE = "banggameengine_tpu_torch/render/csrc/resolve_wide.cu"
-RESOLVE_TPU_KERNEL = "banggameengine_tpu/render/resolve_pallas.py:117"
-FUSED_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_resolve.cu"
-FUSED_TPU_KERNEL = "banggameengine_tpu/render/raster_resolve_pallas.py:68"
-TILE_SOURCE = "banggameengine_tpu_torch/render/csrc/raster_tile.cu"
-TILE_TPU_KERNEL = "banggameengine_tpu/render/raster_pallas.py:27"
-GATHER_SOURCE = "banggameengine_tpu_torch/scripts/csrc/gather_rows.cu"
-GATHER_TPU_KERNEL = "scripts/profile_shade_parts.py:93"
-CONTACTS_SOURCE = "banggameengine_tpu_torch/physics/csrc/box_contacts.cu"
-# no Pallas kernel: XLA fuses the JAX package's box_contacts_t
-CONTACTS_TPU_FUNCTION = "banggameengine_tpu/physics/contact_t.py:104"
-# f32 operations per listed pair of the box contacts: both rotations
-# (~60), the SAT's 15 axes (~500), the 16 corners against the other box
-# (~700), slot 16 and the candidates kept (~140)
-CONTACT_PAIR_OPS = 1400
 ROLLOUT_WORLDS = 4096   # the flat step of the rollout cell: 65,536 rows
 # a probe's f32 sum against the same sum in f64: within this share of the
 # sum of its terms' magnitudes (up to 2 M terms, summed in another order)
@@ -399,14 +326,11 @@ APP_ASSETS = os.path.join(DATA, "app_assets")
 APP_GOLDEN = os.path.join(DATA, "app_jax_golden.json")
 APP_FRAMES = os.path.join(DATA, "app_jax_golden.npz")
 # the default path's run: the track's first 1.0 s (the character has landed
-# by frame 27; 2.5 s and 1.5 s took phase 17 over its 60 s on the H100),
-# frames after the first 5 timed
+# by frame 27; 2.5 s and 1.5 s took phase 17 over its 60 s on the H100)
 APP_DEFAULT_SECONDS = 1.0
-APP_DEFAULT_WARMUP = 5
 OVERLAY_GOLDEN = os.path.join(DATA, "overlay_jax_golden.npz")
 LIFECYCLE_GOLDEN = os.path.join(DATA, "lifecycle_jax_golden.json")
-# the overlay run: the track's first second (the least phase 18 asks),
-# frames after the first 5 timed
+# the overlay run: the track's first second (the least phase 18 asks)
 OVERLAY_SECONDS = 1.0
 # the line pass on the card vs on the CPU, same inputs: differing pixels
 # at most this share of the line pixels (the card's matrix products may
@@ -426,8 +350,6 @@ CAPSULE_WORLD_ATOL = 1e-6   # every world against world 0
 CAPSULE_ATOL = 2e-4         # world 0 against JAX's flat step (its bar)
 TILED_TILE_GOLDEN = os.path.join(DATA, "tiled_tile_jax_golden.npz")
 NARROW_SLOTS = dict(shade_slots=64, heavy_shade_slots=80)
-PLANAR_DEMO_LAUNCHES = 2624  # a demo step on the planar character step
-#                              over every entity (PERF.md §5)
 
 
 class SmokeFailure(AssertionError):
@@ -468,146 +390,36 @@ def packed_pile(device):
     return tree_replace(state, pos=pos, quat=quat), static
 
 
-def build_in_parallel(loaders) -> list[float]:
+def build_in_parallel(loaders) -> None:
     """Call every kernel loader at once, one thread each (each ``nvcc`` is
-    its own process, each library has its own build directory), and
-    return the seconds each took; the first failure raises."""
-    def timed(fn):
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-
+    its own process, each library has its own build directory); the first
+    failure raises."""
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
-        return list(pool.map(timed, loaders))
+        list(pool.map(lambda load: load(), loaders))
 
 
-def median_ms(fn, warmup: int = 2, timed: int = 5) -> float:
-    """Median ms of single calls of ``fn`` by CUDA events, after warm-up."""
-    return statistics.median(measure_trials(
-        fn, calls=1, warmup=warmup, trials=timed)) * 1e3
+def reset_launches() -> None:
+    """Set every hand kernel's launch count, and the captures' warm-up
+    counts, to 0."""
+    for kernel in hand_kernels().values():
+        kernel.launches = 0
+    graphs.warmup_launches.clear()
 
 
-def device_ms(fn, calls: int = 10, trials: int = 5) -> float:
-    """Median ms of the card's own work per call of ``fn`` (windows of
-    queued calls held behind a sleep kernel: no host time inside)."""
-    return statistics.median(measure_device_trials(
-        fn, calls=calls, trials=trials)) * 1e3
-
-
-def dispatch_ms(run, state, inp, warmup: int = 2, timed: int = 3):
-    """Median ms of one dispatch (CUDA events) after ``warmup`` dispatches;
-    each dispatch continues from the state the previous one left."""
-    times, _ = measure_trials_chained(run, state, inp, calls=1,
-                                      warmup=warmup, trials=timed)
-    return statistics.median(times) * 1e3
-
-
-@contextlib.contextmanager
-def plain_broadphase():
-    """Route the step's broadphase through the plain PyTorch version, for
-    the comparison runs only; the factories run eagerly inside, so no
-    captured graph replays the kernel."""
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-
-    kernel = bk.neighbor_lists_aabb
-    bk.neighbor_lists_aabb = bk.neighbor_lists_aabb_reference
-    try:
-        with graphs.eager():
-            yield
-    finally:
-        bk.neighbor_lists_aabb = kernel
-
-
-@contextlib.contextmanager
-def _contacts_route(route):
-    """The factories run eagerly inside, their box contacts through
-    ``route`` in place of ``contact_t.box_contacts_t``."""
-    from banggameengine_tpu_torch.physics import contact_t
-
-    saved = contact_t.box_contacts_t
-    contact_t.box_contacts_t = route
-    try:
-        with graphs.eager():
-            yield
-    finally:
-        contact_t.box_contacts_t = saved
-
-
-def plain_contacts():
-    """Route the step's box contacts through the plain PyTorch version,
-    for the comparison runs only (eagerly, as :func:`plain_broadphase`)."""
-    from banggameengine_tpu_torch.physics import contact_t
-
-    return _contacts_route(contact_t.box_contacts_t_reference)
-
-
-def recorded_contacts(calls: list):
-    """Run the factories eagerly and append each call of
-    ``contact_t.box_contacts_t`` inside to ``calls`` as (args, kwargs):
-    the inputs the main path hands kernel #8."""
-    from banggameengine_tpu_torch.physics import contact_t
-
-    route = contact_t.box_contacts_t
-
-    def recording(*args, **kwargs):
-        calls.append((args, kwargs))
-        return route(*args, **kwargs)
-
-    return _contacts_route(recording)
-
-
-def own(tree):
-    """A copy of ``tree`` that the caller owns: a donating program's result
-    is its buffers, which its next call overwrites.  (Not counted in
-    ``graphs.stats``: the copy is the script's, not the program's.)"""
-    leaves, spec = graphs.flatten(tree)
-    return graphs.unflatten(spec, [t.clone() for t in leaves])
-
-
-def launch_counts() -> dict:
-    return {k: getattr(m, w).launches
-            for k, (m, w, _, _) in render_kernel_modules().items()}
-
-
-def reset_launch_counts() -> None:
-    for m, w, _, _ in render_kernel_modules().values():
-        getattr(m, w).launches = 0
-        graphs.warmup_launches[w] = 0
-
-
-def warmup_counts() -> dict:
-    """The render kernels' launches in the captures' eager warm-ups since
-    the counts were last set to 0 (part of ``launch_counts()``)."""
-    return {k: graphs.warmup_launches[w]
-            for k, (_, w, _, _) in render_kernel_modules().items()}
+def launch_counts(warm: bool = False) -> dict:
+    """The hand kernels' launches since :func:`reset_launches`, by the
+    registry's key, those with any; with ``warm``, those the captures'
+    eager warm-ups made (which the count without holds too)."""
+    counts = (graphs.warmup_launches if warm else
+              {k: v.launches for k, v in hand_kernels().items()})
+    return {k: n for k, n in counts.items() if n}
 
 
 def replayed_counts() -> dict:
-    """``launch_counts()`` less the captures' warm-ups."""
-    warm = warmup_counts()
-    return {k: n - warm[k] for k, n in launch_counts().items()}
-
-
-def hand_launches() -> int:
-    """Launches of every hand kernel since the counts were last set to 0."""
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-    from banggameengine_tpu_torch.physics import contacts_kernel as ck
-    from banggameengine_tpu_torch.scripts import gather_rows as gr
-
-    return (bk.neighbor_lists_aabb.launches + ck.box_contacts.launches
-            + gr.gather_rows_u8.launches + sum(launch_counts().values()))
-
-
-def reset_hand_launches() -> None:
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-    from banggameengine_tpu_torch.physics import contacts_kernel as ck
-    from banggameengine_tpu_torch.scripts import gather_rows as gr
-
-    bk.neighbor_lists_aabb.launches = 0
-    ck.box_contacts.launches = 0
-    gr.gather_rows_u8.launches = 0
-    graphs.warmup_launches.clear()
-    reset_launch_counts()
+    """:func:`launch_counts` less the captures' warm-ups."""
+    warm = launch_counts(warm=True)
+    return {k: n - warm.get(k, 0) for k, n in launch_counts().items()
+            if n != warm.get(k, 0)}
 
 
 @contextlib.contextmanager
@@ -618,23 +430,6 @@ def no_host_sync():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(0)
-
-
-@contextlib.contextmanager
-def plain_render_kernels():
-    """Route the frame's render kernels through their plain PyTorch
-    versions, for the comparison runs only (eagerly, as
-    :func:`plain_broadphase`)."""
-    mods = render_kernel_modules()
-    saved = {k: getattr(m, w) for k, (m, w, _, _) in mods.items()}
-    for m, w, _, plain in mods.values():
-        setattr(m, w, plain)
-    try:
-        with graphs.eager():
-            yield
-    finally:
-        for k, (m, w, _, _) in mods.items():
-            setattr(m, w, saved[k])
 
 
 def walk_work(counts, pack) -> tuple[int, int, int]:
@@ -683,48 +478,10 @@ def walk_skip_share(counts, pack, tiles_x: int, tile_ids=None,
     return float(miss[walked].float().mean())
 
 
-def tile_skip_share(args) -> float:
-    """:func:`walk_skip_share` of a full-carry raster pass (its arguments:
-    tile_idx, x, y, z, oid, cb1, cb2, ok, tiles_x), which walks every slot
-    of each listed tile."""
-    tile_idx, x, y, z, _, _, _, ok, tiles_x = args
-    counts = torch.full_like(tile_idx, ok.shape[1])
-    return walk_skip_share(counts, kernel_cases.carry_pack(x, y, z, ok),
-                           tiles_x, tile_ids=tile_idx)
-
-
 def resolve_bound(slot, table) -> tuple[float, str]:
     n, c, kl = table.shape
     return bound_ms(
         4 * slot.numel() + 4 * n * c * kl + 4 * c * slot.numel(), 0)
-
-
-def fused_bound(counts, pack, table, tiles_x: int) -> tuple[float, str]:
-    """The walk's bytes and operations (:func:`walk_bound`), the table
-    columns below each tile's count and the resolved planes."""
-    walked, _, pairs = walk_work(counts, pack)
-    n = pack.shape[0]
-    n_bytes = 4 * n + 40 * walked + 8 * n * 4096
-    if table is not None:
-        c, kl = table.shape[1:]
-        cols = int(torch.clamp(counts, 0, min(kl, pack.shape[1])).sum())
-        n_bytes += 4 * c * cols + 4 * c * n * 4096
-    kept = 1.0 - walk_skip_share(counts, pack, tiles_x)
-    return bound_ms(n_bytes, RASTER_OPS * pairs * kept)
-
-
-def tile_bound(passes) -> tuple[float, str]:
-    """Full-carry raster passes (their arguments): per pass every ok flag
-    and tile index, the corners, barycentric columns and id of the used
-    slots, five planes; the operations of the (warp, slot) pairs its cover
-    boxes keep (:func:`walk_bound`)."""
-    n_bytes = ops = 0
-    for args in passes:
-        n, k = args[7].shape
-        used = int((args[7] != 0).sum())
-        n_bytes += 4 * n + 4 * n * k + 64 * used + 20 * n * 4096
-        ops += RASTER_OPS * used * 4096 * (1.0 - tile_skip_share(args))
-    return bound_ms(n_bytes, ops)
 
 
 def broadphase_bound(mn, mx) -> tuple[float, str]:
@@ -740,18 +497,6 @@ def broadphase_bound(mn, mx) -> tuple[float, str]:
            + BROADPHASE_OPS * int(kept.sum()) * bk.BAND_ROWS
            * bk.GROUP_COLS)
     return bound_ms(36 * n + 4 * (MAX_NEIGHBORS + 1) * n, ops)
-
-
-def contacts_bound(args, budget: int, orig_id) -> tuple[float, str]:
-    """Kernel #8: each input read once (poses, extents, lists, flags and
-    ids), the ``[budget, N]`` rows written once; ``CONTACT_PAIR_OPS``
-    operations a listed pair."""
-    pos, quat, half, nb_idx, nb_valid, ground_valid = args
-    n, k = nb_idx.shape
-    ids = 0 if orig_id is None else orig_id.element_size()
-    n_in = 40 * n + 5 * n * k + n + ids * n
-    n_out = budget * n * (33 + (4 if ids else 0)) + 4
-    return bound_ms(n_in + n_out, CONTACT_PAIR_OPS * int(nb_valid.sum()))
 
 
 def random_walk_case(n_tiles: int, k_pad: int, tiles_x: int, seed: int,
@@ -829,35 +574,30 @@ def random_tile_case(n: int, k: int, tiles_x: int, seed: int, device):
             t(pack[..., 9].astype(np.int32)), tiles_x)
 
 
-def contacts_phase(dev, card: str, static, state0, state, inp,
-                   launches: int) -> dict:
+def contacts_phase(dev, static, state0, state, inp) -> None:
     """Phase 4's check of kernel #8, the box contacts, on the inputs that
-    eager steps of the main path hand ``box_contacts_t``: the stress step
-    at step 0 and after 200 steps (N=10,000, K=8; few boxes touch yet),
-    phase 3's packed pile (N=96, every box in contact) and the flat
-    many-world step of ``ROLLOUT_WORLDS`` worlds after 200 steps of its
-    own, whose launches are counted (N=65,536, K=7).  Every output of the kernel
-    exactly equal to its plain version's; the kernel's device time on
-    each, the plain version's and the bound.  Returns the kernel's row of
-    the kernel table (its times on the stress step's inputs at step 0,
-    ``launches`` phase 4's)."""
+    eager steps of the main path hand it: the stress step at step 0 and
+    after 200 steps (N=10,000, K=8; few boxes touch yet), phase 3's
+    packed pile (N=96, every box in contact) and the flat many-world step
+    of ``ROLLOUT_WORLDS`` worlds after 200 steps of its own, whose
+    launches are counted (N=65,536, K=7).  Every output of the kernel
+    exactly equal to its plain version's."""
     from banggameengine_tpu_torch.engine import make_step_fn
     from banggameengine_tpu_torch.parallel.manyworld import (
         make_flat_many_world_step, replicate_input, replicate_state)
-    from banggameengine_tpu_torch.physics import contact_t
     from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
     from banggameengine_tpu_torch.state import InputFrame
 
-    calls = []
     step = make_step_fn(static, broadphase="allpairs",
                         max_neighbors=MAX_NEIGHBORS)
     pile, pile_static = packed_pile(dev)
-    with recorded_contacts(calls):
+    with recorded_inputs("contacts") as rec:
         step(state0, inp)
         step(state, inp)
         make_step_fn(pile_static, broadphase="allpairs",
                      max_neighbors=MAX_NEIGHBORS)(pile, inp)
+    calls = rec["contacts"]
 
     # the rollout's flat step: 200 steps through its graphs, then one
     # eager step recorded
@@ -867,21 +607,21 @@ def contacts_phase(dev, card: str, static, state0, state, inp,
                                     num_steps=STEPS_PER_DISPATCH)
     one = make_flat_many_world_step(static1, w, state1.comp_mask)
     zero = replicate_input(InputFrame.zero(dev), w)
-    ck.box_contacts.launches = 0
-    graphs.warmup_launches.clear()
+    reset_launches()
     steps = DISPATCHES * STEPS_PER_DISPATCH
     with no_host_sync():
         flat = replicate_state(state1, w)
         for _ in range(DISPATCHES):
             flat = run(flat, zero)
     torch.cuda.synchronize()
-    flat_launches = ck.box_contacts.launches
-    flat_warm = graphs.warmup_launches["box_contacts"]
+    flat_launches = ck.KERNEL.launches
+    flat_warm = graphs.warmup_launches["contacts"]
     check(flat_launches - flat_warm == steps,
           f"the flat step at {w} worlds launched kernel #8 {flat_launches} "
           f"times ({flat_warm} in the capture's warm-up) in {steps} steps")
-    with recorded_contacts(calls):
+    with recorded_inputs("contacts") as rec:
         one(flat, zero)
+    calls += rec["contacts"]
     print(f"[contacts] the flat many-world step at {w} worlds: {steps} "
           f"steps in {DISPATCHES} dispatches of {STEPS_PER_DISPATCH} (no "
           f"host sync), kernel #8 launched {flat_launches} times "
@@ -890,25 +630,17 @@ def contacts_phase(dev, card: str, static, state0, state, inp,
     names = (f"stress {N_STRESS}, step 0", f"stress {N_STRESS}, step {steps}",
              "packed 96-box pile", f"flat {w} worlds, step {steps}")
     check(len(calls) == len(names),
-          f"kernel #8: {len(calls)} box_contacts_t calls recorded")
-    rows = []
-    for name, (args, kw) in zip(names, calls):
-        check(kw.get("shape_type") is None, f"kernel #8, {name}: mixed call")
-        budget, orig = kw["budget"], kw["orig_id"]
+          f"kernel #8: {len(calls)} box_contacts calls recorded")
+    for name, args in zip(names, calls):
+        *_, budget, orig = args
         n, k = args[3].shape
-        got = ck.box_contacts(*args, budget=budget, orig_id=orig)
-        want = contact_t.box_contacts_t_reference(*args, **kw)
+        got = ck.box_contacts(*args)
+        want = ck.box_contacts_reference(*args)
         torch.cuda.synchronize()
         check(len(got) == len(want)
               and all(a.dtype == b.dtype and torch.equal(a, b)
                       for a, b in zip(got, want)),
               f"kernel #8, {name}: differs from the plain version")
-        ms = device_ms(lambda: ck.box_contacts(*args, budget=budget,
-                                               orig_id=orig))
-        plain_ms = measure_throughput(
-            lambda: contact_t.box_contacts_t_reference(*args, **kw),
-            calls=5, warmup=2) * 1e3
-        bound = contacts_bound(args, budget, orig)
         prt, valid = want[0], want[8]
         print(f"[contacts] kernel #8 vs plain, {name} (N={n}, K={k}, "
               f"budget {budget}, feature ids "
@@ -916,26 +648,13 @@ def contacts_phase(dev, card: str, static, state0, state, inp,
               f"equal ({int(args[4].sum())} listed pairs, "
               f"{int((valid & (prt >= 0)).sum())} pair and "
               f"{int((valid & (prt < 0)).sum())} ground contacts, overflow "
-              f"{int(want[9])}); kernel {ms:.4f} ms of device time, plain "
-              f"{plain_ms:.3f} ms a call (events), bound {bound[0]:.4f} ms "
-              f"({bound[1]}) {card}")
-        rows.append((ms, plain_ms, bound))
-    ms, plain_ms, bound = rows[0]
-    return {"name": "box_contacts", "route": "cuda",
-            "source": CONTACTS_SOURCE, "replaces": CONTACTS_TPU_FUNCTION,
-            "launches": launches, "max_abs_err": 0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+              f"{int(want[9])})")
 
 
-def render_phases(dev, card: str, stress_state, static,
-                  build_s) -> tuple[list[dict], dict]:
-    """Phases 6-9: the render slice.  Returns the walk's and the resolve's
-    entries of the kernel table, and the scenes, renderers and recorded
-    kernel inputs the route phases reuse."""
+def render_phases(dev, stress_state, static) -> dict:
+    """Phases 7 and 8: the render slice.  Returns the scenes, renderers
+    and recorded kernel inputs the route phases reuse."""
     from banggameengine_tpu_torch import convert
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-    from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.render import raster_walk as rwk
     from banggameengine_tpu_torch.render import resolve as rsv
     from banggameengine_tpu_torch.render.camera import Camera
@@ -945,13 +664,6 @@ def render_phases(dev, card: str, stress_state, static,
     from banggameengine_tpu_torch.scene.synthetic import (
         build_box_render, build_showcase_render)
     from banggameengine_tpu_torch.state import InputFrame
-
-    # ---- 6. build -------------------------------------------------------
-    print(f"[render-build] {WALK_SOURCE} built and loaded in "
-          f"{build_s[0]:.1f} s, {RESOLVE_SOURCE} in {build_s[1]:.1f} s, "
-          f"{FUSED_SOURCE} in {build_s[2]:.1f} s, {TILE_SOURCE} in "
-          f"{build_s[3]:.1f} s (in phase 2, in parallel with the "
-          f"broadphase)")
 
     sc = build_showcase_render(0)
     show_rs = convert.render_scene_from_numpy(sc.render)
@@ -971,17 +683,16 @@ def render_phases(dev, card: str, stress_state, static,
                             return_depth=True)
     render_depth = make_render_fn(show_rs, RENDER_W, RENDER_H,
                                   bin_capacity=2048, depth_only=True)
-    t0 = time.perf_counter()
     box_rs = convert.render_scene_from_numpy(build_box_render(static))
     box_render = make_render_fn(box_rs, RENDER_W, RENDER_H, bin_capacity=2048)
     print(f"[render] scenes: showcase {int(show_rs.tri_valid.sum())} "
           f"triangles, 10k-box world {int(box_rs.tri_valid.sum())} "
-          f"triangles (built in {time.perf_counter() - t0:.1f} s)")
+          f"triangles")
 
     # ---- 7. kernels vs plain --------------------------------------------
-    with recorded_render_inputs() as show_in:
+    with recorded_inputs() as show_in:
         render(*show_args)
-    with recorded_render_inputs() as box_in:
+    with recorded_inputs() as box_in:
         box_render(*box_args)
     for name, rec in (("showcase", show_in), ("10k-box world", box_in)):
         local = rec["walk"][0][0] - 16
@@ -1002,13 +713,10 @@ def render_phases(dev, card: str, stress_state, static,
                   ("e: edge rows (zero area, corners on pixel centres, "
                    "slivers, huge triangles, ties), 13 tiles, K 272",
                    (edge_counts, edge_pack, 5))]
-    walk_err = 0.0
     for name, (counts, pack, tiles_x) in walk_cases:
         dep_k, slot_k = rwk.cuda_raster_walk(counts, pack, tiles_x)
         dep_p, slot_p = rwk.raster_walk_reference(counts, pack, tiles_x)
         torch.cuda.synchronize()
-        walk_err = max(walk_err, float((dep_k - dep_p).abs().max()),
-                       float((slot_k - slot_p).abs().max()))
         check(torch.equal(slot_k, slot_p), f"walk {name}: slot differs")
         check(torch.equal(dep_k, dep_p), f"walk {name}: depth differs")
         if name.startswith("e"):
@@ -1024,33 +732,27 @@ def render_phases(dev, card: str, stress_state, static,
                       random_resolve_case(510, 40, 272, seed=3, device=dev)),
                      ("d: random, 37 tiles",
                       random_resolve_case(37, 40, 272, seed=4, device=dev))]
-    resolve_err = 0.0
     for name, (slot, table) in resolve_cases:
         check(bool(torch.isfinite(table).all()), f"resolve {name}: table "
               "not finite (the one-hot contract needs it)")
         out_k = rsv.cuda_resolve_tiles_wide(slot, table)
         out_p = rsv.resolve_tiles_wide_reference(slot, table)
         torch.cuda.synchronize()
-        resolve_err = max(resolve_err, float((out_k - out_p).abs().max()))
         check(torch.equal(out_k, out_p), f"resolve {name}: differs")
         print(f"[render-kernel-vs-plain] resolve {name}: exactly equal "
               f"({tuple(out_k.shape)}, slots up to {int(slot.max())}, "
               f"KL {table.shape[2]})")
 
     # ---- 8. the render slice --------------------------------------------
-    reset_launch_counts()
-    torch.cuda.set_sync_debug_mode("error")   # a host sync raises
-    try:
+    reset_launches()
+    with no_host_sync():
         frame, depth = render(*show_args)
         depth_only = render_depth(*show_args)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    walks, resolves = rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches
-    warm = warmup_counts()
-    check((walks - warm["walk"], resolves - warm["resolve"]) == (2, 1),
+    walks, resolves = rwk.KERNEL.launches, rsv.KERNEL.launches
+    check(replayed_counts() == {"walk": 2, "resolve": 1},
           f"showcase frames: walk launched {walks}, resolve {resolves} times "
-          f"({warm} in the captures' warm-ups)")
+          f"({launch_counts(warm=True)} in the captures' warm-ups)")
     check(frame.dtype == torch.uint8
           and tuple(frame.shape) == (RENDER_H, RENDER_W, 4),
           f"frame {frame.dtype}{tuple(frame.shape)}")
@@ -1060,7 +762,7 @@ def render_phases(dev, card: str, stress_state, static,
     sky_share = float(sky_px.float().mean())
     check(0.2 < sky_share < 0.8, f"sky share {sky_share}")
     check(torch.equal(depth, depth_only), "depth-only frame differs")
-    with plain_render_kernels():
+    with plain_twins():
         frame_p, depth_p = render(*show_args)
     torch.cuda.synchronize()
     check(torch.equal(frame, frame_p) and torch.equal(depth, depth_p),
@@ -1105,37 +807,23 @@ def render_phases(dev, card: str, stress_state, static,
                          max_neighbors=MAX_NEIGHBORS)
     inp = InputFrame.zero()
     state = stress_state
-    bk.neighbor_lists_aabb.launches = 0
-    ck.box_contacts.launches = 0
-    reset_launch_counts()
-    graphs.warmup_launches.clear()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    reset_launches()
+    with no_host_sync():
         for _ in range(FRAME_TICKS):
             state, img, events = tick(state, inp, *tick_args)
-        state, events = own(state), own(events)   # the step graph's buffers
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+        # the step graph's buffers
+        state, events = graphs.owned(state), graphs.owned(events)
     torch.cuda.synchronize()
-    tick_s = time.perf_counter() - t0
-    launches = {"neighbor_lists": bk.neighbor_lists_aabb.launches,
-                "box_contacts": ck.box_contacts.launches,
-                "raster_walk": rwk.raster_walk.launches,
-                "resolve_wide": rsv.resolve_tiles_wide.launches}
-    warm = {k: graphs.warmup_launches[w] for k, w in (
-        ("neighbor_lists", "neighbor_lists_aabb"),
-        ("box_contacts", "box_contacts"),
-        ("raster_walk", "raster_walk"),
-        ("resolve_wide", "resolve_tiles_wide"))}
-    check(all(n - warm[k] == FRAME_TICKS for k, n in launches.items()),
+    launches, warm = launch_counts(), launch_counts(warm=True)
+    check(replayed_counts() == dict.fromkeys(
+        ("broadphase", "contacts", "walk", "resolve"), FRAME_TICKS),
           f"{FRAME_TICKS} ticks launched {launches} ({warm} in the "
           f"captures' warm-ups)")
     check(tuple(img.shape) == (RENDER_H, RENDER_W, 4)
           and bool(torch.isfinite(state.pos).all()),
           "tick: bad frame or non-finite state")
     s_k, img_k, _ = tick(state, inp, *tick_args)
-    with plain_broadphase(), plain_contacts(), plain_render_kernels():
+    with plain_twins():
         s_p, img_p, _ = tick(state, inp, *tick_args)
     torch.cuda.synchronize()
     check(torch.equal(img_k, img_p), "tick frame differs from the plain one")
@@ -1145,108 +833,22 @@ def render_phases(dev, card: str, stress_state, static,
     print(f"[render-slice] {FRAME_TICKS} ticks of make_frame_fn "
           f"(step + {RENDER_W}x{RENDER_H} frame) on the 10k-box world "
           f"from step {int(stress_state.step_idx)}, camera at "
-          f"{TICK_CAMERA_POS} looking up ({tick_s:.2f} s wall, no "
-          f"host sync; a step graph and a frame graph a tick): launches "
+          f"{TICK_CAMERA_POS} looking up (no host sync; a step graph and "
+          f"a frame graph a tick): launches "
           f"{launches} ({warm} in the captures' warm-ups); one more tick "
           f"bit-equal to the plain versions; frame overflow "
           f"{frame_overflow(box_rs, state.world, *tick_args[:2])} pairs, "
           f"contact_overflow {int(events.contact_overflow)}, "
           f"{int((img != sky).any(-1).sum())} non-sky pixels")
 
-    # ---- 9. times ---------------------------------------------------------
-    # each kernel: the card's own time through its launcher (the JSON
-    # line's ms), and one call through it by CUDA events, host work in
-    walk_t = {}
-    for view, (c_v, p_v, tx_v) in (("showcase", show_in["walk"][0]),
-                                   ("10k-box", box_in["walk"][0])):
-        walk_t[view] = w = dict(
-            ms=device_ms(lambda: rwk.cuda_raster_walk(c_v, p_v, tx_v)),
-            host=median_ms(lambda: rwk.cuda_raster_walk(c_v, p_v, tx_v)),
-            plain=median_ms(lambda: rwk.raster_walk_reference(c_v, p_v,
-                                                              tx_v)),
-            bound=walk_bound(c_v, p_v, tx_v))
-        print(f"[times] {view} {RENDER_W}x{RENDER_H}, walk kernel alone "
-              f"({tuple(p_v.shape)}): {w['ms']:.4f} ms of device time, "
-              f"where the cover boxes skip "
-              f"{walk_skip_share(c_v, p_v, tx_v):.4f} of (warp, slot) "
-              f"pairs; one call through cuda_raster_walk {w['host']:.4f} ms "
-              f"(events, host work included); plain {w['plain']:.4f} ms; "
-              f"bound {w['bound'][0]:.4f} ms ({w['bound'][1]}) {card}")
-    walk_ms, walk_plain_ms = walk_t["showcase"]["ms"], walk_t["showcase"][
-        "plain"]
-    walk_b = walk_t["showcase"]["bound"]
-    slot, table = show_in["resolve"][0]
-    resolve_ms = device_ms(lambda: rsv.cuda_resolve_tiles_wide(slot, table))
-    resolve_host_ms = median_ms(
-        lambda: rsv.cuda_resolve_tiles_wide(slot, table))
-    resolve_plain_ms = median_ms(
-        lambda: rsv.resolve_tiles_wide_reference(slot, table))
-    # the library call: one gather from the table with a zero column
-    # appended for the slots outside [0, KL)
-    n_t, c_t, kl_t = table.shape
-    table_z = torch.cat([table, table.new_zeros((n_t, c_t, 1))], dim=2)
-    idx = torch.where((slot >= 0) & (slot < kl_t), slot, kl_t).long()
-    idx = idx[:, None, :].expand(n_t, c_t, slot.shape[1])
-    check(torch.equal(torch.gather(table_z, 2, idx).permute(1, 0, 2),
-                      rsv.cuda_resolve_tiles_wide(slot, table)),
-          "the resolve's library call differs from the kernel")
-    resolve_lib_ms = device_ms(lambda: torch.gather(table_z, 2, idx))
-    resolve_lib_host_ms = median_ms(lambda: torch.gather(table_z, 2, idx))
-    resolve_b = resolve_bound(slot, table)
-    print(f"[times] showcase {RENDER_W}x{RENDER_H}, resolve alone "
-          f"({tuple(table.shape)}), device time: kernel {resolve_ms:.4f} ms, "
-          f"torch.gather {resolve_lib_ms:.4f} ms; one call by events: kernel "
-          f"{resolve_host_ms:.4f} ms, torch.gather {resolve_lib_host_ms:.4f}"
-          f" ms, plain {resolve_plain_ms:.4f} ms; bound {resolve_b[0]:.4f} "
-          f"ms ({resolve_b[1]}) {card}")
-    slot_b, table_b = box_in["resolve"][0]
-    box_resolve_ms = device_ms(
-        lambda: rsv.cuda_resolve_tiles_wide(slot_b, table_b))
-    print(f"[times] 10k-box {RENDER_W}x{RENDER_H}, resolve alone: kernel "
-          f"{box_resolve_ms:.4f} ms of device time {card}")
-    frame_ms = median_ms(lambda: render(*show_args))
-    depth_ms = median_ms(lambda: render_depth(*show_args))
-    with plain_render_kernels():
-        frame_plain_ms = median_ms(lambda: render(*show_args))
-    print(f"[times] showcase {RENDER_W}x{RENDER_H}: shaded frame "
-          f"{frame_ms:.3f} ms ({1e3 / frame_ms:.1f} frames/s), depth-only "
-          f"{depth_ms:.3f} ms ({1e3 / depth_ms:.1f} frames/s); shaded frame "
-          f"with the plain versions {frame_plain_ms:.3f} ms {card}")
-
-    def run_ticks():
-        nonlocal state
-        state, _, _ = tick(state, inp, *tick_args)
-        return state
-
-    with plain_broadphase(), plain_render_kernels():
-        tick_plain_ms = median_ms(run_ticks)
-    tick_ms = median_ms(run_ticks)
-    print(f"[times] 10k-box tick (step + {RENDER_W}x{RENDER_H} frame): "
-          f"{tick_ms:.2f} ms ({1e3 / tick_ms:.2f} ticks/s) with the kernels, "
-          f"{tick_plain_ms:.2f} ms ({1e3 / tick_plain_ms:.2f} ticks/s) with "
-          f"the plain versions {card}")
-
-    entries = [
-        {"name": "raster_walk", "route": "cuda", "source": WALK_SOURCE,
-         "replaces": WALK_TPU_KERNEL, "launches": launches["raster_walk"],
-         "max_abs_err": walk_err, "ms": walk_ms, "plain_ms": walk_plain_ms,
-         "bound_ms": walk_b[0], "bound_by": walk_b[1], "library_ms": None},
-        {"name": "resolve_wide", "route": "cuda", "source": RESOLVE_SOURCE,
-         "replaces": RESOLVE_TPU_KERNEL,
-         "launches": launches["resolve_wide"], "max_abs_err": resolve_err,
-         "ms": resolve_ms, "plain_ms": resolve_plain_ms,
-         "bound_ms": resolve_b[0], "bound_by": resolve_b[1],
-         "library_ms": resolve_lib_ms},
-    ]
     views = {"showcase": (show_rs, show_args, show_in),
              "10k-box": (box_rs, box_args, box_in)}
-    return entries, views
+    return views
 
 
-def route_phases(dev, card: str, views: dict) -> list[dict]:
-    """Phases 10-12: the fused and the full-carry frame routes on both
-    views.  Returns the fused kernel's and the tile raster's entries of the
-    kernel table."""
+def route_phases(dev, views: dict) -> None:
+    """Phases 10 and 11: the fused and the full-carry frame routes on both
+    views."""
     from banggameengine_tpu_torch.render import raster as rz
     from banggameengine_tpu_torch.render import raster_resolve as rr
     from banggameengine_tpu_torch.render import raster_tile as rt
@@ -1265,9 +867,9 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
         routes["fused"][name] = renderer(rs, shade_mode="fused")
         routes["flat"][name] = renderer(rs, shade_mode="flat",
                                         raster_backend="tile")
-        with recorded_render_inputs() as r_fused:
+        with recorded_inputs() as r_fused:
             routes["fused"][name](*args)
-        with recorded_render_inputs() as r_flat:
+        with recorded_inputs() as r_flat:
             routes["flat"][name](*args)
         check(len(r_fused["fused"]) == 1 and len(r_flat["tile"]) == 2,
               f"{name}: the fused frame launched {len(r_fused['fused'])} "
@@ -1306,7 +908,6 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
                     (f"{edge_name}, depth-only",
                      (edge_counts, edge_pack, None, 5))]
     line_r, line_c = kernel_cases.WALK_LINE_PIXEL
-    fused_err = 0.0
     for name, (counts, pack, tables, tiles_x) in fused_cases:
         dep_k, slot_k, res_k = rr.cuda_raster_resolve_tiles(counts, pack,
                                                             tables, tiles_x)
@@ -1314,8 +915,6 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
             counts, pack, tables, tiles_x)
         dep_w, slot_w = rwk.cuda_raster_walk(counts, pack, tiles_x)
         torch.cuda.synchronize()
-        fused_err = max(fused_err, float((dep_k - dep_p).abs().max()),
-                        float((slot_k - slot_p).abs().max()))
         check(torch.equal(dep_k, dep_p) and torch.equal(slot_k, slot_p),
               f"fused {name}: depth or slot differs from the plain version")
         check(torch.equal(dep_k, dep_w) and torch.equal(slot_k, slot_w),
@@ -1328,7 +927,6 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
             check(res_k is None, f"fused {name}: planes without tables")
             what, also = "depth and slot", "the walk kernel"
         else:
-            fused_err = max(fused_err, float((res_k - res_p).abs().max()))
             check(torch.equal(res_k, res_p),
                   f"fused {name}: planes differ from the plain version")
             check(torch.equal(res_k, rsv.cuda_resolve_tiles_wide(slot_w,
@@ -1354,14 +952,12 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
         (f"{edge_name} as full-carry arguments, listed shuffled",
          tuple(torch.as_tensor(a, device=dev) if i < 8 else a
                for i, a in enumerate(kernel_cases.tile_edge_case())))]
-    tile_err = 0.0
     for name, (*args, tiles_x) in tile_cases:
         out_k = rt.cuda_raster_tiles(*args, tiles_x)
         out_p = rt.raster_tiles_reference(*args, tiles_x)
         torch.cuda.synchronize()
         for plane, a, b in zip(("depth", "tri_id", "b1", "b2", "slot"),
                                out_k, out_p):
-            tile_err = max(tile_err, float((a - b).abs().max()))
             check(torch.equal(a, b), f"tile raster {name}: {plane} differs")
         if name.startswith("edge"):
             order = args[0].long()
@@ -1406,25 +1002,20 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
     # ---- 11. the route slice ---------------------------------------------
     frames, launches = {}, {}
     for mode in ("fused", "flat"):
-        reset_launch_counts()
-        torch.cuda.set_sync_debug_mode("error")   # a host sync raises
-        try:
+        reset_launches()
+        with no_host_sync():
             frames[mode] = {name: routes[mode][name](*args)
                             for name, (_, args, _) in views.items()}
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         launches[mode] = launch_counts()
-        want = {"walk": 0, "resolve": 0,
-                "fused": 2 if mode == "fused" else 0,
-                "tile": 4 if mode == "flat" else 0}
+        want = {"fused": 2} if mode == "fused" else {"tile": 4}
         check(replayed_counts() == want,
               f"{mode} frames: launches {launches[mode]} ("
-              f"{warmup_counts()} in the captures' warm-ups), expected "
-              f"{want} in the replays")
+              f"{launch_counts(warm=True)} in the captures' warm-ups), "
+              f"expected {want} in the replays")
     frames["tiled"] = {name: routes["tiled"][name](*args)
                        for name, (_, args, _) in views.items()}
-    with plain_render_kernels():
+    with plain_twins():
         plain = {mode: {name: routes[mode][name](*args)
                         for name, (_, args, _) in views.items()}
                  for mode in routes}
@@ -1471,75 +1062,6 @@ def route_phases(dev, card: str, views: dict) -> list[dict]:
           f"frame's graph replayed once; the counts include each capture's "
           f"eager warm-up)")
 
-    # ---- 12. route times --------------------------------------------------
-    t = {}
-    for name in views:
-        counts, pack, tables, tiles_x = rec[name][0]
-        light, heavy = rec[name][1]
-        runs = dict(
-            fused=lambda: rr.cuda_raster_resolve_tiles(counts, pack, tables,
-                                                       tiles_x),
-            split=lambda: rsv.cuda_resolve_tiles_wide(
-                rwk.cuda_raster_walk(counts, pack, tiles_x)[1], tables),
-            light=lambda: rt.cuda_raster_tiles(*light),
-            heavy=lambda: rt.cuda_raster_tiles(*heavy))
-        t[name] = {k: device_ms(f) for k, f in runs.items()}
-        t[name].update({f"{k}_host": median_ms(f) for k, f in runs.items()},
-                       fused_b=fused_bound(counts, pack, tables, tiles_x),
-                       tile_b=tile_bound([light, heavy]),
-                       fused_skip=walk_skip_share(counts, pack, tiles_x),
-                       light_skip=tile_skip_share(light),
-                       heavy_skip=tile_skip_share(heavy))
-        if name == "showcase":
-            t[name].update(
-                fused_plain=median_ms(
-                    lambda: rr.raster_resolve_tiles_reference(
-                        counts, pack, tables, tiles_x)),
-                light_plain=median_ms(
-                    lambda: rt.raster_tiles_reference(*light)),
-                heavy_plain=median_ms(
-                    lambda: rt.raster_tiles_reference(*heavy)))
-        r = t[name]
-        print(f"[times] {name} {RENDER_W}x{RENDER_H}, device time (one call "
-              f"by events, host work included): fused walk + resolve alone "
-              f"{r['fused']:.4f} ({r['fused_host']:.4f}) ms, its cover boxes "
-              f"skip {r['fused_skip']:.4f} of (warp, slot) pairs; walk then "
-              f"resolve kernels {r['split']:.4f} ({r['split_host']:.4f}) "
-              f"ms, bound {r['fused_b'][0]:.4f} ms ({r['fused_b'][1]}); tile"
-              f" raster light pass ({tuple(light[7].shape)}) "
-              f"{r['light']:.4f} ({r['light_host']:.4f}) ms, skip "
-              f"{r['light_skip']:.4f}, heavy pass ({tuple(heavy[7].shape)}) "
-              f"{r['heavy']:.4f} ({r['heavy_host']:.4f}) ms, skip "
-              f"{r['heavy_skip']:.4f}, bound of both {r['tile_b'][0]:.4f} ms "
-              f"({r['tile_b'][1]}) {card}")
-    r = t["showcase"]
-    print(f"[times] showcase plain versions: fused {r['fused_plain']:.3f} ms,"
-          f" tile raster light {r['light_plain']:.3f} ms, heavy "
-          f"{r['heavy_plain']:.3f} ms {card}")
-    for name, (_, args, _) in views.items():
-        # tiled, fused, flat, tiled: the tiled frame before and after shows
-        # how far the host's load moved between the runs
-        ms = [median_ms(lambda: routes[mode][name](*args))
-              for mode in ("tiled", "fused", "flat", "tiled")]
-        print(f"[times] {name} {RENDER_W}x{RENDER_H} frames: tiled "
-              f"{ms[0]:.3f} ms, fused {ms[1]:.3f} ms, flat {ms[2]:.3f} ms, "
-              f"tiled again {ms[3]:.3f} ms {card}")
-
-    return [
-        {"name": "raster_resolve", "route": "cuda", "source": FUSED_SOURCE,
-         "replaces": FUSED_TPU_KERNEL,
-         "launches": launches["fused"]["fused"], "max_abs_err": fused_err,
-         "ms": r["fused"], "plain_ms": r["fused_plain"],
-         "bound_ms": r["fused_b"][0], "bound_by": r["fused_b"][1],
-         "library_ms": None},
-        {"name": "raster_tile", "route": "cuda", "source": TILE_SOURCE,
-         "replaces": TILE_TPU_KERNEL, "launches": launches["flat"]["tile"],
-         "max_abs_err": tile_err, "ms": r["light"] + r["heavy"],
-         "plain_ms": r["light_plain"] + r["heavy_plain"],
-         "bound_ms": r["tile_b"][0], "bound_by": r["tile_b"][1],
-         "library_ms": None},
-    ]
-
 
 def random_gather_case(r: int, w: int, p: int, seed: int, device,
                        offset: int = 0):
@@ -1569,18 +1091,16 @@ def probe_reference(name: str, args) -> tuple:
     return terms.sum(dims), terms.abs().sum(dims)
 
 
-def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
-    """Phases 13-14: the u8 row gather against its plain version, then the
-    profiling path: the shade-parts probe, the frame stage timer and the
-    trace summary.  Returns the gather's entry of the kernel table."""
+def profiling_phases(dev) -> None:
+    """Phases 13 and 14: the u8 row gather against its plain version,
+    then the profiling path: the shade-parts probe, the frame stage timer
+    and the trace summary."""
     from banggameengine_tpu_torch.scripts import gather_rows as gr
     from banggameengine_tpu_torch.scripts import profile_render as prr
     from banggameengine_tpu_torch.scripts import profile_shade_parts as psp
     from banggameengine_tpu_torch.scripts import trace_summary as ts
 
     # ---- 13. gather kernel vs plain ---------------------------------------
-    print(f"[profile-build] {GATHER_SOURCE} built and loaded in "
-          f"{build_s:.1f} s (in phase 2, in parallel with the others)")
     probes = psp.probes(dev)
     table, idx = probes["pl_gather"][1]
     cases = [
@@ -1595,13 +1115,10 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
         ("e: random, R 257, W 33, P 513",
          random_gather_case(257, 33, 513, seed=13, device=dev)),
     ]
-    gather_err = 0
     for name, (t, i) in cases:
         out_k = gr.cuda_gather_rows_u8(t, i)
         out_p = gr.gather_rows_u8_reference(t, i)
         torch.cuda.synchronize()
-        gather_err = max(gather_err, int((out_k.int() - out_p.int()).abs()
-                                         .max()))
         check(torch.equal(out_k, out_p), f"gather {name}: differs")
         r = t.shape[0]
         in_range = i[(i >= 0) & (i < r)]
@@ -1622,11 +1139,8 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
     stages = prr.stages(dev)
     runs = {**{f"probe {k}": v for k, v in probes.items()},
             **{f"stage {k}": v for k, v in stages.items()}}
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         outs = {k: fn(*args) for k, (fn, args) in runs.items()}
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     for name in probes:
         ref, mag = probe_reference(name, probes[name][1])
@@ -1641,86 +1155,48 @@ def profiling_phases(dev, card: str, build_s: float) -> list[dict]:
           f"probe within {PROBE_RTOL} of its f64 sum; pl_gather equal to "
           f"texel_rows")
 
-    # the timers of profile_shade_parts.main and profile_render.main, on
-    # the probes and stages built above
-    gr.gather_rows_u8.launches = 0
-    probe_ms = psp.time_probes(probes, dev)
-    launches = gr.gather_rows_u8.launches
+    # the timers of profile_shade_parts.main and profile_render.main run
+    # on the card, on the probes and stages built above; their printout
+    # (the times) is left out
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe_ms = psp.time_probes(probes, dev)
+        launches = gr.KERNEL.launches
+        stage_ms = prr.time_stages(stages, dev)
     check(launches > 0, "the shade-parts probe did not launch the gather")
-    stage_ms = prr.time_stages(stages, dev)
     check(all(np.isfinite(v) and v > 0 for v in
               list(probe_ms.values()) + list(stage_ms.values())),
-          f"a probe or stage time is not positive: {probe_ms} {stage_ms}")
-    print(f"[profile] the shade-parts probe launched the gather "
-          f"{launches}x; the stage timer timed {len(stage_ms)} stages "
-          f"{card}")
+          "a probe or stage time is not positive")
+    print(f"[profile] the shade-parts probe's timer ran and launched the "
+          f"gather {launches}x; the stage timer ran {len(stage_ms)} stages")
 
     want = {"frame_tiled": ("raster_walk_kernel", "resolve_wide_kernel"),
             "tick": ("group_bounds_kernel", "neighbor_lists_kernel",
                      "raster_walk_kernel", "resolve_wide_kernel")}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, kernels in want.items():
-            print(f"[profile] trace_summary {name} {card}:")
-            fn, args = ts.build(name, dev)
-            s = ts.trace_and_summarize(fn, args, os.path.join(tmp, name))
-            check(s["launches"] > 0 and 0.0 < s["busy_share"] <= 1.0,
-                  f"trace {name}: {s['launches']} launches, busy share "
-                  f"{s['busy_share']}")
-            counts = {k: sum(e["count"] for e in s["kernels"]
-                             if k in e["name"]) for k in kernels}
-            check(all(c == 1 for c in counts.values()),
-                  f"trace {name}: launches per execution {counts}")
-        # the kernels of the gather's two library calls, which explain
-        # their times
-        for lib, fn in (("index_select",
-                         lambda: torch.index_select(table, 0, idx)),
-                        ("advanced_index", lambda: table[idx])):
-            print(f"[profile] trace of {lib} alone at the probe's shape "
-                  f"{card}:")
-            ts.trace_and_summarize(fn, (), os.path.join(tmp, lib))
-        # a trace of a few microseconds of work now and then records the
-        # kernel in 2 of its 3 executions (as it did index_select's once):
-        # trace it again, up to 3 times in all, and print each miss; the
-        # time per launch is taken over the launches the trace recorded
-        for attempt in range(3):
-            s = ts.trace_and_summarize(
-                lambda: gr.gather_rows_u8(table, idx), (),
-                os.path.join(tmp, f"gather{attempt}"))
-            found = [e for e in s["kernels"]
-                     if "gather_rows_kernel" in e["name"]]
-            if len(found) == 1 and found[0]["count"] == 1:
-                break
-            print(f"[profile] trace {attempt + 1} of the gather alone "
-                  f"recorded {found}; tracing again")
-    check(len(found) == 1 and 0 < found[0]["count"] <= 1,
-          f"trace of the gather alone: {found}")
-    g = found[0]
-    b_ms, b_by = psp.gather_bound(table, idx)
-    dev_ms = {"kernel": device_ms(lambda: gr.cuda_gather_rows_u8(table, idx)),
-              "index_select": device_ms(
-                  lambda: torch.index_select(table, 0, idx)),
-              "advanced_index": device_ms(lambda: table[idx])}
-    print(f"[times] gather alone at the probe's shape, device time: kernel "
-          f"{dev_ms['kernel']:.4f} ms, index_select "
-          f"{dev_ms['index_select']:.4f} ms, table[idx] "
-          f"{dev_ms['advanced_index']:.4f} ms; {g['ms'] / g['count']:.4f} "
-          f"ms per launch in the trace; by the probe's timer (CUDA events, "
-          f"20 queued): kernel {probe_ms['gather_rows_u8']:.4f} ms, plain "
-          f"{probe_ms['gather_rows_u8_reference']:.4f} ms, index_select "
-          f"{probe_ms['index_select']:.4f} ms, table[idx] "
-          f"{probe_ms['advanced_index']:.4f} ms; bound {b_ms:.4f} ms "
-          f"({b_by}) {card}")
-    return [{"name": "gather_rows_u8", "route": "cuda",
-             "source": GATHER_SOURCE, "replaces": GATHER_TPU_KERNEL,
-             "launches": launches, "max_abs_err": gather_err,
-             "ms": dev_ms["kernel"],
-             "plain_ms": probe_ms["gather_rows_u8_reference"],
-             "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": min(dev_ms["index_select"],
-                               dev_ms["advanced_index"])}]
+    for name, kernels in want.items():
+        s = _traced(*ts.build(name, dev))
+        check(s["launches"] > 0 and 0.0 < s["busy_share"] <= 1.0,
+              f"trace {name}: {s['launches']} launches, busy share "
+              f"{s['busy_share']}")
+        counts = {k: sum(e["count"] for e in s["kernels"]
+                         if k in e["name"]) for k in kernels}
+        check(all(c == 1 for c in counts.values()),
+              f"trace {name}: launches per execution {counts}")
+        print(f"[profile] trace_summary {name}: {s['launches']:g} launches "
+              f"an execution, each of {', '.join(kernels)} once")
 
 
-def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
+def _traced(fn, args=()) -> dict:
+    """``trace_summary``'s summary of ``fn(*args)``, its printout (kernel
+    times) left out."""
+    from banggameengine_tpu_torch.scripts import trace_summary as ts
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        return ts.trace_and_summarize(fn, args, tmp)
+
+
+def manyworld_phase(dev, w: int = MW_WORLDS) -> None:
     """Phase 15: the flat many-world step at 1,000 worlds of 8 boxes, a
     character and a trigger (kernel #8 the only hand kernel on this path,
     once a step)."""
@@ -1732,11 +1208,9 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
 
     # ---- 15. the many-world slice ---------------------------------------
     state1, static1 = build_falling_boxes(**MW_SCENE, device=dev)
-    t0 = time.perf_counter()
     run = make_flat_many_world_step(static1, w, state1.comp_mask,
                                     num_steps=STEPS_PER_DISPATCH)
     one = make_flat_many_world_step(static1, w, state1.comp_mask)
-    build_s = time.perf_counter() - t0
     bstate0 = replicate_state(state1, w)
     zero_inp = replicate_input(InputFrame.zero(dev), w)
     rng = np.random.default_rng(MW_SEED)
@@ -1765,27 +1239,27 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
 
     # the run: 200 steps, 4 dispatches of 50, no host sync, kernel #8 the
     # only hand kernel
-    reset_hand_launches()
+    reset_launches()
     steps = DISPATCHES * STEPS_PER_DISPATCH
-    t0 = time.perf_counter()
     with no_host_sync():
         state = bstate0
         for _ in range(DISPATCHES):
             state = run(state, zero_inp)
-        state = own(state)       # run's buffers: the driven run reuses them
+        # run's buffers: the driven run reuses them
+        state = graphs.owned(state)
         driven = bstate0
         for i in range(DISPATCHES):
             driven = run(driven, drive)
             if i == 1:
-                driven_mid = own(driven)   # step 100: boxes touch at 109-112
+                # step 100: boxes touch at 109-112
+                driven_mid = graphs.owned(driven)
     torch.cuda.synchronize()
-    slice_s = time.perf_counter() - t0
-    hand = hand_launches()
-    box = _hand_counts()["box_contacts"]
-    box_warm = _hand_counts(warm=True)["box_contacts"]
-    check(hand == box and box - box_warm == 2 * steps,
-          f"the many-world path launched {hand} hand kernels, kernel #8 "
-          f"{box} times ({box_warm} in the capture's warm-up) in "
+    hand = launch_counts()
+    box_warm = launch_counts(warm=True).get("contacts", 0)
+    check(set(hand) == {"contacts"}
+          and replayed_counts() == {"contacts": 2 * steps},
+          f"the many-world path launched {hand} hand kernels "
+          f"({box_warm} of kernel #8 in the capture's warm-up) in "
           f"{2 * steps} steps")
     lowest = checked(state, "zero input")
     check(state.step_idx.tolist() == [steps] * w,
@@ -1794,12 +1268,11 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
     grounded = int(state.char_on_ground[:, MW_CHAR_ROW].sum())
     print(f"[manyworld] {w} worlds x {static1.capacity} entities "
           f"({w * static1.capacity} in one flat world; 8 boxes, a "
-          f"character and a trigger each), factory built in {build_s:.2f} s; "
-          f"{steps} steps in {DISPATCHES} dispatches of "
-          f"{STEPS_PER_DISPATCH}, zero input, then again with per-world "
-          f"input ({slice_s:.1f} s wall for both, no host sync, kernel #8 "
-          f"the only hand kernel, {box - box_warm} launches through the "
-          f"replays): state finite, lowest box corner "
+          f"character and a trigger each): {steps} steps in {DISPATCHES} "
+          f"dispatches of {STEPS_PER_DISPATCH}, zero input, then again with "
+          f"per-world input (no host sync, kernel #8 the only hand kernel, "
+          f"{2 * steps} launches through the replays): state finite, lowest "
+          f"box corner "
           f"{lowest:.4f} > -0.08, characters on the ground {grounded} of "
           f"{w}, contact_overflow of step {steps + 1}: "
           f"{int(events.contact_overflow)}")
@@ -1829,15 +1302,12 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
     # over steps 101-150, where pair features cross the seams
     mid = 2 * STEPS_PER_DISPATCH
     pair_seams = torch.zeros((), dtype=torch.int64, device=dev)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_host_sync():
         s1 = driven_mid
         for _ in range(STEPS_PER_DISPATCH):
             s1 = one(s1, drive)
             pair_seams += (s1.contact_feat >= FEAT_STRIDE).any()
         s50 = run(driven_mid, drive)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     a1 = convert.world_state_to_numpy(s1)
     for name, a in convert.world_state_to_numpy(s50).items():
         check(a.dtype == a1[name].dtype
@@ -1886,94 +1356,6 @@ def manyworld_phase(dev, card: str, w: int = MW_WORLDS) -> None:
             check(err < golden["atol"][str(i)][name],
                   f"4 worlds: |{name} - JAX| = {err} at step {i}")
 
-    # the time: world-steps/s, 2 warm-up dispatches, median of 5
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated() / 2**20
-    times, _ = measure_trials_chained(run, state, zero_inp, calls=1,
-                                      warmup=2, trials=5)
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    ms = statistics.median(times) * 1e3
-    rate = w * STEPS_PER_DISPATCH / (ms / 1e3)
-    print(f"[times] many-world {w} worlds, {STEPS_PER_DISPATCH} steps per "
-          f"dispatch: {rate:.0f} world-steps/s ({ms:.1f} ms/dispatch, "
-          f"median of 5 after 2 warm-up; dispatches "
-          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
-          f"{rate / w:.2f} steps/s), peak memory {peak:.0f} MiB "
-          f"({peak - before:.0f} MiB over the {before:.0f} MiB allocated "
-          f"before) {card}")
-    parts = manyworld_parts(one, static1, state1.comp_mask, state, zero_inp)
-    print(f"[times] one flat step at {w} worlds, device time by part "
-          f"(trace_summary: the card busy, ms per execution; launches): "
-          + ", ".join(f"{k} {v['busy_ms']:.3f} ms ({v['launches']:g})"
-                      for k, v in parts.items())
-          + f" {card}")
-
-
-def manyworld_parts(one, static1, comp_mask, state, inp) -> dict:
-    """``trace_summary``'s summary of one flat step and of its parts
-    (:func:`manyworld_part_fns`).  (A step queues far more launches than
-    the card's launch queue holds, so a window held behind a sleep kernel
-    cannot time it: the trace's kernel intervals do.)"""
-    from banggameengine_tpu_torch.scripts import trace_summary as ts
-
-    fns = manyworld_part_fns(one, static1, comp_mask, state, inp)
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for k, fn in fns.items():
-            print(f"[profile] trace_summary of {k}, one flat step:")
-            out[k] = ts.trace_and_summarize(fn, (), os.path.join(
-                tmp, k.replace(" ", "_")))
-    return out
-
-
-def manyworld_part_fns(one, static1, comp_mask, state, inp) -> dict:
-    """One flat step and its parts as ``() -> tensor`` calls, each called
-    as the step calls it on its flattened state: the character step, the
-    box contacts with the solve, and the integration with the trigger
-    sweep over the per-world ``[W*T, B]`` planes."""
-    from banggameengine_tpu_torch.parallel.manyworld import _flat_static
-    from banggameengine_tpu_torch.physics import step as ps
-    from banggameengine_tpu_torch.state import (
-        BODY_DYNAMIC, BODY_KINEMATIC, COMP_CHARACTER, COMP_COLLIDER)
-
-    fst, nb_idx, nb_val, group, cand, shifts = _flat_static(
-        static1, state.alive.shape[0], comp_mask)
-    fs = one.flatten(state)
-    alive = fs.alive
-    has_col = (fs.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
-    dyn = (fst.body_type == BODY_DYNAMIC) & alive
-    moving = dyn | ((fst.body_type == BODY_KINEMATIC) & alive)
-    solid = alive & has_col & ((fs.comp_mask & COMP_CHARACTER) == 0)
-    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
-    return {
-        "whole step": lambda: one.flat_step(fs, inp)[0].pos,
-        "characters": lambda: ps._step_characters(
-            fs, inp, fst, fs.pos, fs.quat, alive & has_col, cand,
-            group)[0],
-        "contacts + solve": lambda: ps._contacts_static(
-            fs, fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel, solid, dyn,
-            (nb_idx, nb_val), False, static1.capacity, shifts,
-            iterations=10, warm_start=True,
-            momentum=ps.SOLVER_MOMENTUM)[0],
-        "integrate + triggers": lambda: ps._finish_step(
-            fs, fst, fs.pos, fs.quat, fs.lin_vel, fs.ang_vel,
-            fs.char_vel_y, fs.char_on_ground, moving, alive, has_col,
-            fst.fixed_dt, True, (fs.contact_feat, fs.contact_imp), zero,
-            group=group)[0].trigger_overlap,
-    }
-
-
-def _timed(fn, *args):
-    """``fn(*args)`` between two CUDA events, with no host sync: (its
-    result, the events); read the events' elapsed time after a sync."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn(*args)
-    end.record()
-    return out, (start, end)
-
 
 def _event_list(planes, first: int) -> list:
     """[steps, T, N] event planes -> [[step, trigger slot, entity], ...],
@@ -1981,19 +1363,16 @@ def _event_list(planes, first: int) -> list:
     return [[i + first, t, e] for i, t, e in planes.nonzero().tolist()]
 
 
-def dense_phase(dev, card: str) -> None:
+def dense_phase(dev) -> None:
     """Phase 16: the JAX package's default route (``broadphase="dense"``)
     on the demo world, the 200-box world and the 12-box world (no hand
-    kernel on this path).  Every rate is timed over the checked runs' own
-    dispatches (the first dispatch captures the graph and is the
-    warm-up), so no step runs only to be timed."""
+    kernel on this path)."""
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn, make_step_fn_with_events)
     from banggameengine_tpu_torch.physics.broadphase import (
         build_neighbor_lists_dense)
     from banggameengine_tpu_torch.scene.synthetic import (
         build_demo_like, build_falling_boxes)
-    from banggameengine_tpu_torch.scripts import trace_summary as ts
     from banggameengine_tpu_torch.state import (
         BODY_DYNAMIC, COMP_CHARACTER, COMP_COLLIDER, InputFrame)
 
@@ -2004,7 +1383,6 @@ def dense_phase(dev, card: str) -> None:
             for k, v in values.items()})
 
     # ---- 16. the demo world and the dense route ---------------------------
-    t_phase = time.perf_counter()
     with open(DEMO_GOLDEN) as f:
         golden = json.load(f)
     gd = golden["demo"]
@@ -2022,23 +1400,21 @@ def dense_phase(dev, card: str) -> None:
                                              np.float32)).max())
 
     # the run: 480 zero-input steps, then 360 sprinting toward the trigger
-    reset_hand_launches()
-    t0 = time.perf_counter()
+    reset_launches()
     with no_host_sync():
-        state, settle_events = state0, []
+        state = state0
         for _ in range(settle // DEMO_DISPATCH):
-            state, ev = _timed(run, state, zero)
-            settle_events.append(ev)
+            state = run(state, zero)
         state = tail(state, zero)
-        settled = own(state)
+        settled = graphs.owned(state)
         chunks = []
         for _ in range(walk_steps // WALK_CHUNK):
             state, events = walk(state, walk_inp)
-            chunks.append((own(state), events))   # walk's buffers
+            # walk's buffers
+            chunks.append((graphs.owned(state), events))
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    hand = hand_launches()
-    check(hand == 0, f"the demo launched {hand} hand kernels")
+    hand = launch_counts()
+    check(not hand, f"the demo launched hand kernels: {hand}")
     rest = settled.pos[DEMO_CHAR].cpu().numpy()
     err = char_err(settled, settle)
     check(err < gd["atol"],
@@ -2065,23 +1441,13 @@ def dense_phase(dev, card: str) -> None:
           f"{DEMO_DISPATCH} and one of {settle % DEMO_DISPATCH}), then "
           f"{walk_steps} sprinting toward the trigger "
           f"({walk_steps // WALK_CHUNK} events dispatches of {WALK_CHUNK}); "
-          f"{run_s:.1f} s wall, no host sync, no hand kernel launched")
+          f"no host sync, no hand kernel launched")
     print(f"[demo] the character rests at y = {rest[1]:.6f} on the ground "
           f"box (on the ground: True); trigger Enter at step {enter}, Exit "
           f"at {leave} (the JAX golden's {gd['enter_steps']}, "
           f"{gd['exit_steps']}); max |pos - JAX| at steps {settle}, "
           f"{settle + WALK_CHUNK}, ..., {settle + walk_steps}: "
           f"{max(errs):.3g} (< {gd['atol']:g})")
-
-    # the rate: demo steps/s over the settling run's 100-step dispatches
-    # (bench_demo's size), the first the warm-up: the median of the rest
-    times = [a.elapsed_time(b) for a, b in settle_events[1:]]
-    demo_ms = statistics.median(times)
-    print(f"[times] demo: {DEMO_DISPATCH / (demo_ms / 1e3):.1f} steps/s "
-          f"({demo_ms:.2f} ms per {DEMO_DISPATCH}-step dispatch, median of "
-          f"the {len(times)} settling dispatches after the first; "
-          f"dispatches {', '.join(f'{t:.2f}' for t in times)} ms; real "
-          f"time is 120 steps/s) {card}")
 
     # ---- the 200-box world on the dense route, exact shape triggers ------
     gdn = golden["dense"]
@@ -2090,21 +1456,15 @@ def dense_phase(dev, card: str) -> None:
     bwalk = input_frame(gdn["input"])
     brun = make_step_fn_with_events(bstatic, every,
                                     trigger_mode=gdn["trigger_mode"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated() / 2**20
-    reset_hand_launches()
-    t0 = time.perf_counter()
+    reset_launches()
     with no_host_sync():
         bstate, bchunks = b0, []
         for _ in range(gdn["steps"] // every):
-            (bstate, bev), tev = _timed(brun, bstate, bwalk)
-            bchunks.append((own(bstate), bev, tev))   # brun's buffers
+            bstate, bev = brun(bstate, bwalk)
+            bchunks.append((graphs.owned(bstate), bev))   # brun's buffers
     torch.cuda.synchronize()
-    dense_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    hand = hand_launches()
-    check(hand == 0, f"the 200-box world launched {hand} hand kernels")
+    hand = launch_counts()
+    check(not hand, f"the 200-box world launched hand kernels: {hand}")
     for field in ("pos", "quat", "lin_vel", "ang_vel", "char_vel_y"):
         check(bool(torch.isfinite(getattr(bstate, field)).all()),
               f"200 boxes: {field} not finite")
@@ -2116,7 +1476,7 @@ def dense_phase(dev, card: str) -> None:
     # every 50 steps through the golden's last held step
     got_ev = {"enter": [], "exit": []}
     char_errs, box_errs = [], []
-    for c, (s, ev, _) in enumerate(bchunks):
+    for c, (s, ev) in enumerate(bchunks):
         at = (c + 1) * every
         got_ev["enter"] += _event_list(ev.trigger_enter, at - every + 1)
         got_ev["exit"] += _event_list(ev.trigger_exit, at - every + 1)
@@ -2140,7 +1500,7 @@ def dense_phase(dev, card: str) -> None:
           f"200 boxes: trigger events {got_ev}; the JAX golden's "
           f"{gdn['enter']}, {gdn['exit']}")
     landed = int((bstate.lin_vel[:dchar, 1].abs() < 0.05).sum())
-    overflow = max(int(ev.contact_overflow.max()) for _, ev, _ in bchunks)
+    overflow = max(int(ev.contact_overflow.max()) for _, ev in bchunks)
     alive = bstate.alive
     has_col = (bstate.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
     solid = alive & has_col & ((bstate.comp_mask & COMP_CHARACTER) == 0)
@@ -2155,27 +1515,19 @@ def dense_phase(dev, card: str) -> None:
           f"trigger ({bstatic.capacity} entity slots) on the default "
           f"route, trigger_mode='shape': {gdn['steps']} steps in "
           f"{gdn['steps'] // every} events dispatches of {every} "
-          f"({dense_s:.1f} s wall, no host sync, no hand kernel): state "
+          f"(no host sync, no hand kernel): state "
           f"finite, lowest box centre {lowest:.4f} > {DENSE_FLOOR}, "
           f"{landed} boxes at rest (|v_y| < 0.05); trigger Enter "
           f"{got_ev['enter']}, Exit {got_ev['exit']} ([step, trigger, "
           f"entity], as the JAX golden's); character on the ground at "
           f"steps {every}, ..., {gdn['steps']}: "
-          f"{[bool(s.char_on_ground[dchar]) for s, _, _ in bchunks]} (as "
+          f"{[bool(s.char_on_ground[dchar]) for s, _ in bchunks]} (as "
           f"the golden's); max |pos - JAX| every {every} steps: character "
           f"{max(char_errs):.3g} (< {gdn['char_atol']:g}), boxes through "
           f"step {gdn['box_last']} {max(box_errs):.3g} "
           f"(< {gdn['box_atol']:g}); contact_overflow {overflow} (the most "
           f"in a step), nbr_overflow {int(nl.nbr_overflow)} after step "
           f"{gdn['steps']}")
-    times = [a.elapsed_time(b) for _, _, (a, b) in bchunks[1:]]
-    dense_ms = statistics.median(times)
-    print(f"[times] dense 200: {every / (dense_ms / 1e3):.1f} steps/s "
-          f"({dense_ms:.2f} ms per {every}-step events dispatch, median of "
-          f"the {len(times)} after the first; dispatches "
-          f"{', '.join(f'{t:.2f}' for t in times)} ms), peak memory "
-          f"{peak:.1f} MiB ({peak - before:.1f} MiB over the {before:.1f} "
-          f"MiB allocated before the run) {card}")
 
     # ---- the 12-box world against the JAX golden ---------------------------
     gb = golden["boxes"]
@@ -2192,53 +1544,21 @@ def dense_phase(dev, card: str) -> None:
           f"{gb['steps']} steps: max |pos - JAX| {err12:.3g} "
           f"(< {gb['atol']:g})")
 
-    # ---- one step of each, traced: launches and device time --------------
-    one_demo = make_step_fn(static)
-    bstep = make_step_fn(bstatic, trigger_mode=gdn["trigger_mode"])
-    with tempfile.TemporaryDirectory() as tmp:
-        print("[profile] trace_summary of one demo step:")
-        tr_demo = ts.trace_and_summarize(
-            lambda: one_demo(settled, zero)[0].pos, (),
-            os.path.join(tmp, "demo"))
-        print("[profile] trace_summary of one 200-box step:")
-        tr_dense = ts.trace_and_summarize(
-            lambda: bstep(bstate, bwalk)[0].pos, (),
-            os.path.join(tmp, "dense"))
-    print(f"[times] one demo step on the per-slot character step: "
-          f"{tr_demo['launches']:g} launches, against "
-          f"{PLANAR_DEMO_LAUNCHES:,} on the planar step over every entity "
-          f"(PERF.md §5) {card}")
-    for name, tr in (("demo", tr_demo), ("dense 200", tr_dense)):
-        print(f"[times] one {name} step, traced: {tr['launches']:g} launches, "
-              f"{tr['busy_ms']:.3f} ms of device time in a "
-              f"{tr['window_ms']:.3f} ms window (busy "
-              f"{100 * tr['busy_share']:.1f} %); top kernels: "
-              + "; ".join(f"{k['name'][:60]} {k['ms']:.4f} ms x{k['count']:g}"
-                          for k in tr["kernels"][:4]) + f" {card}")
-    print(f"[dense] phase 16 took {time.perf_counter() - t_phase:.1f} s")
-
 
 def _app_run(app, frames: int, fps: int, render: bool = False,
-             trace_dir: str | None = None, hud: bool = False):
+             hud: bool = False):
     """Drive ``app`` through the first ``frames`` display frames of
     ``play_demo``'s track.  Returns the record the golden keeps (the
     character, on-ground flag and step count after each frame, the bus's
-    Enter/Exit with their frames), each frame's wall seconds, the host
-    synchronisations the app made (CUDA sync debug mode "warn", counted
-    inside ``app.frame`` and ``render_current_frame`` only: the track's
-    own read of the character is not the app's), the last
-    ``render_current_frame(hud=hud)`` when ``render``, and the trace summary
-    (``scripts/trace_summary.py``) of the last frame, traced alone (each
-    frame starts with host work and ends in a blocking read, so no kernel
-    of it sits at the trace's edges), so no frame runs only to be traced
-    and the phase keeps within its 60 s."""
+    Enter/Exit with their frames), the host synchronisations the app made
+    (CUDA sync debug mode "warn", counted inside ``app.frame`` and
+    ``render_current_frame`` only: the track's own read of the character
+    is not the app's) and the last ``render_current_frame(hud=hud)`` when
+    ``render``."""
     import warnings
 
     from banggameengine_tpu_torch.app.events import TriggerEvent, TriggerPhase
-    from banggameengine_tpu_torch.scripts import trace_summary as ts
     from banggameengine_tpu_torch.scripts.play_demo import apply_track
-    from banggameengine_tpu_torch.utils.profiling import (
-        device_sync, span, start_trace, stop_trace)
 
     cj = app.built.find_entity("cj")
     rec = dict(char=[], on_ground=[], steps=[], events=[])
@@ -2249,14 +1569,10 @@ def _app_run(app, frames: int, fps: int, render: bool = False,
                                   e.trigger_entity, e.other_entity])
 
     unsubscribe = app.bus.subscribe(TriggerEvent, on_event)
-    walls, syncs, img = [], 0, None
+    syncs, img = 0, None
     for i in range(frames):
         apply_track(app, i, fps, cj)
-        if i == frames - 1:
-            start_trace(trace_dir)
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught, \
-                span(ts.FIRST_EXECUTION if i == frames - 1 else "frame"):
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
@@ -2265,17 +1581,12 @@ def _app_run(app, frames: int, fps: int, render: bool = False,
                     img = app.render_current_frame(hud=hud)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        walls.append(time.perf_counter() - t0)
         syncs += sum("synchronizing" in str(w.message) for w in caught)
         rec["char"].append(app.state.pos[cj].tolist())
         rec["on_ground"].append(bool(app.state.char_on_ground[cj]))
         rec["steps"].append(int(app.state.step_idx))
-    device_sync(app.state.pos)
-    t0 = time.perf_counter()
-    trace = ts.parse_trace(stop_trace(), 1)
-    trace["seconds"] = time.perf_counter() - t0
     unsubscribe()
-    return rec, walls, syncs, img, trace
+    return rec, syncs, img
 
 
 def _app_check(name: str, rec: dict, g: dict, frames: int) -> float:
@@ -2300,13 +1611,13 @@ def _app_check(name: str, rec: dict, g: dict, frames: int) -> float:
     return err
 
 
-def app_phase(dev, card: str) -> None:
+def app_phase(dev) -> None:
     """Phase 17: the application shell on the card (no hand kernel of its
     own: the walk and the resolve render its frames).  The fused app at
     1280x720 through play_demo's whole 8-s track, the default-path app
     through its first ``APP_DEFAULT_SECONDS`` with
-    ``render_current_frame()`` (interpolated) every display frame; the
-    last frame of each run traced; both held to the JAX golden
+    ``render_current_frame()`` (interpolated) every display frame; both
+    held to the JAX golden
     (``tests/data/app_jax_golden.json``), the last fused frame to the
     golden's 1280x720 frame, one state of each rendered bit-equal with the
     kernels and with their plain versions."""
@@ -2314,7 +1625,6 @@ def app_phase(dev, card: str) -> None:
     from banggameengine_tpu_torch.render.pipeline import make_render_fn
     from banggameengine_tpu_torch.render.shading import LightParams
 
-    t_phase = time.perf_counter()
     with open(APP_GOLDEN) as f:
         g = json.load(f)
     gframes = np.load(APP_FRAMES)
@@ -2326,18 +1636,13 @@ def app_phase(dev, card: str) -> None:
     app = Application(assets_root=APP_ASSETS, width=width, height=height,
                       fused_tick=True, device=dev)
     frames = int(g["seconds"] * fps)
-    tmp = tempfile.mkdtemp(prefix="app_trace_")
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    rec, walls, syncs, _, tr_f = _app_run(app, frames, fps,
-                                          trace_dir=os.path.join(tmp, "fused"))
-    fused_s = time.perf_counter() - t0
-    counts, replayed = launch_counts(), replayed_counts()
-    check(replayed["walk"] == frames and replayed["resolve"] == frames,
-          f"app (fused): {counts} launches ({warmup_counts()} in the "
-          f"captures' warm-ups) in {frames} rendered frames")
-    check(counts["fused"] == 0 and counts["tile"] == 0,
-          f"app (fused): other render kernels launched: {counts}")
+    reset_launches()
+    rec, syncs, _ = _app_run(app, frames, fps)
+    counts = launch_counts()
+    check(replayed_counts() == {"walk": frames, "resolve": frames}
+          and set(counts) == {"walk", "resolve"},
+          f"app (fused): {counts} launches ({launch_counts(warm=True)} in "
+          f"the captures' warm-ups) in {frames} rendered frames")
     err_f = _app_check("fused", rec, g, frames)
     img = app.last_frame_image
     ref = gframes["fused_full"]
@@ -2358,90 +1663,57 @@ def app_phase(dev, card: str) -> None:
             torch.as_tensor(app.camera.position, device=dev),
             LightParams.default(dev))
     k_img = render(*args)
-    with plain_render_kernels():
+    with plain_twins():
         p_img = render(*args)
     check(torch.equal(k_img, p_img),
           "app (fused): the last frame differs between the kernels and "
           "their plain versions")
     check(np.array_equal(k_img.cpu().numpy(), img),
           "app (fused): the app's last frame is not the kernels' frame")
-    steady = walls[fps:-1]         # after the warm-up, before the trace
-    steady_steps = rec["steps"][-2] - rec["steps"][fps - 1]
     print(f"[app] fused tick (Application(fused_tick=True), "
           f"{width}x{height}): play_demo's {g['seconds']:g}-s track, "
           f"{frames} display frames of {rec['steps'][0]} fixed steps "
-          f"({rec['steps'][-1]} steps), {fused_s:.1f} s (the last frame "
-          f"traced); bus events "
+          f"({rec['steps'][-1]} steps); bus events "
           f"{rec['events']} ([frame, phase, trigger, other], as the JAX "
           f"golden's); max |char - JAX| {err_f:.3g} (< {g['atol']:g}); the "
           f"character rests at y = {rec['char'][2 * fps - 1][1]:.6f}; walk "
           f"and resolve launched {counts['walk']} and {counts['resolve']} "
-          f"times in {frames} frames")
+          f"times in {frames} frames; {syncs / frames:.2f} blocking host "
+          f"syncs a display frame ({syncs} in all)")
     print(f"[app] fused: the last frame vs the JAX golden's {width}x{height}"
           f" frame: {int(off.sum())} of {off.size} pixels off by more than "
           f"1 level, {int((img != ref).any(-1).sum())} off at all, sky "
           f"equal elsewhere; bit-equal with the kernels and with their "
           f"plain versions, and to the app's own frame")
-    print(f"[times] app fused: {len(steady) / sum(steady):.2f} display "
-          f"frames/s, {steady_steps / sum(steady):.1f} fixed steps/s "
-          f"(frames {fps}..{frames - 2}, {1e3 * statistics.median(steady):.1f}"
-          f" ms median a frame); {syncs / frames:.2f} blocking host syncs a "
-          f"display frame ({syncs} in all) {card}")
 
     # ---- the default path, rendering every display frame ----------------
     dframes = int(APP_DEFAULT_SECONDS * fps)
     dapp = Application(assets_root=APP_ASSETS, width=width, height=height,
                        device=dev)
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    drec, dwalls, dsyncs, dimg, tr_d = _app_run(
-        dapp, dframes, fps, render=True,
-        trace_dir=os.path.join(tmp, "default"))
-    default_s = time.perf_counter() - t0
-    counts, replayed = launch_counts(), replayed_counts()
-    check(replayed["walk"] == dframes and replayed["resolve"] == dframes,
-          f"app (default): {counts} launches ({warmup_counts()} in the "
-          f"captures' warm-ups) in {dframes} rendered frames")
+    reset_launches()
+    drec, dsyncs, dimg = _app_run(dapp, dframes, fps, render=True)
+    counts = launch_counts()
+    check(replayed_counts() == {"walk": dframes, "resolve": dframes},
+          f"app (default): {counts} launches ({launch_counts(warm=True)} "
+          f"in the captures' warm-ups) in {dframes} rendered frames")
     err_d = _app_check("default", drec, g, dframes)
     check(dimg.shape == (height, width, 4) and (dimg == SKY).all(-1).any(),
           "app (default): no sky in the interpolated frame")
-    with plain_render_kernels():
+    with plain_twins():
         p_dimg = dapp.render_current_frame()
     check(np.array_equal(dimg, p_dimg),
           "app (default): the interpolated frame differs between the "
           "kernels and their plain versions")
-    dsteady = dwalls[APP_DEFAULT_WARMUP:-1]
-    dsteady_steps = drec["steps"][-2] - drec["steps"][APP_DEFAULT_WARMUP - 1]
     steps_a_frame = drec["steps"][-1] / dframes
     print(f"[app] default path (Application(), {width}x{height}): the first"
           f" {APP_DEFAULT_SECONDS:g} s of the track, {dframes} display "
           f"frames, each {steps_a_frame:g} hot-reloadable steps (events, "
           f"orbit and raycast each step) and render_current_frame() "
-          f"(interpolated), {default_s:.1f} s (the last frame traced); "
-          f"bus events {drec['events']}"
-          f"; max |char - JAX| {err_d:.3g}; walk and resolve launched "
-          f"{counts['walk']} and {counts['resolve']} times; the last frame "
-          f"bit-equal with the plain versions")
-    print(f"[times] app default: {len(dsteady) / sum(dsteady):.2f} display "
-          f"frames/s, {dsteady_steps / sum(dsteady):.1f} "
-          f"fixed steps/s (frames {APP_DEFAULT_WARMUP}..{dframes - 2}, "
-          f"{1e3 * statistics.median(dsteady):.1f} ms median a frame); "
-          f"{dsyncs / dframes:.2f} blocking host syncs a display frame "
-          f"({dsyncs} in all) {card}")
-
-    shutil.rmtree(tmp, ignore_errors=True)
-    for name, tr in (("fused", tr_f), ("default", tr_d)):
-        print(f"[times] app {name}, one display frame traced: "
-              f"{tr['launches']:g} launches, {tr['busy_ms']:.3f} ms of device"
-              f" time in a {tr['window_ms']:.3f} ms window (busy "
-              f"{100 * tr['busy_share']:.1f} %); top kernels: "
-              + "; ".join(f"{k['name'][:48]} {k['ms']:.4f} ms x{k['count']:g}"
-                          for k in tr["kernels"][:3]) + f" {card}")
-    print(f"[app] phase 17 took {time.perf_counter() - t_phase:.1f} s: the "
-          f"fused run {fused_s:.1f} (its trace's export and summary "
-          f"{tr_f['seconds']:.1f}), the default run {default_s:.1f} (its "
-          f"trace's {tr_d['seconds']:.1f}), the rest (loads, checks, plain "
-          f"frames) {time.perf_counter() - t_phase - fused_s - default_s:.1f}")
+          f"(interpolated); bus events {drec['events']}; max |char - JAX| "
+          f"{err_d:.3g}; walk and resolve launched {counts['walk']} and "
+          f"{counts['resolve']} times; the last frame bit-equal with the "
+          f"plain versions; {dsyncs / dframes:.2f} blocking host syncs a "
+          f"display frame ({dsyncs} in all)")
 
 
 def _golden_app(dev, gz):
@@ -2472,7 +1744,7 @@ def _static_ids(static) -> dict:
             for f in static.__dataclass_fields__}
 
 
-def overlay_phase(dev, card: str) -> None:
+def overlay_phase(dev) -> None:
     """Phase 18: the app's overlays and the runtime scene on the card (no
     hand kernel of their own: the walk and the resolve render the
     frames).  The default-path app at 1280x720 with the physics overlay
@@ -2502,7 +1774,6 @@ def overlay_phase(dev, card: str) -> None:
     from banggameengine_tpu_torch.utils.debug import (
         CheckError, make_checked_step_fn)
 
-    t_phase = time.perf_counter()
     with open(APP_GOLDEN) as f:
         g = json.load(f)
     fps = g["fps"]
@@ -2515,18 +1786,13 @@ def overlay_phase(dev, card: str) -> None:
     app = Application(assets_root=APP_ASSETS, width=width, height=height,
                       device=dev)
     app.physics_overlay = True
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    rec, walls, syncs, img, tr = _app_run(
-        app, frames, fps, render=True, hud=True,
-        trace_dir=os.path.join(tmp, "trace"))
-    run_s = time.perf_counter() - t0
-    counts, replayed = launch_counts(), replayed_counts()
-    check(replayed["walk"] == frames and replayed["resolve"] == frames,
-          f"overlay: {counts} launches ({warmup_counts()} in the captures' "
-          f"warm-ups) in {frames} rendered frames")
-    check(counts["fused"] == 0 and counts["tile"] == 0,
-          f"overlay: other render kernels launched: {counts}")
+    reset_launches()
+    rec, syncs, img = _app_run(app, frames, fps, render=True, hud=True)
+    counts = launch_counts()
+    check(replayed_counts() == {"walk": frames, "resolve": frames}
+          and set(counts) == {"walk", "resolve"},
+          f"overlay: {counts} launches ({launch_counts(warm=True)} in the "
+          f"captures' warm-ups) in {frames} rendered frames")
     err = _app_check("default", rec, g, frames)
 
     # the last frame's line pass, on the card and on the CPU, same inputs
@@ -2558,44 +1824,31 @@ def overlay_phase(dev, card: str) -> None:
           and np.array_equal(with_hud,
                              compose_hud(f3, standard_hud_lines(app))),
           "overlay: the HUD frame is not the HUD composed on the F3 frame")
-    with plain_render_kernels():
+    with plain_twins():
         plain_hud = app.render_current_frame(hud=True)
     check(np.array_equal(plain_hud, with_hud),
           "overlay: the HUD frame differs between the kernels and their "
           "plain versions")
     app.wireframe = True
-    reset_launch_counts()
-    t0 = time.perf_counter()
+    reset_launches()
     f1 = app.render_current_frame(hud=True)
-    f1_ms = 1e3 * (time.perf_counter() - t0)
-    check(sum(launch_counts().values()) == 0,
-          "overlay: the F1 frame launched a raster kernel")
+    check(not launch_counts(), "overlay: the F1 frame launched a kernel")
     sky = (f1[..., :3] == SKY[:3]).all(-1)
     check(sky.mean() > 0.5 and ((f1 == 255).all(-1) & ~sky).any(),
           "overlay: the F1 frame is not white lines over the clear colour")
     app.wireframe = False
-    steady = walls[APP_DEFAULT_WARMUP:-1]
-    steady_steps = rec["steps"][-2] - rec["steps"][APP_DEFAULT_WARMUP - 1]
     print(f"[overlay] default path with F3 and the HUD "
           f"(render_current_frame(hud=True)), {width}x{height}: the first "
           f"{OVERLAY_SECONDS:g} s of play_demo's track, {frames} display "
-          f"frames, {run_s:.1f} s (the last frame traced); bus events "
+          f"frames; bus events "
           f"{rec['events']}; max |char - JAX| {err:.3g}; walk and resolve "
           f"launched {counts['walk']} and {counts['resolve']} times; the "
           f"line pass on the card vs the CPU: {line_off} of {line_px} line "
           f"pixels differ (<= {LINE_OFF_SHARE:g}); the app's F3 frame is "
           f"the card's line pass, its HUD frame the HUD on it, bit-equal "
-          f"with the plain kernels; F1 frame {f1_ms:.1f} ms, no raster "
-          f"kernel")
-    print(f"[times] overlay app: {len(steady) / sum(steady):.2f} display "
-          f"frames/s, {steady_steps / sum(steady):.1f} fixed steps/s "
-          f"(frames {APP_DEFAULT_WARMUP}..{frames - 2}, "
-          f"{1e3 * statistics.median(steady):.1f} ms median a frame); "
+          f"with the plain kernels; F1 frame: no raster kernel; "
           f"{syncs / frames:.2f} blocking host syncs a display frame "
-          f"({syncs} in all); one display frame traced: "
-          f"{tr['launches']:g} launches, {tr['busy_ms']:.3f} ms of device "
-          f"time in a {tr['window_ms']:.3f} ms window (busy "
-          f"{100 * tr['busy_share']:.1f} %) {card}")
+          f"({syncs} in all)")
 
     # ---- the golden's F3 and F1 frames at 128x32 -------------------------
     gz = np.load(OVERLAY_GOLDEN)
@@ -2638,7 +1891,6 @@ def overlay_phase(dev, card: str) -> None:
     ids = _static_ids(built.static)
     step = make_hot_reloadable_step_fn()
     zero = InputFrame.zero(dev)
-    t0 = time.perf_counter()
     state, crate = built.spawn(built.initial_state, **lg["crate_spawn"])
     track = []
     with no_host_sync():
@@ -2649,7 +1901,6 @@ def overlay_phase(dev, card: str) -> None:
             if k == RESUME_AT:
                 mid = state
     track = torch.stack(track).cpu().numpy()
-    run_steps_s = time.perf_counter() - t0
     crate_err = float(np.abs(track - np.asarray(lg["crate_track"])).max())
     rest = float(track[-1, 1])
     check(crate == lg["crate"], f"runtime: crate id {crate}")
@@ -2708,23 +1959,17 @@ def overlay_phase(dev, card: str) -> None:
     step_no = int(s_ok.step_idx)
     check(message == f"non-finite position at step {step_no} (`check` "
           f"failed)", f"checked step: {message!r}")
-    rt_s = time.perf_counter() - t0
     print(f"[runtime] build_scene(capacity={lg['capacity']}, "
           f"max_trigger_slots={lg['trigger_slots']}): a crate spawned at "
           f"{lg['crate_spawn']['pos']}, {lg['steps']} hot-reloadable steps "
-          f"(no host sync, {run_steps_s:.1f} s, "
-          f"{lg['steps'] / run_steps_s:.1f} steps/s): max |crate - JAX| "
+          f"(no host sync): max |crate - JAX| "
           f"{crate_err:.3g} (< {lg['atol']:g}), at rest y = {rest:.6f}; "
           f"checkpoint at step {RESUME_AT} resumed {lg['steps'] - RESUME_AT} "
           f"steps: bit-equal; despawned, the trigger took id {zone} and "
           f"saw {enter} enter; the child reparented at {gw.tolist()}; no "
           f"static tensor moved; the checked step passed, then raised "
-          f"{message!r} (no host sync in the step) {card}")
+          f"{message!r} (no host sync in the step)")
     shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[overlay] phase 18 took {time.perf_counter() - t_phase:.1f} s: "
-          f"the overlay run {run_s:.1f} (its trace's export and summary "
-          f"{tr['seconds']:.1f}), the runtime scene {rt_s:.1f}, the rest "
-          f"{time.perf_counter() - t_phase - run_s - rt_s:.1f}")
 
 
 def _grid_inputs(state, static):
@@ -2799,7 +2044,7 @@ def _tiled_tile_parts(rs, world, view, proj, cam_pos, width, height):
                    cam_pos, LightParams.default(world.device), view, proj)
 
 
-def new_routes_phase(dev, card: str, state0, allpairs_state, static,
+def new_routes_phase(dev, state0, allpairs_state, static,
                      views: dict) -> None:
     """Phase 19: the grid route at full size against phase 4's all-pairs
     run, solid capsules on the flat many-world step, and the tiled shade
@@ -2807,36 +2052,27 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn)
     from banggameengine_tpu_torch.parallel import manyworld
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.render import raster as rz
     from banggameengine_tpu_torch.render import shading
     from banggameengine_tpu_torch.render.pipeline import make_render_fn
     from banggameengine_tpu_torch.scene.synthetic import (
         build_falling_boxes, build_showcase_render)
-    from banggameengine_tpu_torch.scripts import trace_summary as ts
     from banggameengine_tpu_torch.state import InputFrame
 
-    t_phase = time.perf_counter()
     inp = InputFrame.zero()
 
     # ---- the grid route at full size -------------------------------------
     over0 = grid_lists_check("step 0", state0, static)
     run = make_multi_step_fn(static, STEPS_PER_DISPATCH, **GRID_KW)
-    reset_hand_launches()
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(DISPATCHES + 1)]
+    reset_launches()
     state = state0
     with no_host_sync():
-        events[0].record()
-        for i in range(DISPATCHES):
+        for _ in range(DISPATCHES):
             state = run(state, inp)
-            events[i + 1].record()
     torch.cuda.synchronize()
-    check(hand_launches() == 0, "the grid route launched a hand kernel")
+    check(not launch_counts(), "the grid route launched a hand kernel")
     steps = DISPATCHES * STEPS_PER_DISPATCH
-    ms = [events[i].elapsed_time(events[i + 1]) for i in range(DISPATCHES)]
-    grid_rate = STEPS_PER_DISPATCH / (statistics.median(ms[1:]) / 1e3)
     check(bool(torch.isfinite(state.pos).all())
           and bool(torch.isfinite(state.lin_vel).all())
           and bool(torch.isfinite(state.ang_vel).all()),
@@ -2882,27 +2118,6 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
               f"32-box grid scene: |pos - JAX| = {err} at step {i}")
         print(f"[reference] 32 boxes on the grid route vs the JAX package at "
               f"step {i}: max |pos - JAX| {err:.3g} (< {GOLDEN_ATOL})")
-    grid_one = make_step_fn(static, **GRID_KW)
-    ap_one = make_step_fn(static, broadphase="allpairs",
-                          max_neighbors=MAX_NEIGHBORS)
-    reset_hand_launches()
-    with tempfile.TemporaryDirectory() as tmp:
-        tr_grid = ts.trace_and_summarize(
-            lambda: grid_one(state, inp)[0].pos, (),
-            os.path.join(tmp, "grid"))
-        tr_ap = ts.trace_and_summarize(
-            lambda: ap_one(allpairs_state, inp)[0].pos, (),
-            os.path.join(tmp, "allpairs"))
-    ap_launches = bk.neighbor_lists_aabb.launches
-    check(ap_launches > 0, "the all-pairs steps did not launch kernel #1")
-    print(f"[times] {N_STRESS} boxes: grid route {grid_rate:.2f} steps/s "
-          f"(CUDA events, median of dispatches 2-{DISPATCHES} of "
-          f"{STEPS_PER_DISPATCH} steps), one traced step "
-          f"{tr_grid['launches']:g} launches, {tr_grid['busy_ms']:.3f} ms "
-          f"of device time; all-pairs route (phase 5 times its steps/s) one "
-          f"traced step {tr_ap['launches']:g} launches, "
-          f"{tr_ap['busy_ms']:.3f} ms of device time, kernel #1 launched "
-          f"{ap_launches} times in those steps {card}")
 
     # ---- solid capsules on the flat many-world step ----------------------
     with np.load(CAPSULE_GOLDEN) as z:
@@ -2924,21 +2139,15 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
           "capsule run: the dispatches do not add up")
     fields = ("pos", "quat", "lin_vel", "ang_vel")
     track = []
-    c_events = [torch.cuda.Event(enable_timing=True)
-                for _ in range(n_chunks + 1)]
-    reset_hand_launches()
-    t0 = time.perf_counter()
+    reset_launches()
     with no_host_sync():
         for _ in range(g_steps):
             bs = one(bs, bi)
             track.append([getattr(bs, f)[0].clone() for f in fields])
-        c_events[0].record()
-        for i in range(n_chunks):
+        for _ in range(n_chunks):
             bs = chunk(bs, bi)
-            c_events[i + 1].record()
     torch.cuda.synchronize()
-    capsule_s = time.perf_counter() - t0
-    check(hand_launches() == 0, "the capsule run launched a hand kernel")
+    check(not launch_counts(), "the capsule run launched a hand kernel")
     err_g = 0.0
     for i, rec in enumerate(track):
         for f, a in zip(fields, rec):
@@ -2957,19 +2166,15 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     check(bool(torch.isfinite(bs.pos).all()), "capsule run: non-finite")
     live = bool((bs.contact_feat[0, 0] >= 0).any())
     check(live, "the upright capsule has no live ground manifold")
-    c_ms = [c_events[i].elapsed_time(c_events[i + 1])
-            for i in range(n_chunks)]
-    c_rate = CAPSULE_WORLDS * CAPSULE_CHUNK / (statistics.median(c_ms) / 1e3)
     print(f"[capsules] {CAPSULE_WORLDS} worlds of the capsule scene on the "
           f"flat static route, {CAPSULE_STEPS} steps ({g_steps} one-step "
           f"dispatches, then {n_chunks} of {CAPSULE_CHUNK}; no host sync, no "
-          f"hand kernel, {capsule_s:.1f} s wall): world 0 within "
+          f"hand kernel): world 0 within "
           f"{err_g:.3g} of JAX's flat step over its {g_steps} steps (< "
           f"{CAPSULE_ATOL:g}), every world within {err_w:.3g} of world 0 (< "
           f"{CAPSULE_WORLD_ATOL:g}), the upright capsule at rest at y = "
           f"{rest:.4f} (hh + r = {hh + r:.2f} +- 0.1), a live ground "
-          f"manifold; {c_rate:.0f} world-steps/s (CUDA events, median of "
-          f"the {CAPSULE_CHUNK}-step dispatches) {card}")
+          f"manifold")
 
     # ---- the tiled shade over the tile raster ----------------------------
     def renderer(rs, **kw):
@@ -2979,17 +2184,17 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     tile_r = {name: renderer(rs, raster_backend="tile")
               for name, (rs, _, _) in views.items()}
     walk_r = {name: renderer(rs) for name, (rs, _, _) in views.items()}
-    reset_hand_launches()
+    reset_launches()
     with no_host_sync():
         frames = {name: tile_r[name](*args)
                   for name, (_, args, _) in views.items()}
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = {"walk": 0, "resolve": 2, "fused": 0, "tile": 4}
+    want = {"resolve": 2, "tile": 4}
     check(replayed_counts() == want, f"tiled frames over the tile raster: "
-          f"launches {launches} ({warmup_counts()} in the captures' "
-          f"warm-ups), expected {want} in the replays")
-    with plain_render_kernels():
+          f"launches {launches} ({launch_counts(warm=True)} in the "
+          f"captures' warm-ups), expected {want} in the replays")
+    with plain_twins():
         plain = {name: tile_r[name](*args)
                  for name, (_, args, _) in views.items()}
     walk = {name: walk_r[name](*args) for name, (_, args, _) in views.items()}
@@ -3017,7 +2222,7 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     tiled, sargs = _tiled_tile_parts(rs, *args, RENDER_W, RENDER_H)
     covered = shading.tiled_resolve_width(tiled, **NARROW_SLOTS)
     n_fb = int((tiled.slot >= covered).sum())
-    reset_hand_launches()
+    reset_launches()
     with no_host_sync():
         narrow = shading.shade_visibility_tiled(tiled, *sargs, **NARROW_SLOTS)
     torch.cuda.synchronize()
@@ -3025,11 +2230,11 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
     wide = shading.shade_visibility_tiled(
         tiled, *sargs, shade_slots=NARROW_SLOTS["shade_slots"],
         heavy_shade_slots=rz.K_GLOBAL + rz.HEAVY_CAPACITY)
-    with plain_render_kernels():
+    with plain_twins():
         narrow_p = shading.shade_visibility_tiled(tiled, *sargs,
                                                   **NARROW_SLOTS)
     check(n_fb > 0, f"{name}: no winner beyond slot {covered}")
-    check(fb_launches == {"walk": 0, "resolve": 1, "fused": 0, "tile": 0},
+    check(fb_launches == {"resolve": 1},
           f"narrow shade: launches {fb_launches}, expected one resolve")
     check(torch.equal(narrow, wide) and torch.equal(narrow, narrow_p),
           f"{name}: the narrow shade with its fallback differs from the "
@@ -3060,20 +2265,13 @@ def new_routes_phase(dev, card: str, state0, allpairs_state, static,
           f"pixels off by more than 1 level, "
           f"{int((g_frame != gz['frame']).any(-1).sum())} off at all, sky "
           f"mask equal elsewhere")
-    for name, (_, args, _) in views.items():
-        ms = [median_ms(lambda: r[name](*args))
-              for r in (walk_r, tile_r, tile_r, walk_r)]
-        print(f"[times] {name} {RENDER_W}x{RENDER_H} tiled frames: over the "
-              f"walk {ms[0]:.3f} ms, over the tile raster {ms[1]:.3f} / "
-              f"{ms[2]:.3f} ms, over the walk again {ms[3]:.3f} ms {card}")
-    print(f"[new-routes] phase 19 took {time.perf_counter() - t_phase:.1f} s")
 
 
 SHARDED_GOLDEN = os.path.join(DATA, "sharded_world_jax_golden.json")
 SW_WORLDS = 1000
 SW_STEPS = 50          # steps a vmapped dispatch
 SW_RUN = 100           # steps of each vmapped run (zero, per-world input)
-SW_TIMED = 10          # steps a timed dispatch
+SW_CALL = 10           # steps a call of the route comparisons
 SW_ATOL = 2e-4         # flat against vmapped (tests/test_flat_manyworld.py)
 SW_DENSE_ATOL = dict(pos=2e-4, quat=2e-4, lin_vel=2e-3)  # test_sharded_world
 SW_CPU_ATOL = 1e-5     # the entity-sharded phase, card against CPU
@@ -3085,27 +2283,18 @@ def _sync_free(what: str, fn, *args):
     warning raised as errors, and no hand-kernel launch allowed."""
     import warnings
 
-    reset_hand_launches()
+    reset_launches()
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message=".*batching rule.*")
         with no_host_sync():
             out = fn(*args)
     torch.cuda.synchronize()
-    hand = hand_launches()
-    check(hand == 0, f"{what}: {hand} hand-kernel launches")
+    hand = launch_counts()
+    check(not hand, f"{what}: hand-kernel launches {hand}")
     return out
 
 
-def _trace(fn) -> dict:
-    """``trace_summary``'s summary of ``fn()``: launches and device ms an
-    execution."""
-    from banggameengine_tpu_torch.scripts import trace_summary as ts
-
-    with tempfile.TemporaryDirectory() as tmp:
-        return ts.trace_and_summarize(fn, (), tmp)
-
-
-def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
+def sharded_phase(dev, stress_state, stress_static) -> None:
     """Phase 20: the vmapped many-world step, the router and the flat
     step's world mesh, the fully sharded world, the entity-sharded
     contact phase, all on a one-rank NCCL group, each a CUDA graph held
@@ -3132,13 +2321,11 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
     from banggameengine_tpu_torch.state import (
         BODY_DYNAMIC, COMP_CHARACTER, COMP_COLLIDER, SHAPE_BOX, InputFrame)
 
-    t_phase = time.perf_counter()
-    res, traced = {}, {}
+    res = {}
     store = tempfile.mkdtemp(prefix="bang_store_")
     ranks.init_rank(0, 1, os.path.join(store, "store"), "cuda")
     try:
         # ---- 20a. the vmapped many-world step ---------------------------
-        t0 = time.perf_counter()
         mesh = mw.make_world_mesh()
         w = SW_WORLDS
         state1, static1 = build_falling_boxes(**MW_SCENE, device=dev)
@@ -3168,7 +2355,7 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
             s = sharded["state"]
             for _ in range(SW_RUN // SW_STEPS):
                 s = vstep(s, inp)
-            return own(s)      # the program's buffers: the next run's
+            return graphs.owned(s)   # the program's buffers: the next run's
 
         outs = {k: _sync_free(f"vmapped, {k} input", run, sharded[k])
                 for k in ("zero", "drive")}
@@ -3219,10 +2406,10 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
         # the graph route against the eager one: the vmapped step with its
         # metrics (a second graph, the all-reduce inside it)
         vm = mw.make_sharded_many_world_step(
-            static1, mesh, num_steps=SW_TIMED, with_metrics=True)
+            static1, mesh, num_steps=SW_CALL, with_metrics=True)
         res["vmapped"] = _compare_routes(
             f"vmapped many-world step with_metrics on the one-rank world "
-            f"mesh, {w} worlds, {SW_TIMED} steps a call", card,
+            f"mesh, {w} worlds, {SW_CALL} steps a call",
             _chain(vm, sharded["state"], sharded["drive"]), 2,
             _ops_of(vm, sharded["state"], sharded["drive"]), sync_free=True)
         mvals = {k: float(v)
@@ -3233,36 +2420,7 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
               f"ranks / W): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in mvals.items()))
 
-        # world-steps/s: the vmapped and the flat step, one call
-        v_t = mw.make_sharded_many_world_step(static1, mesh,
-                                              num_steps=SW_TIMED)
-        f_t = mw.make_flat_many_world_step(static1, w, state1.comp_mask,
-                                           num_steps=SW_TIMED)
-        rates, peaks = {}, {}
-        for name, fn in (
-                ("vmapped", lambda: v_t(outs["zero"], sharded["zero"])),
-                ("flat", lambda: f_t(bs0, zero))):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms = median_ms(lambda: ranks.local(fn().pos), timed=3)
-            peaks[name] = torch.cuda.max_memory_allocated() / 2**20
-            rates[name] = w * SW_TIMED / (ms / 1e3)
-        print("[profile] trace_summary of one vmapped step on the world "
-              "mesh (its graph replayed):")
-        traced["vmapped"] = _trace(
-            lambda: ranks.local(v1(outs["zero"], sharded["zero"]).pos))
-        print(f"[times] many-world {w} worlds, dispatches of {SW_TIMED} "
-              f"steps (CUDA events, median of 3 after 2 warm-up): vmapped "
-              f"{rates['vmapped']:.0f} world-steps/s "
-              f"({traced['vmapped']['launches']:g} kernels a step, peak "
-              f"{peaks['vmapped']:.0f} MiB), flat "
-              f"{rates['flat']:.0f} world-steps/s (its launches: phase 15's "
-              f"trace; peak {peaks['flat']:.0f} MiB); flat / vmapped "
-              f"{rates['flat'] / rates['vmapped']:.2f} {card}")
-        print(f"[sharded] 20a took {time.perf_counter() - t0:.1f} s")
-
         # ---- 20b. the router and the one-rank flat mesh= ----------------
-        t0 = time.perf_counter()
         _, layout = mw.make_many_world_step(static1, mesh, state1.comp_mask,
                                             w)
         check(layout == "flat", f"router on one rank: {layout}")
@@ -3276,23 +2434,15 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
               f"{layout!r}; the flat step with mesh= bit-equal to "
               f"mesh=None after 25 steps of per-world input")
         fmesh = mw.make_flat_many_world_step(
-            static1, w, state1.comp_mask, num_steps=SW_TIMED, mesh=mesh)
+            static1, w, state1.comp_mask, num_steps=SW_CALL, mesh=mesh)
         res["flat"] = _compare_routes(
             f"flat many-world step on the one-rank world mesh, {w} worlds, "
-            f"{SW_TIMED} steps a call", card,
+            f"{SW_CALL} steps a call",
             _chain(fmesh, sharded["state"], sharded["drive"]), 2,
             _ops_of(fmesh, sharded["state"], sharded["drive"]),
             sync_free=True)
-        fmesh1 = mw.make_flat_many_world_step(static1, w, state1.comp_mask,
-                                              mesh=mesh)
-        print("[profile] trace_summary of one one-step flat call on the "
-              "world mesh (its three graphs):")
-        traced["flat"] = _trace(lambda: ranks.local(
-            fmesh1(sharded["state"], sharded["drive"]).pos))
-        print(f"[sharded] 20b took {time.perf_counter() - t0:.1f} s")
 
         # ---- 20c. the fully sharded world on one rank -------------------
-        t0 = time.perf_counter()
         emesh = sw.make_entity_axis_mesh()
         inp = InputFrame.zero(dev)
         ss, sst = sw.shard_world(stress_state, stress_static, emesh)
@@ -3300,7 +2450,7 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
         res["fully"] = _compare_routes(
             f"fully sharded step, one rank, {N_STRESS} boxes from phase 4's "
             f"{DISPATCHES * STEPS_PER_DISPATCH}-step state, "
-            f"{SW_SHARDED_STEPS} donated steps", card,
+            f"{SW_SHARDED_STEPS} donated steps",
             _chain(fstep, ss, inp, sst), SW_SHARDED_STEPS,
             _ops_of(fstep, ss, inp, sst), sync_free=True)
         # a replay and the input frame's copies: the donated state and the
@@ -3320,18 +2470,12 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
             check(errs[f] < tol, f"fully sharded vs dense at N={N_STRESS}: "
                   f"|{f}| = {errs[f]}")
         check(bool(torch.isfinite(got.pos).all()), "fully sharded: NaN")
-        print("[profile] trace_summary of one fully sharded step (its "
-              "graph replayed):")
-        traced["fully"] = _trace(
-            lambda: ranks.local(fstep(ss, inp, sst)[0].pos))
         print(f"[sharded] fully sharded step, one rank, {N_STRESS} boxes: "
               f"no host sync, no hand kernel; its first step against the "
               f"dense route's (warm_start=False: the sharded solve starts "
               f"cold): max |sharded - dense| "
               + ", ".join(f"{k} {v:.3g} (< {SW_DENSE_ATOL[k]:g})"
-                          for k, v in errs.items())
-              + f"; one step {res['fully']['graph_ms']:.2f} ms (graph), "
-              f"{res['fully']['eager_ms']:.1f} ms (eager) {card}")
+                          for k, v in errs.items()))
         with open(SHARDED_GOLDEN) as f:
             golden = json.load(f)
         dstate, dstatic = build_demo_like(device=dev)
@@ -3340,7 +2484,7 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
         # every step's events are the graph's outputs: the route runner
         # clones each call's results
         res["demo"] = _compare_routes(
-            f"fully sharded demo topology, {golden['steps']} steps", card,
+            f"fully sharded demo topology, {golden['steps']} steps",
             _chain(dstep, ds, inp, dst), golden["steps"],
             _ops_of(dstep, ds, inp, dst), sync_free=True)
         douts = res["demo"]["outs"]
@@ -3362,20 +2506,14 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
         for f in golden["exact_fields"]:
             check(np.array_equal(dn[f], np.asarray(golden["last"][f])),
                   f"demo topology: {f} differs from JAX")
-        traced["demo"] = _trace(
-            lambda: ranks.local(dstep(ds, inp, dst)[0].pos))
         print(f"[sharded] demo topology fully sharded on the graph route, "
               f"{golden['steps']} steps: events equal to the JAX golden "
               f"({len(golden['enter'])} Enter, {len(golden['exit'])} Exit), "
               f"{', '.join(golden['exact_fields'])} equal; max |port - JAX| "
               + ", ".join(f"{k} {v:.3g}" for k, v in derr.items())
-              + f" (< {golden['atol']:g}); "
-              f"{1e3 / res['demo']['graph_ms']:.1f} steps/s (graph), "
-              f"{1e3 / res['demo']['eager_ms']:.1f} (eager) {card}")
-        print(f"[sharded] 20c took {time.perf_counter() - t0:.1f} s")
+              + f" (< {golden['atol']:g})")
 
         # ---- 20d. the entity-sharded contact phase -----------------------
-        t0 = time.perf_counter()
         alive = stress_state.alive
         has_col = (stress_state.comp_mask
                    & (COMP_COLLIDER | COMP_CHARACTER)) != 0
@@ -3394,7 +2532,7 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
 
         res["phase"] = _compare_routes(
             f"entity-sharded contact phase, one rank, {N_STRESS} boxes",
-            card, phase_calls, G_CALLS, _ops_of(phase, *args),
+            phase_calls, G_CALLS, _ops_of(phase, *args),
             sync_free=True)
         v_g, w_g = res["phase"]["outs"][0]
         cpu_group = dist.new_group(ranks=[0], backend="gloo")
@@ -3411,26 +2549,11 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
               "entity-sharded phase: not finite")
         check(perr < SW_CPU_ATOL,
               f"entity-sharded phase, card vs CPU: {perr}")
-        traced["phase"] = _trace(lambda: phase(*args)[0])
         print(f"[sharded] entity-sharded contact phase, one rank, "
               f"{N_STRESS} boxes: finite, max |card - CPU| {perr:.3g} "
-              f"(< {SW_CPU_ATOL:g}); {res['phase']['graph_ms']:.2f} ms "
-              f"(graph), {res['phase']['eager_ms']:.1f} ms (eager) {card}")
-        for key, steps in (("vmapped", SW_TIMED), ("flat", SW_TIMED),
-                           ("fully", 1), ("demo", 1), ("phase", 1)):
-            r, tr = res[key], traced[key]
-            per = r["graph_ms"] / steps
-            print(f"[sharded] {key}: a call {r['graph_ms']:.3f} ms on the "
-                  f"graph route ({per:.3f} ms a step), "
-                  f"{r['eager_ms']:.3f} ms eager; host launches a call "
-                  f"{r['graph_host']:g} against {r['eager_ops']}; one "
-                  f"step's traced device time {tr['busy_ms']:.3f} ms "
-                  f"({tr['launches']:g} kernels; a step / device "
-                  f"{per / tr['busy_ms']:.3f}) {card}")
-        print(f"[sharded] 20d took {time.perf_counter() - t0:.1f} s")
+              f"(< {SW_CPU_ATOL:g})")
 
         # ---- 20e. the native OBJ loader and the windows ------------------
-        t0 = time.perf_counter()
         path = build_native(force=True)
         check(path == LIB_PATH and os.path.isfile(LIB_PATH),
               f"native library did not build: {path}")
@@ -3469,8 +2592,8 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
         finally:
             if display is not None:
                 os.environ["DISPLAY"] = display
-        print(f"[native] {os.path.relpath(LIB_PATH)} built with g++ in "
-              f"{time.perf_counter() - t0:.1f} s; {len(objs)} meshes of "
+        print(f"[native] {os.path.relpath(LIB_PATH)} built with g++; "
+              f"{len(objs)} meshes of "
               f"tests/data/app_assets loaded natively, each within "
               f"tests/test_native.py's bars of the Python loader; "
               f"load_mesh took the native route; without DISPLAY XcbWindow "
@@ -3482,8 +2605,6 @@ def sharded_phase(dev, card: str, stress_state, stress_static) -> None:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    print(f"[sharded] phase 20 took {time.perf_counter() - t_phase:.1f} s "
-          f"{card}")
 
 
 G_CALLS = 3           # phase 21: calls of each factory on each route
@@ -3492,50 +2613,27 @@ G_MW_STEPS = 10       # phase 21: steps a many-world call
 G_STRESS_HOST_MAX = 300   # host launches a 50-step stress dispatch may take
 
 
-def _hand_counts(warm: bool = False) -> dict:
-    """Every path kernel's launches since the counts were set to 0, or
-    (``warm``) those of them made in the captures' eager warm-ups."""
-    from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-    from banggameengine_tpu_torch.physics import contacts_kernel as ck
-
-    if warm:
-        return {"neighbor_lists": graphs.warmup_launches[
-            "neighbor_lists_aabb"],
-            "box_contacts": graphs.warmup_launches["box_contacts"],
-            **warmup_counts()}
-    return {"neighbor_lists": bk.neighbor_lists_aabb.launches,
-            "box_contacts": ck.box_contacts.launches, **launch_counts()}
-
-
 def _route_run(runner, n: int, eager: bool, sync_free: bool) -> dict:
     """``runner(n, call)`` on one route with the counts set to 0: each
-    call timed by CUDA events and its host launches (``graphs.stats``)
-    counted; the hand kernels' launches less the captures' warm-ups.
-    ``sync_free``: a host sync in a call raises."""
-    reset_hand_launches()
-    outs, times, host = [], [], []
+    call's host launches (``graphs.stats``) counted; the hand kernels'
+    launches less the captures' warm-ups.  ``sync_free``: a host sync in
+    a call raises."""
+    reset_launches()
+    outs, host = [], []
 
     def call(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         h0 = graphs.host_launches()
-        start.record()
         out = fn()
-        end.record()
         host.append(graphs.host_launches() - h0)
-        times.append((start, end))
-        outs.append(own(out))
+        outs.append(graphs.owned(out))
         return out
 
     with (graphs.eager() if eager else contextlib.nullcontext(),
           no_host_sync() if sync_free else contextlib.nullcontext()):
         runner(n, call)
     torch.cuda.synchronize()
-    counts, warm = _hand_counts(), _hand_counts(warm=True)
-    return dict(outs=outs, host=host,
-                ms=[a.elapsed_time(b) for a, b in times],
-                launches={k: counts[k] - warm[k] for k in counts},
-                warm={k: v for k, v in warm.items() if v})
+    return dict(outs=outs, host=host, launches=replayed_counts(),
+                warm=launch_counts(warm=True))
 
 
 def _count_ops(fn) -> int:
@@ -3543,22 +2641,22 @@ def _count_ops(fn) -> int:
     each launches about one kernel), the hand kernels' launches added."""
     from banggameengine_tpu_torch.scripts import trace_summary as ts
 
-    reset_hand_launches()
+    reset_launches()
     with graphs.eager():
         n = ts.count_ops(fn, ())
     torch.cuda.synchronize()
-    return n + sum(_hand_counts().values())
+    return n + sum(launch_counts().values())
 
 
-def _compare_routes(name: str, card: str, runner, n: int, ops_fn,
-                    kernels=(), sync_free: bool = False) -> dict:
+def _compare_routes(name: str, runner, n: int, ops_fn, kernels=(),
+                    sync_free: bool = False) -> dict:
     """Phases 20's and 21's check of one factory: ``n`` calls through the
     graphs and ``n`` through ``graphs.eager()`` from the same start, every
     output bit-equal (a DTensor's local part), the hand kernels' replayed
     launches equal to the eager launches (each kernel of ``kernels``
     launched), then one more eager call's ATen ops and the printed line.
-    ``sync_free``: a host sync in a call raises.  Returns the times, the
-    host launches, the launches and the graph route's outputs."""
+    ``sync_free``: a host sync in a call raises.  Returns the host
+    launches, the launches and the graph route's outputs."""
     from banggameengine_tpu_torch.parallel import ranks
 
     g = _route_run(runner, n, eager=False, sync_free=sync_free)
@@ -3575,22 +2673,19 @@ def _compare_routes(name: str, card: str, runner, n: int, ops_fn,
           f"graphs: {name}: hand-kernel launches through the replays "
           f"{g['launches']}, eager {e['launches']}")
     for k in kernels:
-        check(g["launches"][k] > 0, f"graphs: {name}: {k} not launched")
+        check(g["launches"].get(k, 0) > 0, f"graphs: {name}: {k} not "
+              f"launched")
     ops = ops_fn()
     g_host = statistics.median(g["host"][1:] or g["host"])
-    g_ms = statistics.median(g["ms"][1:] or g["ms"])
-    e_ms = statistics.median(e["ms"])
-    used = {k: v for k, v in g["launches"].items() if v}
     print(f"[graphs] {name}: {n} calls bit-equal between the graph and "
-          f"eager routes; hand-kernel launches through the replays {used} "
-          f"= eager (captures' warm-ups {g['warm'] or 'none'}); host "
-          f"launches a call: graph {g_host:g} (replays, input copies, "
-          f"output clones; the first call {g['host'][0]}, its capture "
-          f"included), eager {ops} (ATen ops and hand kernels); a call by "
-          f"CUDA events: graph {g_ms:.3f} ms, eager {e_ms:.3f} ms "
-          f"(eager / graph {e_ms / g_ms:.2f}) {card}")
-    return dict(graph_host=g_host, eager_ops=ops, graph_ms=g_ms,
-                eager_ms=e_ms, launches=g["launches"], outs=g["outs"])
+          f"eager routes; hand-kernel launches through the replays "
+          f"{g['launches']} = eager (captures' warm-ups "
+          f"{g['warm'] or 'none'}); host launches a call: graph {g_host:g} "
+          f"(replays, input copies, output clones; the first call "
+          f"{g['host'][0]}, its capture included), eager {ops} (ATen ops "
+          f"and hand kernels)")
+    return dict(graph_host=g_host, eager_ops=ops, launches=g["launches"],
+                outs=g["outs"])
 
 
 def _chain(fn, start, *rest):
@@ -3608,7 +2703,7 @@ def _ops_of(fn, *args):
     return lambda: _count_ops(lambda: fn(*args))
 
 
-def graphs_phase(dev, card: str, stress_run, stress_state, static,
+def graphs_phase(dev, stress_run, stress_state, static,
                  views: dict) -> None:
     """Phase 21: every factory of the JAX package's one-dispatch programs,
     through its CUDA graphs and through ``graphs.eager()`` in the same
@@ -3632,21 +2727,19 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
     from banggameengine_tpu_torch.scene.schema import parse_scene_json
     from banggameengine_tpu_torch.scene.synthetic import (
         build_demo_like, build_falling_boxes)
-    from banggameengine_tpu_torch.scripts import trace_summary as ts
     from banggameengine_tpu_torch.scripts.play_demo import apply_track
     from banggameengine_tpu_torch.state import InputFrame
 
-    t_phase = time.perf_counter()
     inp = InputFrame.zero(dev)
     res = {}
 
     # the stress multi-step: phase 4's program, captured there
     res["stress"] = _compare_routes(
         f"stress multi-step, {N_STRESS} boxes, {STEPS_PER_DISPATCH} steps a "
-        f"call (one step's graph replayed)", card,
+        f"call (one step's graph replayed)",
         _chain(stress_run, stress_state, inp), 2,
         _ops_of(stress_run, stress_state, inp),
-        kernels=("neighbor_lists", "box_contacts"))
+        kernels=("broadphase", "contacts"))
     check(res["stress"]["graph_host"] <= G_STRESS_HOST_MAX,
           f"graphs: a {STEPS_PER_DISPATCH}-step stress dispatch took "
           f"{res['stress']['graph_host']} host launches")
@@ -3665,10 +2758,9 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
                 else "a step graph, then a frame graph")
         res[key] = _compare_routes(
             f"tick ({form}), {N_STRESS} boxes at {RENDER_W}x{RENDER_H}",
-            card,
             _chain(tick, stress_state, inp, *tick_args), G_CALLS,
             _ops_of(tick, stress_state, inp, *tick_args),
-            kernels=("neighbor_lists", "box_contacts", "walk", "resolve"))
+            kernels=("broadphase", "contacts", "walk", "resolve"))
 
     # the fused and flat frames of the showcase
     show_rs, show_args, _ = views["showcase"]
@@ -3683,7 +2775,7 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
                 call(lambda: r(*show_args))
 
         res[mode] = _compare_routes(
-            f"{mode} frame, showcase {RENDER_W}x{RENDER_H}", card, frames,
+            f"{mode} frame, showcase {RENDER_W}x{RENDER_H}", frames,
             G_CALLS, _ops_of(r, *show_args), kernels=(k,))
 
     # the many-world steps at 1,000 worlds, per-world input
@@ -3703,37 +2795,27 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
                                         num_steps=G_MW_STEPS)
     vmapped = mw.make_sharded_many_world_step(static1, None,
                                               num_steps=G_MW_STEPS)
-    for key, fn, used in (("flat", flat, ("box_contacts",)),
+    for key, fn, used in (("flat", flat, ("contacts",)),
                           ("vmapped", vmapped, ())):
         res[f"mw_{key}"] = _compare_routes(
             f"{key} many-world step, {w} worlds, {G_MW_STEPS} steps a call",
-            card, _chain(fn, bs0, drive), 2, _ops_of(fn, bs0, drive),
+            _chain(fn, bs0, drive), 2, _ops_of(fn, bs0, drive),
             kernels=used)
 
-    # the flat call against its traced device time: a one-step call is
-    # flatten, the flat step and unflatten (three graphs), plus the copies
-    # of its inputs; the 10-step call replays only the step 10 times
+    # a one-step flat call through its three graphs (flatten, the flat
+    # step and unflatten): the trace holds the kernels they replay
     flat_one = mw.make_flat_many_world_step(static1, w, state1.comp_mask)
-    call_ms = median_ms(lambda: flat_one(bs0, drive).pos)
-    with tempfile.TemporaryDirectory() as tmp:
-        print("[profile] trace_summary of one one-step flat call through "
-              "its graphs:")
-        tr = ts.trace_and_summarize(lambda: flat_one(bs0, drive).pos, (),
-                                    tmp)
+    tr = _traced(lambda: flat_one(bs0, drive).pos)
     check(tr["busy_ms"] > 0 and tr["launches"] > 0,
           f"graphs: the flat call's trace shows {tr['launches']} kernels")
-    print(f"[graphs] flat many-world, {w} worlds: a one-step call "
-          f"{call_ms:.3f} ms by CUDA events against {tr['busy_ms']:.3f} ms "
-          f"of traced device time (call / device "
-          f"{call_ms / tr['busy_ms']:.3f}; {tr['launches']:g} kernels a "
-          f"call); the {G_MW_STEPS}-step call "
-          f"{res['mw_flat']['graph_ms'] / G_MW_STEPS:.3f} ms a step {card}")
+    print(f"[graphs] flat many-world, {w} worlds: a one-step call's trace "
+          f"holds {tr['launches']:g} kernels")
 
     # the demo step
     d0, dstatic = build_demo_like(device=dev)
     demo = make_step_fn(dstatic)
     res["demo"] = _compare_routes(
-        "demo step (build_demo_like, the default route)", card,
+        "demo step (build_demo_like, the default route)",
         _chain(demo, d0, inp), 20, _ops_of(demo, d0, inp))
 
     # the app's display frames: the fused tick and the default path
@@ -3774,7 +2856,7 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
         key = "app_fused" if fused else "app_default"
         res[key] = _compare_routes(
             f"app {'fused' if fused else 'default-path'} display frame, "
-            f"1280x720 (play_demo's track)", card,
+            f"1280x720 (play_demo's track)",
             app_runner(fused, last), G_APP_FRAMES,
             lambda last=last: next_frame_ops(last),
             kernels=("walk", "resolve"))
@@ -3791,7 +2873,7 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
 
     res["hot"] = _compare_routes(
         "hot-reloadable step, the scene rebuilt (gravity x2) half-way",
-        card, reload_runner, 6, _ops_of(hot, d0, inp, heavy))
+        reload_runner, 6, _ops_of(hot, d0, inp, heavy))
     check(hot.program.captures == 1,
           f"graphs: the hot reload captured {hot.program.captures} times")
 
@@ -3825,14 +2907,14 @@ def graphs_phase(dev, card: str, stress_run, stress_state, static,
 
     res["spawn"] = _compare_routes(
         f"spawns in a chain until the level table grows ({rows} rows)",
-        card, spawn_runner, rows - 1, spawn_ops)
+        spawn_runner, rows - 1, spawn_ops)
     check(programs[0].captures == 2,
           f"graphs: the level table's growth made {programs[0].captures} "
           f"captures, not 2")
     print(f"[graphs] the hot reload copied the rebuilt scene into the "
           f"captured one (1 capture); the grown level table captured anew "
-          f"(2 captures); graphs.stats {graphs.stats}")
-    print(f"[graphs] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+          f"(2 captures); graphs.stats "
+          f"{ {k: v for k, v in graphs.stats.items() if k != 'capture_s'} }")
 
 
 def main() -> int:
@@ -3843,10 +2925,8 @@ def main() -> int:
     from banggameengine_tpu_torch.engine import (
         make_multi_step_fn, make_step_fn)
     from banggameengine_tpu_torch.physics import broadphase_kernel as bk
-    from banggameengine_tpu_torch.physics import contacts_kernel as ck
     from banggameengine_tpu_torch.physics import shapes
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
-    from banggameengine_tpu_torch.scripts import gather_rows as gr
     from banggameengine_tpu_torch.state import InputFrame
 
     # TF32 would round the f32 payload moves; keep every product in f32
@@ -3865,18 +2945,13 @@ def main() -> int:
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using {kind}")
-    card = f"({smi})"
 
     # ---- 2. build: every kernel at once, one nvcc each -----------------
-    t0 = time.perf_counter()
-    render_mods = render_kernel_modules()
-    build_s = build_in_parallel([bk.load_kernel_library] + [
-        render_mods[k][0].load_kernel_library
-        for k in ("walk", "resolve", "fused", "tile")]
-        + [gr.load_kernel_library, ck.load_kernel_library])
-    print(f"[build] {KERNEL_SOURCE} for sm_90a built and loaded in "
-          f"{build_s[0]:.1f} s ({len(build_s)} libraries in parallel, "
-          f"{time.perf_counter() - t0:.1f} s in all)")
+    kernels = hand_kernels()
+    build_in_parallel([k.load for k in kernels.values()])
+    print(f"[build] {len(kernels)} hand kernels built for sm_90a and "
+          f"loaded, in parallel: "
+          f"{', '.join(f'{key} ({k.name})' for key, k in kernels.items())}")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     state0, static = build_falling_boxes(N_STRESS, seed=0)
@@ -3887,7 +2962,7 @@ def main() -> int:
 
     # the 200-step run with the plain broadphase and box contacts, for case
     # (b) and for the bit-equality check of phase 4
-    with plain_broadphase(), plain_contacts():
+    with plain_twins("broadphase", "contacts"):
         plain_state = state0
         for _ in range(DISPATCHES):
             plain_state = run(plain_state, inp)
@@ -3903,8 +2978,6 @@ def main() -> int:
          for n in (1, 20, 33, 65, 1025)] + [
         (f"e: {name}", tuple(torch.as_tensor(a, device=dev) for a in case))
         for name, case in kernel_cases.broadphase_edge_cases().items()]
-    max_abs_err = 0
-    kept_share = {}
     for name, (mn, mx, dyn, layer, mask) in cases:
         nl_k = bk.neighbor_lists_aabb(mn, mx, dyn, layer, mask,
                                       max_neighbors=MAX_NEIGHBORS)
@@ -3920,9 +2993,6 @@ def main() -> int:
         raw_p = bk.plain_idx_count(mn, mx, dyn, layer, mask, MAX_NEIGHBORS)
         kept = bk.band_group_kept(lo, hi)
         torch.cuda.synchronize()
-        err = int((nl_k.idx - nl_p.idx).abs().max())
-        max_abs_err = max(max_abs_err, err,
-                          int((count_k - count_p).abs().max()))
         check(torch.equal(nl_k.idx, nl_p.idx), f"{name}: idx differs")
         check(torch.equal(count_k, count_p), f"{name}: count differs")
         check(torch.equal(nl_k.nbr_overflow, nl_p.nbr_overflow),
@@ -3931,8 +3001,6 @@ def main() -> int:
               and torch.equal(raw_k[1], raw_p[1]),
               f"{name}: idx or count differs on the raw boxes")
         share = float(kept.float().mean())
-        if name[0] in "ab":
-            kept_share[name[0]] = share
         if name.startswith("c"):
             check(int(nl_k.nbr_overflow) > 0, "pile: K = 8 not saturated")
         if name[0] in "cd":
@@ -3950,24 +3018,18 @@ def main() -> int:
     # the multi-step is one step's graph replayed 50 times a dispatch; the
     # first dispatch captures it (its eager warm-up launches the kernel
     # once more)
-    bk.neighbor_lists_aabb.launches = 0
-    ck.box_contacts.launches = 0
-    graphs.warmup_launches.clear()
+    reset_launches()
     state = state0
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")   # a host sync in a step raises
-    try:
+    with no_host_sync():
         for _ in range(DISPATCHES):
             state = run(state, inp)
-        state = own(state)       # run's buffers: phase 5 dispatches again
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+        # run's buffers: phase 21 dispatches again
+        state = graphs.owned(state)
     torch.cuda.synchronize()
-    slice_s = time.perf_counter() - t0
-    launches = bk.neighbor_lists_aabb.launches
-    warm = graphs.warmup_launches["neighbor_lists_aabb"]
-    box_launches = ck.box_contacts.launches
-    box_warm = graphs.warmup_launches["box_contacts"]
+    counts, warm_counts = launch_counts(), launch_counts(warm=True)
+    launches, warm = counts["broadphase"], warm_counts.get("broadphase", 0)
+    box_launches = counts["contacts"]
+    box_warm = warm_counts.get("contacts", 0)
     steps = DISPATCHES * STEPS_PER_DISPATCH
     check(launches - warm == steps,
           f"kernel launched {launches} times ({warm} in the capture's "
@@ -3991,8 +3053,8 @@ def main() -> int:
     _, events = make_step_fn(static, broadphase="allpairs",
                              max_neighbors=MAX_NEIGHBORS)(state, inp)
     print(f"[slice] {N_STRESS} boxes, {steps} steps in {DISPATCHES} "
-          f"dispatches of {STEPS_PER_DISPATCH} ({slice_s:.1f} s wall, no "
-          f"host sync, one step's graph replayed): "
+          f"dispatches of {STEPS_PER_DISPATCH} (no host sync, one step's "
+          f"graph replayed): "
           f"{launches} kernel launches ({warm} in the capture's warm-up), "
           f"kernel #8 {box_launches} ({box_warm}), state finite, lowest "
           f"corner "
@@ -4025,68 +3087,24 @@ def main() -> int:
         print(f"[reference] 32 boxes vs the JAX package at step {i}: "
               f"{feats}max |pos - JAX| {err:.3g} (< {GOLDEN_ATOL})")
 
-    contacts = contacts_phase(dev, card, static, state0, state, inp,
-                              box_launches)
+    contacts_phase(dev, static, state0, state, inp)
 
-    # ---- 5. times -------------------------------------------------------
-    mn, mx, dyn, layer, mask = cases[0][1]
-    plain_ms = measure_throughput(
-        lambda: bk.neighbor_lists_aabb_reference(
-            mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS),
-        calls=10, warmup=3) * 1e3
-    wrapper_ms = measure_throughput(
-        lambda: bk.neighbor_lists_aabb(
-            mn, mx, dyn, layer, mask, max_neighbors=MAX_NEIGHBORS),
-        calls=10, warmup=3) * 1e3
-    bp_bound = broadphase_bound(mn, mx)
-    bp_ms = {}
-    for name, (mn_c, mx_c, *rest) in cases[:2]:
-        lo, hi = bk.with_margin(mn_c, mx_c)
-        key = name[0]
-        bp_ms[key] = device_ms(
-            lambda: bk.cuda_idx_count(lo, hi, *rest, MAX_NEIGHBORS))
-        one_ms = median_ms(
-            lambda: bk.cuda_idx_count(lo, hi, *rest, MAX_NEIGHBORS))
-        print(f"[times] broadphase kernel alone, case {key} (N={N_STRESS}, "
-              f"K={MAX_NEIGHBORS}; union pre-pass + main kernel): "
-              f"{bp_ms[key]:.4f} ms of device time, one call through "
-              f"cuda_idx_count {one_ms:.4f} ms (events, host work "
-              f"included); the unions keep {kept_share[key]:.4f} of (band, "
-              f"group) pairs {card}")
-    kernel_ms = bp_ms["a"]
-    print(f"[times] broadphase at N={N_STRESS}, K={MAX_NEIGHBORS}: "
-          f"kernel {kernel_ms:.4f} ms (device time), through "
-          f"neighbor_lists_aabb {wrapper_ms:.4f} ms a call (events, 10 "
-          f"queued, host work included), plain {plain_ms:.4f} ms, bound "
-          f"{bp_bound[0]:.4f} ms ({bp_bound[1]}, the pair tests of the kept "
-          f"(band, group) pairs) {card}")
-    with plain_broadphase():
-        plain_dispatch = dispatch_ms(run, state, inp)
-    kernel_dispatch = dispatch_ms(run, state, inp)
-    rate_k = STEPS_PER_DISPATCH / (kernel_dispatch / 1e3)
-    rate_p = STEPS_PER_DISPATCH / (plain_dispatch / 1e3)
-    print(f"[times] stress {N_STRESS} boxes, {STEPS_PER_DISPATCH} steps per "
-          f"dispatch: {rate_k:.2f} steps/s with the kernel "
-          f"({kernel_dispatch:.1f} ms/dispatch), {rate_p:.2f} steps/s with "
-          f"the plain broadphase ({plain_dispatch:.1f} ms/dispatch) {card}")
+    views = render_phases(dev, state, static)
+    route_phases(dev, views)
+    profiling_phases(dev)
+    manyworld_phase(dev)
+    dense_phase(dev)
+    app_phase(dev)
+    overlay_phase(dev)
+    new_routes_phase(dev, state0, state, static, views)
+    sharded_phase(dev, state, static)
+    graphs_phase(dev, run, state, static, views)
 
-    render, views = render_phases(dev, card, state, static, build_s[1:])
-    routes = route_phases(dev, card, views)
-    profiling = profiling_phases(dev, card, build_s[5])
-    manyworld_phase(dev, card)
-    dense_phase(dev, card)
-    app_phase(dev, card)
-    overlay_phase(dev, card)
-    new_routes_phase(dev, card, state0, state, static, views)
-    sharded_phase(dev, card, state, static)
-    graphs_phase(dev, card, run, state, static, views)
-
-    print(json.dumps({"kernels": [{
-        "name": "neighbor_lists", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bp_bound[0], "bound_by": bp_bound[1], "library_ms": None,
-    }, contacts] + render + routes + profiling}))
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(json.dumps({"kernels": [
+        {"key": key, "library": k.name,
+         "source": os.path.relpath(k.source, root), "replaces": k.replaces}
+        for key, k in hand_kernels().items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """The kernel comparison script's loading of another tree's wrappers, on the
-CPU: each wrapper module comes from the other tree's file, and its library
-would be built under a name of its own, never this tree's."""
+CPU: each wrapper module comes from the other tree's file, its kernel
+would build its library under a name of its own, never this tree's, and
+stays out of the registry that ``graphs.py`` counts."""
 
 import os
 import shutil
@@ -9,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from banggameengine_tpu_torch import cuda_build
+from banggameengine_tpu_torch import cuda_build, kernel_cases
 from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.scripts import compare_kernels as ck
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = kernel_cases.hand_kernels()
 
 
 def _copy_module(name, root):
@@ -23,29 +25,41 @@ def _copy_module(name, root):
     shutil.copy(os.path.join(ROOT, rel), dst)
 
 
-@pytest.mark.parametrize("kernel", sorted(ck.KERNELS))
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_other_module_comes_from_the_other_tree(kernel, tmp_path,
                                                 monkeypatch):
-    name, launcher = ck.KERNELS[kernel]
+    """The other tree's wrapper module builds its own library, under an
+    ``other_`` name, from its own source, and leaves the registry as it
+    was."""
+    this = KERNELS[kernel]
+    name = this.wrapper.__module__
     _copy_module(name, str(tmp_path))
+    registry = dict(cuda_build.KERNELS)
     mod = ck.other_module(str(tmp_path), name)
+    assert cuda_build.KERNELS == registry
+    assert all(cuda_build.KERNELS[k] is v for k, v in registry.items())
     assert os.path.dirname(mod.__file__).startswith(str(tmp_path))
-    assert mod._SOURCE.startswith(str(tmp_path))
-    assert callable(getattr(mod, launcher))
-    this = __import__(name, fromlist=[launcher])
-    assert getattr(mod, launcher) is not getattr(this, launcher)
+    other = mod.KERNEL
+    assert other is not this and other.key == this.key
+    assert other.source.startswith(str(tmp_path))
+    assert other.name == "other_" + this.name
+    assert other.symbols == this.symbols and other.flags == this.flags
+    wrapper = getattr(mod, this.wrapper.__name__)
+    assert callable(wrapper) and wrapper is not this.wrapper
+    assert other.wrapper is wrapper
     built = []
     monkeypatch.setattr(cuda_build, "load_library",
                         lambda lib, source, flags=(): built.append(
                             (lib, source, tuple(flags))))
-    mod.cuda_build.load_library("bge_x", mod._SOURCE, ("--fmad=false",))
-    assert built == [("other_bge_x", mod._SOURCE, ("--fmad=false",))]
+    with pytest.raises(AttributeError):   # the stand-in loads no library
+        other.load()
+    assert built == [(other.name, other.source, this.flags)]
 
 
 def test_other_module_runs_with_this_trees_helpers(tmp_path):
     """The other tree's broadphase wrapper on CPU tensors (its plain
     version) gives this tree's lists."""
-    name = ck.KERNELS["broadphase"][0]
+    name = KERNELS["broadphase"].wrapper.__module__
     _copy_module(name, str(tmp_path))
     other = ck.other_module(str(tmp_path), name)
     rng = np.random.default_rng(0)
@@ -58,7 +72,19 @@ def test_other_module_runs_with_this_trees_helpers(tmp_path):
     b = bk.neighbor_lists_aabb(*args, max_neighbors=8)
     assert torch.equal(a.idx, b.idx)
     assert torch.equal(a.nbr_overflow, b.nbr_overflow)
-    assert other.neighbor_lists_aabb.launches == 0
+    assert other.KERNEL.launches == 0
+
+
+def test_other_module_needs_the_registry(tmp_path):
+    """A wrapper module that makes no hand kernel (a tree older than the
+    registry) is refused: its library would build under this tree's
+    name."""
+    path = tmp_path / "banggameengine_tpu_torch" / "render" / "resolve.py"
+    path.parent.mkdir(parents=True)
+    path.write_text("def resolve_tiles_wide(slot, table):\n    pass\n")
+    with pytest.raises(RuntimeError, match="older than the registry"):
+        ck.other_module(str(tmp_path),
+                        "banggameengine_tpu_torch.render.resolve")
 
 
 def test_outputs_are_compared_leaf_by_leaf():

@@ -141,17 +141,15 @@ def test_unported_options_raise(sorted_scene):
     boxes = contact_t.box_contacts_t(*box_args, budget=12,
                                      orig_id=_t(s["order"]))
     assert all(torch.equal(a, b) for a, b in zip(mixed, boxes))
-    # the block-diagonal partner read is ported: the port reads partners by
-    # the gather on every route, so block_size changes nothing
+    # the block-diagonal partner read is the gather on every route
     # (tests/test_torch_manyworld.py holds it against the JAX block route)
     contacts = _contacts(s, contact_t, _t, with_feat=False)
     args = [*(_t(s[k]) for k in ("vel", "ang", "pos", "quat", "inv_m",
                                  "inertia")),
             *contacts[:9], _t(s["friction"]), _t(s["restitution"]),
             _t(s["dt"])]
-    block = contact_t.solve_contacts_t(*args, block_size=8)
-    gather = contact_t.solve_contacts_t(*args)
-    assert all(torch.equal(a, b) for a, b in zip(block, gather))
+    with pytest.raises(TypeError):
+        contact_t.solve_contacts_t(*args, block_size=8)
 
 
 # ---- the contract the CUDA kernel copies (physics/csrc/box_contacts.cu) ----

@@ -120,9 +120,9 @@ def test_broadphase_edge_cases_exact(device, name):
 
 def test_kernel_counts_launches_and_rejects_bad_input(device):
     case = _random_case(64, seed=1, device=device)
-    before = bk.neighbor_lists_aabb.launches
+    before = bk.KERNEL.launches
     bk.neighbor_lists_aabb(*case, max_neighbors=8)
-    assert bk.neighbor_lists_aabb.launches == before + 1
+    assert bk.KERNEL.launches == before + 1
     with pytest.raises(ValueError):
         bk.neighbor_lists_aabb(case[0], case[1], case[2].float(), *case[3:])
 
@@ -140,9 +140,9 @@ def _assert_contacts_equal_plain(case, budget=12):
     for with_feat in (False, True):
         args = list(case[:6])
         orig = case[6] if with_feat else None
-        before = ck.box_contacts.launches
+        before = ck.KERNEL.launches
         got = contact_t.box_contacts_t(*args, budget=budget, orig_id=orig)
-        assert ck.box_contacts.launches == before + 1
+        assert ck.KERNEL.launches == before + 1
         want = contact_t.box_contacts_t_reference(*args, budget=budget,
                                                   orig_id=orig)
         torch.cuda.synchronize()
@@ -206,14 +206,14 @@ def test_box_contacts_route_and_bad_input(device):
     (K = 0, which the plain version does not take either) among them."""
     case = [torch.as_tensor(a, device=device)
             for a in kernel_cases.box_contact_cases()["random_k8"]]
-    before = ck.box_contacts.launches
+    before = ck.KERNEL.launches
     shape_type = torch.ones(case[0].shape[0], dtype=torch.int8,
                             device=device)
     mixed = contact_t.box_contacts_t(*case[:6], orig_id=case[6],
                                      shape_type=shape_type)
     plain = contact_t.box_contacts_t_reference(*case[:6], orig_id=case[6],
                                                shape_type=shape_type)
-    assert ck.box_contacts.launches == before
+    assert ck.KERNEL.launches == before
     assert all(torch.equal(a, b) for a, b in zip(mixed, plain))
     bad = {0: case[0].double(), 1: case[1][:, :3], 3: case[3].long(),
            4: case[4].to(torch.uint8), 5: case[5][:-1]}
@@ -228,10 +228,10 @@ def test_box_contacts_route_and_bad_input(device):
     empty = torch.zeros((n, 0), dtype=torch.int32, device=device)
     with pytest.raises(ValueError, match="K=0"):
         contact_t.box_contacts_t(*case[:3], empty, empty >= 0, case[5])
-    assert ck.box_contacts.launches == before
+    assert ck.KERNEL.launches == before
 
 
-def test_flat_step_lists_longer_than_a_block(device, monkeypatch):
+def test_flat_step_lists_longer_than_a_block(device):
     """The flat many-world step over worlds of 300 boxes lists 299
     partners a body, past a block of the kernel (its wide form): after 240
     steps (the boxes rain in a column 12 m wide) one more step equals the
@@ -246,15 +246,14 @@ def test_flat_step_lists_longer_than_a_block(device, monkeypatch):
     one = mw.make_flat_many_world_step(static1, 2, state1.comp_mask)
     inp = mw.replicate_input(InputFrame.zero(device), 2)
     state = graphs.clone_tree(run(mw.replicate_state(state1, 2), inp))
-    before = ck.box_contacts.launches
+    before = ck.KERNEL.launches
     with graphs.eager():
         got = one(state, inp)
-        assert ck.box_contacts.launches == before + 1
-        monkeypatch.setattr(contact_t, "box_contacts_t",
-                            contact_t.box_contacts_t_reference)
+    assert ck.KERNEL.launches == before + 1
+    with kernel_cases.plain_twins("contacts"):
         want = one(state, inp)
     torch.cuda.synchronize()
-    assert ck.box_contacts.launches == before + 1
+    assert ck.KERNEL.launches == before + 1
     assert bool((got.contact_feat >= FEAT_STRIDE).any())
     for a, b in zip(graphs.flatten(got)[0], graphs.flatten(want)[0]):
         assert torch.equal(a, b)
@@ -289,9 +288,9 @@ def _walk_case(n_tiles, k_pad, seed, tiles_x, device):
 def test_walk_equals_plain(device, n_tiles, k_pad, tiles_x):
     counts, pack = _walk_case(n_tiles, k_pad, n_tiles + k_pad, tiles_x,
                               device)
-    before = rwk.raster_walk.launches
+    before = rwk.KERNEL.launches
     dep_k, slot_k = rwk.raster_walk(counts, pack, tiles_x)
-    assert rwk.raster_walk.launches == before + 1
+    assert rwk.KERNEL.launches == before + 1
     dep_p, slot_p = rwk.raster_walk_reference(counts, pack, tiles_x)
     torch.cuda.synchronize()
     assert torch.equal(slot_k, slot_p)
@@ -305,14 +304,14 @@ def test_compare_kernels_builds_the_other_trees_library(device):
     from banggameengine_tpu_torch.scripts import compare_kernels as ck
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    other = ck.other_module(root, ck.KERNELS["walk"][0])
+    other = ck.other_module(root, rwk.__name__)
     counts, pack = _walk_case(37, 272, 5, 15, device)
     dep_o, slot_o = other.cuda_raster_walk(counts, pack, 15)
     dep_t, slot_t = rwk.cuda_raster_walk(counts, pack, 15)
     torch.cuda.synchronize()
     assert torch.equal(slot_o, slot_t) and torch.equal(dep_o, dep_t)
     assert other.load_kernel_library()._name != rwk.load_kernel_library()._name
-    assert other.raster_walk.launches == 1
+    assert other.KERNEL.launches == 1
 
 
 def test_walk_edge_case_equals_plain(device):
@@ -338,9 +337,9 @@ def test_resolve_equals_plain(device, n_tiles, c, kl):
     table = rng.standard_normal((n_tiles, c, kl)).astype(np.float32)
     slot_t = torch.as_tensor(slot, device=device)
     table_t = torch.as_tensor(table, device=device)
-    before = rsv.resolve_tiles_wide.launches
+    before = rsv.KERNEL.launches
     out_k = rsv.resolve_tiles_wide(slot_t, table_t)
-    assert rsv.resolve_tiles_wide.launches == before + 1
+    assert rsv.KERNEL.launches == before + 1
     out_p = rsv.resolve_tiles_wide_reference(slot_t, table_t)
     torch.cuda.synchronize()
     assert out_k.shape == (c, n_tiles, 4096)
@@ -360,7 +359,7 @@ def test_render_kernels_reject_bad_input(device):
 @pytest.mark.parametrize("shade_mode,raster_backend",
                          [("tiled", "walk"), ("fused", "walk"),
                           ("flat", "tile")])
-def test_showcase_frame_kernels_equal_plain(device, monkeypatch, shade_mode,
+def test_showcase_frame_kernels_equal_plain(device, shade_mode,
                                             raster_backend):
     sc = build_showcase_render(0)
     rs = convert.render_scene_from_numpy(sc.render)
@@ -372,13 +371,7 @@ def test_showcase_frame_kernels_equal_plain(device, monkeypatch, shade_mode,
                             shade_mode=shade_mode,
                             raster_backend=raster_backend)
     frame_k, depth_k = render(*args)
-    monkeypatch.setattr(rwk, "raster_walk", rwk.raster_walk_reference)
-    monkeypatch.setattr(rsv, "resolve_tiles_wide",
-                        rsv.resolve_tiles_wide_reference)
-    monkeypatch.setattr(rr, "raster_resolve_tiles",
-                        rr.raster_resolve_tiles_reference)
-    monkeypatch.setattr(rt, "raster_tiles", rt.raster_tiles_reference)
-    with graphs.eager():          # the captured graph holds the kernels
+    with kernel_cases.plain_twins():   # eager: the graph holds the kernels
         frame_p, depth_p = render(*args)
     torch.cuda.synchronize()
     assert frame_k.shape == (h, w, 4) and frame_k.dtype == torch.uint8
@@ -400,9 +393,9 @@ def test_raster_resolve_equals_plain(device, n_tiles, k_pad, kl, c,
     table = (torch.as_tensor(rng.standard_normal(
         (n_tiles, c, kl)).astype(np.float32), device=device)
         if with_tables else None)
-    before = rr.raster_resolve_tiles.launches
+    before = rr.KERNEL.launches
     dep_k, slot_k, res_k = rr.raster_resolve_tiles(counts, pack, table, 15)
-    assert rr.raster_resolve_tiles.launches == before + 1
+    assert rr.KERNEL.launches == before + 1
     dep_p, slot_p, res_p = rr.raster_resolve_tiles_reference(counts, pack,
                                                              table, 15)
     dep_w, slot_w = rwk.raster_walk(counts, pack, 15)
@@ -487,9 +480,9 @@ def _tile_kernel_case(n, k, tiles_x, seed, device):
                                          (510, 64, 15), (9, 13, 5)])
 def test_raster_tiles_equals_plain(device, n, k, tiles_x):
     *args, tx = _tile_kernel_case(n, k, tiles_x, n + k, device)
-    before = rt.raster_tiles.launches
+    before = rt.KERNEL.launches
     out_k = rt.raster_tiles(*args, tx)
-    assert rt.raster_tiles.launches == before + 1
+    assert rt.KERNEL.launches == before + 1
     out_p = rt.raster_tiles_reference(*args, tx)
     torch.cuda.synchronize()
     for name, a, b in zip(("depth", "tri", "b1", "b2", "slot"), out_k,
@@ -552,11 +545,11 @@ def test_gather_rows_equals_plain(device, r, w, p, offset):
     idx = rng.integers(-r - 7, r + 4, p).astype(np.int32)
     idx[:min(p, 8)] = (-r - 7, -r - 1, -r, -1, 0, r - 1, r, r + 3)[:p]
     idx = torch.as_tensor(idx, device=device)
-    before = gr.gather_rows_u8.launches
+    before = gr.KERNEL.launches
     out_k = gr.gather_rows_u8(table, idx)
     out_p = gr.gather_rows_u8_reference(table, idx)
     torch.cuda.synchronize()
-    assert gr.gather_rows_u8.launches == before + 1
+    assert gr.KERNEL.launches == before + 1
     assert torch.equal(out_k, out_p)
     in_range = idx[(idx >= 0) & (idx < r)]
     if in_range.numel():
@@ -583,7 +576,7 @@ def test_graph_replays_count_kernel_launches(device):
     the box contact kernel once a step): after the capture
     (whose eager warm-up launches each kernel once, counted apart in
     ``graphs.warmup_launches``) every replay adds the launches its graph
-    holds to the wrappers' counters, as many as the eager route launches;
+    holds to the kernels' counts, as many as the eager route launches;
     the outputs bit-equal to the eager route's."""
     sc = build_showcase_render(0)
     rs = convert.render_scene_from_numpy(sc.render)
@@ -595,35 +588,36 @@ def test_graph_replays_count_kernel_launches(device):
     state, static = build_falling_boxes(64, seed=0, device=device)
     run = make_multi_step_fn(static, 5, broadphase="allpairs")
     inp = InputFrame.zero(device)
+    kernels = kernel_cases.hand_kernels()
+
+    def launches():
+        return {k: v.launches for k, v in kernels.items() if v.launches}
+
     graphs.warmup_launches.clear()
-    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
-    bk.neighbor_lists_aabb.launches = ck.box_contacts.launches = 0
+    for kernel in kernels.values():
+        kernel.launches = 0
     frame_g = render(*args)
     state_g = graphs.clone_tree(run(state, inp))
     torch.cuda.synchronize()
     assert {k: n for k, n in graphs.warmup_launches.items() if n} == {
-        "neighbor_lists_aabb": 1, "box_contacts": 1, "raster_walk": 1,
-        "resolve_tiles_wide": 1}
-    assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
-            bk.neighbor_lists_aabb.launches,
-            ck.box_contacts.launches) == (2, 2, 6, 6)
+        "broadphase": 1, "contacts": 1, "walk": 1, "resolve": 1}
+    assert launches() == {"walk": 2, "resolve": 2, "broadphase": 6,
+                          "contacts": 6}
     for _ in range(3):
         render(*args)
         run(state, inp)
     torch.cuda.synchronize()
-    assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
-            bk.neighbor_lists_aabb.launches,
-            ck.box_contacts.launches) == (5, 5, 21, 21)
+    assert launches() == {"walk": 5, "resolve": 5, "broadphase": 21,
+                          "contacts": 21}
     assert render.program.captures == run.program.captures == 1
-    rwk.raster_walk.launches = rsv.resolve_tiles_wide.launches = 0
-    bk.neighbor_lists_aabb.launches = ck.box_contacts.launches = 0
+    for kernel in kernels.values():
+        kernel.launches = 0
     with graphs.eager():
         frame_e = render(*args)
         state_e = run(state, inp)
     torch.cuda.synchronize()
-    assert (rwk.raster_walk.launches, rsv.resolve_tiles_wide.launches,
-            bk.neighbor_lists_aabb.launches,
-            ck.box_contacts.launches) == (1, 1, 5, 5)
+    assert launches() == {"walk": 1, "resolve": 1, "broadphase": 5,
+                          "contacts": 5}
     for a, b in zip(graphs.flatten((frame_g, state_g))[0],
                     graphs.flatten((frame_e, state_e))[0]):
         assert torch.equal(a, b)

@@ -436,10 +436,10 @@ def test_parented_child_follows_its_parent():
 
 
 def test_block_route_solver_matches_jax(port_runs):
-    """``solve_contacts_t(block_size=...)``: the JAX route reads partners
-    by lane rolls (ground slots read 0.0), the port by the gather (ground
-    slots read body 0); on the flat world's contacts at step 110 the two
-    agree."""
+    """The JAX package's ``solve_contacts_t(block_size=...)`` reads
+    partners by lane rolls (ground slots read 0.0), the port's solve by
+    the gather (ground slots read body 0); on the flat world's contacts at
+    step 110 the two agree."""
     state, static = _port_world()
     step = manyworld.make_flat_many_world_step(static, WORLDS,
                                                state.comp_mask)
@@ -466,18 +466,13 @@ def test_block_route_solver_matches_jax(port_runs):
     kw = dict(iterations=10, ground_friction=0.5, return_lambdas=True,
               momentum=0.5)
     dt = fst.fixed_dt
-    t_block = contact_t.solve_contacts_t(*args, dt, warm=warm,
-                                         block_size=static.capacity,
-                                         block_shifts=shifts, **kw)
     t_gather = contact_t.solve_contacts_t(*args, dt, warm=warm, **kw)
     jx = [jnp.asarray(a.numpy()) for a in args]
     j_block = jax_contact_t.solve_contacts_t(
         *jx, jnp.asarray(dt.numpy()),
         warm=tuple(jnp.asarray(a.numpy()) for a in warm),
         block_size=static.capacity, block_shifts=shifts, **kw)
-    flat_t = [t_block[0], t_block[1], *t_block[2]]
-    for a, b in zip(flat_t, [t_gather[0], t_gather[1], *t_gather[2]]):
-        assert torch.equal(a, b)
+    flat_t = [t_gather[0], t_gather[1], *t_gather[2]]
     for i, (a, b) in enumerate(zip([j_block[0], j_block[1], *j_block[2]],
                                    flat_t)):
         atol, rtol = SOLVER_TOL["vel" if i < 2 else "lambda"]

@@ -14,14 +14,11 @@ graphs' capture counter (``graphs.stats``), on the CPU.
   device, none on the CPU or for another name.
 - With no profiler recording a span dispatches no op.
 - Through the stand-in graph class: ``capture_s`` grows once a capture.
-- The parts of the flat step that ``chip_smoke.py`` traces one by one run
-  with the step's own signatures.
 - A call's outputs are bit-equal with a profiler recording and without.
 - ``scripts/trace_summary.py`` splits a hand-made trace's device time by
   its markers and names the program around each idle gap.
 """
 
-import importlib.util
 import json
 import os
 import re
@@ -41,7 +38,6 @@ from banggameengine_tpu_torch.state import InputFrame
 from banggameengine_tpu_torch.utils import profiling
 from test_torch_graphs_sharded import RecordingGraph
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ORDER = {
     # the masks and gravity, then the route's own broadphase
@@ -158,8 +154,8 @@ def test_device_spans_match_the_marker_kernels():
 
 def test_markers_only_for_device_stages_on_a_card(monkeypatch):
     launched = []
-    monkeypatch.setattr(profiling, "_launch_marker",
-                        lambda which, device: launched.append(which))
+    monkeypatch.setattr(profiling.SPAN_LIBRARY, "launch",
+                        lambda device, which: launched.append(which))
     card, end = torch.device("cuda", 0), len(profiling.DEVICE_SPANS)
     for name in profiling.DEVICE_SPANS:
         launched.clear()
@@ -209,38 +205,6 @@ def test_capture_s_grows_once_a_capture(captured):
     run(state, inp)
     assert graphs.stats["capture_s"] == after["capture_s"]
     assert graphs.stats["captures"] == after["captures"]
-
-
-def test_chip_smoke_manyworld_part_fns_run():
-    """The flat step's parts that ``chip_smoke.py`` traces call the
-    step's private functions with their own signatures: each runs on a
-    small flat state, and the whole step's call matches the factory's."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    state, static = build_falling_boxes(4, seed=2, with_character=True,
-                                        with_trigger=True, device="cpu")
-    w = 2
-    one = mw.make_flat_many_world_step(static, w, state.comp_mask)
-    bstate = mw.replicate_state(state, w)
-    binp = mw.replicate_input(InputFrame.zero("cpu"), w)
-    fns = smoke.manyworld_part_fns(one, static, state.comp_mask, bstate,
-                                   binp)
-    assert list(fns) == ["whole step", "characters", "contacts + solve",
-                         "integrate + triggers"]
-    n, t = w * static.capacity, w * static.trig_entity.shape[0]
-    # the trigger plane: each world's slots against its own entities
-    want = {"whole step": (n, 3), "characters": (n, 3),
-            "contacts + solve": (n, 3),
-            "integrate + triggers": (t, static.capacity)}
-    for k, fn in fns.items():
-        out = fn()
-        assert tuple(out.shape) == want[k], k
-        if out.is_floating_point():
-            assert bool(torch.isfinite(out).all()), k
-    stepped = one(graphs.owned(bstate), binp)
-    assert torch.equal(fns["whole step"](), stepped.pos.reshape(n, 3))
 
 
 @pytest.mark.parametrize("kind", list(ORDER))
