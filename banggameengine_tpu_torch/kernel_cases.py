@@ -8,6 +8,9 @@ to their plain versions.
   the JAX package, the plain PyTorch versions and the CUDA kernels;
 - :func:`box_contact_cases`: the box contact kernel's inputs at the edges
   of its contract (ties, parallel edges, the caps and the budget);
+- :func:`solve_contact_case`, :func:`solve_cache_case`: random contact
+  solve inputs, ground slots, invalid and full columns among them, and a
+  contact cache for them;
 - :func:`sorted_broadphase_inputs`, :func:`sorted_contact_inputs` and
   :func:`recorded_inputs`: the inputs the main path itself gives the
   kernels;
@@ -228,6 +231,84 @@ def box_contact_cases(seed: int = 0) -> dict:
         cases[name] = (pos, quat, half, idx, valid, rng.random(n) >= 0.2,
                        rng.permutation(n).astype(np.int64))
     return cases
+
+
+def solve_contact_case(n: int, c: int, seed: int = 0,
+                       ground_only: bool = False) -> tuple:
+    """Contact solve inputs for ``contact_t.solve_contacts_t``: (vel, ang,
+    pos f32[n, 3], quat f32[n, 4], inv_m f32[n], inv_inertia_body
+    f32[n, 3], c_prt int32[c, n], c_ptx, c_pty, c_ptz, c_nx, c_ny, c_nz,
+    c_dep f32[c, n], c_valid bool[c, n], friction, restitution f32[n],
+    dt f32[]), then the warm impulses (ln, lt1, lt2 f32[c, n]).
+
+    Random bodies (10 % static: no inverse mass or inertia) moving at a
+    few m/s, so restitution bounces; slots with random partners, a
+    quarter of them the ground (-1), contact points within a metre of the
+    body, random unit normals (a fifth of them along x, the other tangent
+    branch) and depths on both sides of the slop; 70 % of slots valid,
+    body 0's column all invalid and body 1's all valid; half the invalid
+    slots as the contact kernels fill them (partner -1, zeros), half left
+    random; warm normal impulses of both signs.  ``ground_only``: every
+    slot the ground, normal +y."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    pos = rng.uniform(-3.0, 3.0, (n, 3)).astype(f32)
+    quat = rng.normal(size=(n, 4))
+    quat = (quat / np.linalg.norm(quat, axis=1, keepdims=True)).astype(f32)
+    vel = (3.0 * rng.normal(size=(n, 3))).astype(f32)
+    ang = rng.normal(size=(n, 3)).astype(f32)
+    moving = rng.random(n) >= 0.1
+    inv_m = np.where(moving, rng.uniform(0.2, 2.0, n), 0.0).astype(f32)
+    inertia = np.where(moving[:, None], rng.uniform(0.1, 3.0, (n, 3)),
+                       0.0).astype(f32)
+    friction = rng.uniform(0.2, 1.0, n).astype(f32)
+    restitution = rng.uniform(0.0, 0.6, n).astype(f32)
+
+    prt = rng.integers(0, n, (c, n)).astype(np.int32)
+    prt[rng.random((c, n)) < 0.25] = -1
+    pt = pos.T[:, None, :] + rng.uniform(-1.0, 1.0, (3, c, n))
+    nrm = rng.normal(size=(3, c, n))
+    nrm[:, rng.random((c, n)) < 0.2] = np.float64([1.0, 0.1, 0.0])[:, None]
+    nrm /= np.linalg.norm(nrm, axis=0, keepdims=True)
+    dep = rng.uniform(-0.01, 0.1, (c, n))
+    valid = rng.random((c, n)) < 0.7
+    valid[:, 0] = False
+    if n > 1:
+        valid[:, 1] = True
+    if ground_only:
+        prt[:] = -1
+        nrm[:] = np.float64([0.0, 1.0, 0.0])[:, None, None]
+    filled = ~valid & (rng.random((c, n)) < 0.5)
+    prt[filled] = -1
+    pt[:, filled] = 0.0
+    nrm[:, filled] = 0.0
+    dep[filled] = 0.0
+    warm = rng.normal(scale=0.5, size=(3, c, n)).astype(f32)
+    return (vel, ang, pos, quat, inv_m, inertia, prt, *pt.astype(f32),
+            *nrm.astype(f32), dep.astype(f32), valid, friction, restitution,
+            f32(1.0 / 120.0), *warm)
+
+
+def solve_cache_case(n: int, c: int, cb: int, seed: int = 0,
+                     unique: bool = True) -> tuple:
+    """A contact cache for :func:`solve_contact_case`'s slots: this step's
+    feature ids (c_feat int32[c, n]) and the cache as the state keeps it
+    (contact_feat int32[n, cb], contact_imp f32[n, cb, 3]).  Ids are drawn
+    from -1..23, so about half the slots find their id among the cached
+    ones; a body's cached ids are unique, as the step keeps them, but for
+    its empty slots (-1), which never match.  ``unique=False``: the cached
+    ids are drawn from 0..5 with repeats, so a matched id matches a few
+    cached slots at once."""
+    rng = np.random.default_rng(seed)
+    c_feat = rng.integers(-1, 24, (c, n)).astype(np.int32)
+    if unique:
+        feat = np.stack([rng.permutation(24)[:cb] for _ in range(n)])
+    else:
+        c_feat = np.where(c_feat >= 0, c_feat % 6, -1).astype(np.int32)
+        feat = rng.integers(0, 6, (n, cb))
+    feat[rng.random((n, cb)) < 0.2] = -1
+    imp = rng.normal(scale=0.5, size=(n, cb, 3)).astype(np.float32)
+    return c_feat, feat.astype(np.int32), imp
 
 
 def walk_edge_case(n_tiles: int = 13, k_pad: int = 272, tiles_x: int = 5,

@@ -9,7 +9,7 @@ on its gather route.  Every intermediate is ``[slots, N]`` with the body
 axis last, as in the JAX module, and the math is the same expression for
 expression, so the two agree to f32 rounding.  The block-diagonal
 lane-roll partner read (``block_size=``) is the gather here (see
-:func:`solve_contacts_t`).
+:func:`solve_contacts_t_reference`).
 
 Compaction: where the JAX module moves the c-th valid candidate by a sum
 of one-hot selects, this one finds the candidate's row with a stable sort
@@ -18,7 +18,10 @@ outputs are equal and float outputs equal up to the sign of zero.
 
 On the card a box-only call runs as one CUDA kernel
 (``contacts_kernel.box_contacts``); :func:`box_contacts_t_reference` is
-its plain version and runs for CPU tensors and mixed scenes.
+its plain version and runs for CPU tensors and mixed scenes.  The solve
+runs on the card as a set-up launch and one launch an iteration
+(``solve_kernel.solve_contacts``); :func:`solve_contacts_t_reference` is
+its plain version and runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from banggameengine_tpu_torch import math3d
-from banggameengine_tpu_torch.physics import contacts_kernel
+from banggameengine_tpu_torch.physics import contacts_kernel, solve_kernel
 from banggameengine_tpu_torch.physics.solver import (
     BAUMGARTE,
     PENETRATION_SLOP,
@@ -603,6 +606,45 @@ def _sym_mul(i6, vx, vy, vz):
 
 
 def solve_contacts_t(
+    vel: Tensor,        # f32[N,3]
+    ang: Tensor,        # f32[N,3]
+    pos: Tensor,        # f32[N,3]
+    quat: Tensor,       # f32[N,4]
+    inv_m: Tensor,      # f32[N]
+    inv_inertia_body: Tensor,  # f32[N,3]
+    c_prt, c_ptx, c_pty, c_ptz, c_nx, c_ny, c_nz, c_dep, c_valid,
+    friction, restitution,    # [N] material params (mu/e derived per pair)
+    dt: Tensor,               # f32[]
+    iterations: int = 10,
+    ground_friction: float = 0.5,
+    warm=None,
+    return_lambdas: bool = False,
+    momentum: float = 0.0,
+    cache=None,
+):
+    """Mass-splitting Jacobi contact solve: the contract of
+    :func:`solve_contacts_t_reference`, and with ``cache`` (this step's
+    feature ids, the cached ids and impulses, as ``step._solve`` hands them
+    over) the warm start matched from the cache and the refreshed cache
+    returned in place of the impulses (``solve_kernel``'s
+    ``solve_contacts_reference``; ``warm`` and ``return_lambdas`` unread).
+
+    CUDA tensors go through the CUDA kernels
+    (``solve_kernel.solve_contacts``: a set-up launch and one launch an
+    iteration, which raises ValueError on inputs it does not take, such as
+    a wrong dtype or a batched tensor); CPU tensors through the plain
+    version.
+    """
+    args = (vel, ang, pos, quat, inv_m, inv_inertia_body, c_prt, c_ptx,
+            c_pty, c_ptz, c_nx, c_ny, c_nz, c_dep, c_valid, friction,
+            restitution, dt, iterations, ground_friction, warm,
+            return_lambdas, momentum)
+    solve = (solve_kernel.solve_contacts if vel.device.type == "cuda"
+             else solve_kernel.solve_contacts_reference)
+    return solve(*args, cache=cache)
+
+
+def solve_contacts_t_reference(
     vel: Tensor,        # f32[N,3]
     ang: Tensor,        # f32[N,3]
     pos: Tensor,        # f32[N,3]

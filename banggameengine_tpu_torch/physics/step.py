@@ -325,16 +325,6 @@ def _step_characters(state, inp, static, pos, quat, obstacle_base,
     return pos, char_vel_y, char_on_ground
 
 
-def _warm_start(c_feat, cache_feat, cache_imp):
-    """Cached impulses [C, 3, N] of this step's contacts ``c_feat`` [C, N],
-    matched by feature id against ``cache_feat`` [CB, N] / ``cache_imp``
-    [CB, 3, N].  The match is a one-hot select (feature ids are unique per
-    row), so summing its products moves each cached impulse exactly."""
-    eq = ((c_feat[:, None, :] == cache_feat[None, :, :])
-          & (c_feat >= 0)[:, None, :]).to(torch.float32)       # [C, CB, N]
-    return (eq[:, :, None, :] * cache_imp[None]).sum(dim=1)
-
-
 def _solve(body, cache, pos, quat, vel, ang, contacts, c_feat, dt,
            iterations, warm_start, momentum):
     """The transposed solve of the allpairs and static routes, over their
@@ -346,17 +336,10 @@ def _solve(body, cache, pos, quat, vel, ang, contacts, c_feat, dt,
     inv_m, inertia, fric, rest = body
     args = (vel, ang, pos, quat, inv_m, inertia, *contacts, fric, rest, dt)
     kw = dict(iterations=iterations, ground_friction=GROUND_FRICTION,
-              momentum=momentum)
-    if not warm_start:
-        return (*contact_t.solve_contacts_t(*args, **kw), None)
-    warm = _warm_start(c_feat, *cache)
-    vel, ang, (ln, lt1, lt2) = contact_t.solve_contacts_t(
-        *args, warm=warm.unbind(1), return_lambdas=True, **kw)
-    c_valid = contacts[8]
-    imp = torch.where(c_valid.T[..., None],
-                      torch.stack([ln.T, lt1.T, lt2.T], dim=-1), 0.0)
-    feat = torch.where(c_valid, c_feat, -1).T                  # [N, C]
-    return vel, ang, (feat, imp)
+              momentum=momentum,
+              cache=(c_feat, *cache) if warm_start else None)
+    out = contact_t.solve_contacts_t(*args, **kw)
+    return out if warm_start else (*out, None)
 
 
 def _contacts_allpairs(state, static, pos, quat, vel, ang, solid,

@@ -37,16 +37,17 @@ the others keep their numbers.  Phases, one line each:
 4. slice: 200 steps of the 10k-box scene through
    ``make_multi_step_fn(static, 50, broadphase="allpairs", max_neighbors=8)``
    with the kernel, with no host synchronisation (CUDA sync debug mode
-   "error"); the launches of kernels #1 and #8 (the box contacts) are
-   counted, one each a step; the state is finite, above the ground and
-   bit-equal to the same 200 steps taken with the plain broadphase and
-   the plain box contacts; a 32-box scene tracks the JAX package's
-   trajectory (``tests/data/stress32_jax_golden.json``); then kernel #8
-   against its plain version, every output exactly equal, on the inputs
-   that eager steps hand it (``kernel_cases.recorded_inputs``): the stress
-   step at step 0 and after 200 steps (N=10,000, K=8), the packed pile
-   and the flat many-world step at ``ROLLOUT_WORLDS`` worlds after 200
-   steps, its launches counted there too (N=65,536, K=7);
+   "error"); the launches of kernels #1, #8 (the box contacts) and #9
+   (the contact solve) are counted, one each a step; the state is finite,
+   above the ground and bit-equal to the same 200 steps taken with the
+   plain broadphase, box contacts and contact solve; a 32-box scene
+   tracks the JAX package's trajectory
+   (``tests/data/stress32_jax_golden.json``); then kernels #8 and #9
+   against their plain versions, every output exactly equal, on the
+   inputs that eager steps hand them (``kernel_cases.recorded_inputs``):
+   the stress step at step 0 and after 200 steps (N=10,000, K=8), the
+   packed pile and the flat many-world step at ``ROLLOUT_WORLDS`` worlds
+   after 200 steps, their launches counted there too (N=65,536, K=7);
 7. render kernels vs plain: the walk (depth, slot) and the resolve against
    their plain PyTorch versions, exactly equal, on the inputs the showcase
    frame and the 10k-box frame give them at 1920x1080, on random packs
@@ -96,11 +97,12 @@ the others keep their numbers.  Phases, one line each:
    time positive and the gather launched by the probe's (no time
    printed); ``scripts/trace_summary`` on ``frame_tiled`` and ``tick``:
    each of their hand kernels once an execution, a busy share in (0, 1];
-15. the many-world slice, kernel #8 its only hand kernel:
+15. the many-world slice, kernels #8 and #9 its only hand kernels:
    ``parallel.make_flat_many_world_step`` at 1,000 worlds of 8 boxes, a
    character and a trigger (16,000 entities in one flat world): 200 steps
    in 4 dispatches of 50 with zero input and again with per-world input
-   (seeded), no host synchronisation and one launch of kernel #8 a step; the
+   (seeded), no host synchronisation and one launch of kernels #8 and #9 a
+   step; the
    states finite and above the ground; the zero-input worlds bit-equal
    to world 0, the per-world characters apart; 50 one-step dispatches
    bit-equal to one 50-step dispatch; a 4-world run against the JAX
@@ -166,7 +168,7 @@ the others keep their numbers.  Phases, one line each:
    state and raising on a NaN position with no host sync inside the
    step;
 19. the grid route, solid capsules on the flat step and the tiled shade
-   over the tile raster, no new kernel: the 10k-box world
+   over the tile raster: the 10k-box world
    on ``broadphase="grid"`` (``GRID_KW``: a table of at least N cells)
    for 200 steps in 4 dispatches of 50 with no host sync and no hand
    kernel, its neighbor lists on the card equal to the same function's
@@ -177,7 +179,9 @@ the others keep their numbers.  Phases, one line each:
    all-pairs run (kernel #1), the 32-box grid golden
    (``tests/data/grid32_jax_golden.json``); 1,000 worlds of the capsule scene
    (``tests/data/capsule_flat_jax_golden.npz``) on the flat static route
-   for 240 steps: every world equal to world 0 within 1e-6, world 0
+   for 240 steps, kernel #9 its only hand kernel (the mixed scene's
+   contacts take the plain version): every world equal to world 0 within
+   1e-6, world 0
    within 2e-4 of JAX's flat step over the golden's 50 steps, the
    upright capsule at rest at hh + r +- 0.1; the tiled
    shade over the tile raster on both 1080p views (launches counted, no
@@ -187,7 +191,7 @@ the others keep their numbers.  Phases, one line each:
    that take it counted, the frame bit-equal to the full resolve), the
    256x160 frame against ``tests/data/tiled_tile_jax_golden.npz``;
 20. the sharded modes, the native loader and the windows, no hand kernel
-   on them but kernel #8 on the flat step's, on a one-rank NCCL group
+   on them but kernels #8 and #9 on the flat step's, on a one-rank NCCL group
    (``parallel.ranks.init_rank``); each
    sharded program runs as a CUDA graph with its collectives inside, and
    through ``graphs.eager()`` from the same start, every output of every
@@ -586,18 +590,19 @@ def contacts_phase(dev, static, state0, state, inp) -> None:
     from banggameengine_tpu_torch.parallel.manyworld import (
         make_flat_many_world_step, replicate_input, replicate_state)
     from banggameengine_tpu_torch.physics import contacts_kernel as ck
+    from banggameengine_tpu_torch.physics import solve_kernel as sk
     from banggameengine_tpu_torch.scene.synthetic import build_falling_boxes
     from banggameengine_tpu_torch.state import InputFrame
 
     step = make_step_fn(static, broadphase="allpairs",
                         max_neighbors=MAX_NEIGHBORS)
     pile, pile_static = packed_pile(dev)
-    with recorded_inputs("contacts") as rec:
+    with recorded_inputs("contacts", "solve") as rec:
         step(state0, inp)
         step(state, inp)
         make_step_fn(pile_static, broadphase="allpairs",
                      max_neighbors=MAX_NEIGHBORS)(pile, inp)
-    calls = rec["contacts"]
+    calls, solves = rec["contacts"], rec["solve"]
 
     # the rollout's flat step: 200 steps through its graphs, then one
     # eager step recorded
@@ -619,9 +624,14 @@ def contacts_phase(dev, static, state0, state, inp) -> None:
     check(flat_launches - flat_warm == steps,
           f"the flat step at {w} worlds launched kernel #8 {flat_launches} "
           f"times ({flat_warm} in the capture's warm-up) in {steps} steps")
-    with recorded_inputs("contacts") as rec:
+    check(replayed_counts() == {"contacts": steps, "solve": steps},
+          f"the flat step at {w} worlds launched {launch_counts()} "
+          f"({launch_counts(warm=True)} in the capture's warm-up) in "
+          f"{steps} steps")
+    with recorded_inputs("contacts", "solve") as rec:
         one(flat, zero)
     calls += rec["contacts"]
+    solves += rec["solve"]
     print(f"[contacts] the flat many-world step at {w} worlds: {steps} "
           f"steps in {DISPATCHES} dispatches of {STEPS_PER_DISPATCH} (no "
           f"host sync), kernel #8 launched {flat_launches} times "
@@ -649,6 +659,26 @@ def contacts_phase(dev, static, state0, state, inp) -> None:
               f"{int((valid & (prt >= 0)).sum())} pair and "
               f"{int((valid & (prt < 0)).sum())} ground contacts, overflow "
               f"{int(want[9])})")
+
+    # kernel #9, the contact solve, on the same steps' solves
+    check(len(solves) == len(names),
+          f"kernel #9: {len(solves)} solve_contacts calls recorded")
+    for name, args in zip(names, solves):
+        got = sk.solve_contacts(*args)
+        want = sk.solve_contacts_reference(*args)
+        torch.cuda.synchronize()
+        got = (*got[:2], *got[2]) if len(got) == 3 else got
+        want = (*want[:2], *want[2]) if len(want) == 3 else want
+        check(len(got) == len(want)
+              and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got, want)),
+              f"kernel #9, {name}: differs from the plain version")
+        c, n = args[6].shape
+        valid = args[14]
+        print(f"[solve] kernel #9 vs plain, {name} (N={n}, C={c}, "
+              f"{args[18]} iterations, momentum {args[22]}, contact cache "
+              f"{'on' if args[23] is not None else 'off'}): every output "
+              f"bit-equal ({int(valid.sum())} valid slots)")
 
 
 def render_phases(dev, stress_state, static) -> dict:
@@ -816,7 +846,7 @@ def render_phases(dev, stress_state, static) -> dict:
     torch.cuda.synchronize()
     launches, warm = launch_counts(), launch_counts(warm=True)
     check(replayed_counts() == dict.fromkeys(
-        ("broadphase", "contacts", "walk", "resolve"), FRAME_TICKS),
+        ("broadphase", "contacts", "solve", "walk", "resolve"), FRAME_TICKS),
           f"{FRAME_TICKS} ticks launched {launches} ({warm} in the "
           f"captures' warm-ups)")
     check(tuple(img.shape) == (RENDER_H, RENDER_W, 4)
@@ -1198,8 +1228,8 @@ def _traced(fn, args=()) -> dict:
 
 def manyworld_phase(dev, w: int = MW_WORLDS) -> None:
     """Phase 15: the flat many-world step at 1,000 worlds of 8 boxes, a
-    character and a trigger (kernel #8 the only hand kernel on this path,
-    once a step)."""
+    character and a trigger (kernels #8 and #9 the only hand kernels on
+    this path, once a step each)."""
     from banggameengine_tpu_torch.parallel.manyworld import (
         make_flat_many_world_step, replicate_input, replicate_state)
     from banggameengine_tpu_torch.physics import shapes
@@ -1237,8 +1267,8 @@ def manyworld_phase(dev, w: int = MW_WORLDS) -> None:
               f"{what}: a box corner went through the ground: {lowest}")
         return lowest
 
-    # the run: 200 steps, 4 dispatches of 50, no host sync, kernel #8 the
-    # only hand kernel
+    # the run: 200 steps, 4 dispatches of 50, no host sync, kernels #8 and
+    # #9 the only hand kernels
     reset_launches()
     steps = DISPATCHES * STEPS_PER_DISPATCH
     with no_host_sync():
@@ -1256,8 +1286,9 @@ def manyworld_phase(dev, w: int = MW_WORLDS) -> None:
     torch.cuda.synchronize()
     hand = launch_counts()
     box_warm = launch_counts(warm=True).get("contacts", 0)
-    check(set(hand) == {"contacts"}
-          and replayed_counts() == {"contacts": 2 * steps},
+    check(set(hand) == {"contacts", "solve"}
+          and replayed_counts() == {"contacts": 2 * steps,
+                                    "solve": 2 * steps},
           f"the many-world path launched {hand} hand kernels "
           f"({box_warm} of kernel #8 in the capture's warm-up) in "
           f"{2 * steps} steps")
@@ -1270,8 +1301,9 @@ def manyworld_phase(dev, w: int = MW_WORLDS) -> None:
           f"({w * static1.capacity} in one flat world; 8 boxes, a "
           f"character and a trigger each): {steps} steps in {DISPATCHES} "
           f"dispatches of {STEPS_PER_DISPATCH}, zero input, then again with "
-          f"per-world input (no host sync, kernel #8 the only hand kernel, "
-          f"{2 * steps} launches through the replays): state finite, lowest "
+          f"per-world input (no host sync, kernels #8 and #9 the only hand "
+          f"kernels, {2 * steps} launches each through the replays): state "
+          f"finite, lowest "
           f"box corner "
           f"{lowest:.4f} > -0.08, characters on the ground {grounded} of "
           f"{w}, contact_overflow of step {steps + 1}: "
@@ -2147,7 +2179,10 @@ def new_routes_phase(dev, state0, allpairs_state, static,
         for _ in range(n_chunks):
             bs = chunk(bs, bi)
     torch.cuda.synchronize()
-    check(not launch_counts(), "the capsule run launched a hand kernel")
+    check(replayed_counts() == {"solve": CAPSULE_STEPS},
+          f"the capsule run launched {launch_counts()} hand kernels "
+          f"({launch_counts(warm=True)} in the captures' warm-ups), "
+          f"kernel #9 alone once a step expected")
     err_g = 0.0
     for i, rec in enumerate(track):
         for f, a in zip(fields, rec):
@@ -2299,8 +2334,8 @@ def sharded_phase(dev, stress_state, stress_static) -> None:
     step's world mesh, the fully sharded world, the entity-sharded
     contact phase, all on a one-rank NCCL group, each a CUDA graph held
     bit-equal to its eager route; the native OBJ loader and the windows;
-    ``dryrun_multichip(1)`` (no hand kernel on these paths but kernel #8
-    on the flat step's)."""
+    ``dryrun_multichip(1)`` (no hand kernel on these paths but kernels #8
+    and #9 on the flat step's)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -2739,7 +2774,7 @@ def graphs_phase(dev, stress_run, stress_state, static,
         f"call (one step's graph replayed)",
         _chain(stress_run, stress_state, inp), 2,
         _ops_of(stress_run, stress_state, inp),
-        kernels=("broadphase", "contacts"))
+        kernels=("broadphase", "contacts", "solve"))
     check(res["stress"]["graph_host"] <= G_STRESS_HOST_MAX,
           f"graphs: a {STEPS_PER_DISPATCH}-step stress dispatch took "
           f"{res['stress']['graph_host']} host launches")
@@ -2760,7 +2795,7 @@ def graphs_phase(dev, stress_run, stress_state, static,
             f"tick ({form}), {N_STRESS} boxes at {RENDER_W}x{RENDER_H}",
             _chain(tick, stress_state, inp, *tick_args), G_CALLS,
             _ops_of(tick, stress_state, inp, *tick_args),
-            kernels=("broadphase", "contacts", "walk", "resolve"))
+            kernels=("broadphase", "contacts", "solve", "walk", "resolve"))
 
     # the fused and flat frames of the showcase
     show_rs, show_args, _ = views["showcase"]
@@ -2795,7 +2830,7 @@ def graphs_phase(dev, stress_run, stress_state, static,
                                         num_steps=G_MW_STEPS)
     vmapped = mw.make_sharded_many_world_step(static1, None,
                                               num_steps=G_MW_STEPS)
-    for key, fn, used in (("flat", flat, ("contacts",)),
+    for key, fn, used in (("flat", flat, ("contacts", "solve")),
                           ("vmapped", vmapped, ())):
         res[f"mw_{key}"] = _compare_routes(
             f"{key} many-world step, {w} worlds, {G_MW_STEPS} steps a call",
@@ -2960,9 +2995,9 @@ def main() -> int:
                              broadphase="allpairs",
                              max_neighbors=MAX_NEIGHBORS)
 
-    # the 200-step run with the plain broadphase and box contacts, for case
-    # (b) and for the bit-equality check of phase 4
-    with plain_twins("broadphase", "contacts"):
+    # the 200-step run with the plain broadphase, box contacts and contact
+    # solve, for case (b) and for the bit-equality check of phase 4
+    with plain_twins("broadphase", "contacts", "solve"):
         plain_state = state0
         for _ in range(DISPATCHES):
             plain_state = run(plain_state, inp)
@@ -3030,12 +3065,17 @@ def main() -> int:
     launches, warm = counts["broadphase"], warm_counts.get("broadphase", 0)
     box_launches = counts["contacts"]
     box_warm = warm_counts.get("contacts", 0)
+    solve_launches = counts["solve"]
+    solve_warm = warm_counts.get("solve", 0)
     steps = DISPATCHES * STEPS_PER_DISPATCH
     check(launches - warm == steps,
           f"kernel launched {launches} times ({warm} in the capture's "
           f"warm-up) in {steps} steps")
     check(box_launches - box_warm == steps,
           f"kernel #8 launched {box_launches} times ({box_warm} in the "
+          f"capture's warm-up) in {steps} steps")
+    check(solve_launches - solve_warm == steps,
+          f"kernel #9 launched {solve_launches} times ({solve_warm} in the "
           f"capture's warm-up) in {steps} steps")
     alive = state.alive
     check(bool(torch.isfinite(state.pos).all())
@@ -3056,14 +3096,15 @@ def main() -> int:
           f"dispatches of {STEPS_PER_DISPATCH} (no host sync, one step's "
           f"graph replayed): "
           f"{launches} kernel launches ({warm} in the capture's warm-up), "
-          f"kernel #8 {box_launches} ({box_warm}), state finite, lowest "
+          f"kernel #8 {box_launches} ({box_warm}), kernel #9 "
+          f"{solve_launches} ({solve_warm}), state finite, lowest "
           f"corner "
           f"{lowest:.4f} > -0.08, step_idx {int(state.step_idx)}, "
           f"contact_overflow of step {steps + 1}: "
           f"{int(events.contact_overflow)}")
     print(f"[slice] pos, quat, lin_vel, ang_vel, contact cache bit-equal to "
-          f"the same {steps} steps with the plain broadphase and box "
-          f"contacts")
+          f"the same {steps} steps with the plain broadphase, box contacts "
+          f"and contact solve")
 
     with open(GOLDEN) as f:
         golden = json.load(f)

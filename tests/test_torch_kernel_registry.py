@@ -21,6 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPER_MODULES = {
     "broadphase": "banggameengine_tpu_torch.physics.broadphase_kernel",
     "contacts": "banggameengine_tpu_torch.physics.contacts_kernel",
+    "solve": "banggameengine_tpu_torch.physics.solve_kernel",
     "walk": "banggameengine_tpu_torch.render.raster_walk",
     "resolve": "banggameengine_tpu_torch.render.resolve",
     "fused": "banggameengine_tpu_torch.render.raster_resolve",
@@ -30,10 +31,10 @@ WRAPPER_MODULES = {
 
 
 def test_wrapper_modules_register_the_seven_kernels():
-    """Importing the wrapper modules enters exactly the seven kernels, each
+    """Importing the wrapper modules enters exactly the hand kernels, each
     with its wrapper, a plain twin, its source and the TPU kernel it stands
-    for (a ``def`` of the JAX repository; none for the box contacts, which
-    XLA fuses); the span markers stay out."""
+    for (a ``def`` of the JAX repository; none for the box contacts and
+    the contact solve, which XLA fuses); the span markers stay out."""
     for name in WRAPPER_MODULES.values():
         importlib.import_module(name)
     kernels = cuda_build.KERNELS
@@ -47,7 +48,7 @@ def test_wrapper_modules_register_the_seven_kernels():
         assert getattr(mod, k.wrapper.__name__) is k.wrapper
         assert callable(k.plain) and k.plain is not k.wrapper
         assert k.name.startswith("bge_") and os.path.isfile(k.source)
-        if key == "contacts":
+        if key in ("contacts", "solve"):
             assert k.replaces is None
             continue
         path, line = k.replaces.rsplit(":", 1)

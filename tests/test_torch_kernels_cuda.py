@@ -19,6 +19,7 @@ from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import contact_t
 from banggameengine_tpu_torch.physics import contacts_kernel as ck
 from banggameengine_tpu_torch.physics import shapes
+from banggameengine_tpu_torch.physics import solve_kernel as sk
 from banggameengine_tpu_torch.render import raster_resolve as rr
 from banggameengine_tpu_torch.render import raster_tile as rt
 from banggameengine_tpu_torch.render import raster_walk as rwk
@@ -257,6 +258,203 @@ def test_flat_step_lists_longer_than_a_block(device):
     assert bool((got.contact_feat >= FEAT_STRIDE).any())
     for a, b in zip(graphs.flatten(got)[0], graphs.flatten(want)[0]):
         assert torch.equal(a, b)
+
+
+# ---- the contact solve kernel -----------------------------------------------
+
+
+
+def _solve_case(n, c, seed, device, ground_only=False):
+    """(the 18 positional arguments of ``solve_contacts_t``, the warm
+    planes) of ``kernel_cases.solve_contact_case`` on ``device``."""
+    case = [torch.as_tensor(a, device=device) for a in
+            kernel_cases.solve_contact_case(n, c, seed, ground_only)]
+    return case[:18], tuple(case[18:])
+
+
+def _solve_leaves(out):
+    return list(out[:2]) + (list(out[2]) if len(out) == 3 else [])
+
+
+def _assert_solve_equals_plain(args, want=None, **kw):
+    """``solve_contacts_t`` on CUDA tensors (with the contact cache, as
+    ``step._solve`` calls it, or without) launches kernel #9 once, and
+    every output equals the plain version's (or ``want``) bit for bit (the
+    sign of a zero included)."""
+    cached = kw.get("cache") is not None
+    before = sk.KERNEL.launches
+    got = contact_t.solve_contacts_t(*args, **kw)
+    assert sk.KERNEL.launches == before + 1
+    if want is None:
+        want = sk.solve_contacts_reference(*args, **kw)
+    torch.cuda.synchronize()
+    got, want = _solve_leaves(got), _solve_leaves(want)
+    assert len(got) == len(want) == (
+        4 if cached else 5 if kw.get("return_lambdas") else 2)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), i
+    return want
+
+
+@pytest.mark.parametrize("c,n", [(1, 5), (1, 3000), (12, 37), (12, 3000),
+                                 (12, 9000)])
+def test_solve_random_cases_exact(device, c, n):
+    """Random bodies and slots (ground slots, invalid slots filled as the
+    contact kernels fill them and left random, body 0's column all
+    invalid, body 1's all valid): bit-equal to the plain version for 0, 1
+    and 10 iterations, momentum 0 and 0.5, with and without warm
+    impulses, with and without the impulses returned; on a slot a lane
+    (up to 3,000 bodies) and two (9,000)."""
+    args, warm = _solve_case(n, c, c + n, device)
+    for iterations in (0, 1, 10):
+        for momentum in (0.0, 0.5):
+            for w in (None, warm):
+                for lambdas in (False, True):
+                    _assert_solve_equals_plain(
+                        args, iterations=iterations, momentum=momentum,
+                        warm=w, return_lambdas=lambdas)
+
+
+@pytest.mark.parametrize("n", [37, 3000, 9000])
+def test_solve_cache_exact(device, n):
+    """With the contact cache (feature ids matched or not, strided views
+    of the state's [N, CB] and [N, CB, 3] fields, as the routes hand them
+    over): velocities and the refreshed cache bit-equal to the plain
+    version's warm start, solve and refresh, for 0, 1 and 10 iterations,
+    momentum 0 and 0.5."""
+    args, _ = _solve_case(n, 12, n, device)
+    c_feat, feat, imp = (torch.as_tensor(a, device=device) for a in
+                         kernel_cases.solve_cache_case(n, 12, 12, n))
+    cache = (c_feat, feat.T, imp.permute(1, 2, 0))
+    for iterations in (0, 1, 10):
+        for momentum in (0.0, 0.5):
+            _assert_solve_equals_plain(args, iterations=iterations,
+                                       momentum=momentum, cache=cache)
+
+
+def test_solve_ground_only_and_budgets_exact(device):
+    """Ground-only rows (every partner -1), and budgets past one chunk of
+    the kernel (16 slots) and past its four accumulators' groups (C = 5,
+    17, 40): bit-equal to the plain version."""
+    args, warm = _solve_case(200, 12, 11, device, ground_only=True)
+    for w in (None, warm):
+        out = _assert_solve_equals_plain(args, iterations=10, momentum=0.5,
+                                         warm=w, return_lambdas=True)
+    assert float(out[2][0].abs().max()) > 0.0
+    for c in (5, 17, 40):
+        args, warm = _solve_case(300, c, c, device)
+        _assert_solve_equals_plain(args, iterations=10, momentum=0.5,
+                                   warm=warm, return_lambdas=True)
+
+
+def test_solve_recorded_steps_exact(device):
+    """The solve's inputs as the main path hands them over
+    (``kernel_cases.recorded_inputs``): a step of 300 boxes settling on
+    the all-pairs route after 240 steps (the contact cache in Morton
+    order, the packed rows), and the flat many-world step at 4,096 worlds
+    after 200 steps (the static route, 65,536 rows): bit-equal to the
+    plain version, the refreshed cache included."""
+    from banggameengine_tpu_torch.parallel import manyworld as mw
+
+    state, static = build_falling_boxes(300, seed=5, spread=6.0,
+                                        device=device)
+    state = make_multi_step_fn(static, 240, broadphase="allpairs")(
+        state, InputFrame.zero(device))
+    step = make_step_fn(static, broadphase="allpairs")
+    with kernel_cases.recorded_inputs("solve") as rec:
+        step(state, InputFrame.zero(device))
+    state1, static1 = build_falling_boxes(
+        num_bodies=8, with_character=True, with_trigger=True, device=device)
+    w = 4096
+    zero = mw.replicate_input(InputFrame.zero(device), w)
+    flat = mw.make_flat_many_world_step(static1, w, state1.comp_mask,
+                                        num_steps=200)(
+        mw.replicate_state(state1, w), zero)
+    with kernel_cases.recorded_inputs("solve") as rec_flat:
+        mw.make_flat_many_world_step(static1, w, state1.comp_mask)(flat,
+                                                                   zero)
+    calls = rec["solve"] + rec_flat["solve"]
+    assert len(calls) == 2
+    for i, args in enumerate(calls):
+        args, kw = args[:18], dict(zip(
+            ("iterations", "ground_friction", "warm", "return_lambdas",
+             "momentum", "cache"), args[18:]))
+        prt, valid = args[6], args[14]
+        if i == 0:       # the pile: boxes on boxes (the flat worlds' 8
+            assert bool((valid & (prt >= 0)).any())   # lie apart)
+        assert bool((valid & (prt < 0)).any())
+        assert kw["cache"] is not None and kw["momentum"] == 0.5
+        feat, imp = _assert_solve_equals_plain(args, **kw)[2:]
+        assert bool((feat >= 0).any()) and bool((imp[..., 0] > 0).any())
+
+
+def test_solve_cache_repeated_ids_within_rounding(device):
+    """Cached feature ids repeated within a body (the step keeps them
+    unique, and only there is the kernel not bit-equal): a slot whose id
+    matches m cached slots starts from the sum of their m impulses, which
+    the kernel takes in slot order (four accumulators over the cached slot
+    mod 4, then ((a0 + a1) + a2) + a3) and the plain version in its
+    ``[C, CB, 3, N]`` product's order.  The kernel equals the plain solve
+    started from the slot-order sum bit for bit, and that sum lies within
+    the rounding of a sum of m terms of the plain one: two orders differ
+    by at most 2 gamma(m - 1) sum |imp|, gamma(k) = k u / (1 - k u),
+    u = 2^-24."""
+    n = 3000
+    args, _ = _solve_case(n, 12, 7, device)
+    c_feat, feat, imp = (torch.as_tensor(a, device=device) for a in
+                         kernel_cases.solve_cache_case(n, 12, 12, 7,
+                                                       unique=False))
+    cache = (c_feat, feat.T, imp.permute(1, 2, 0))
+    eq = ((c_feat[:, None, :] == cache[1][None])
+          & (c_feat >= 0)[:, None, :]).to(torch.float32)    # [C, CB, N]
+    acc = [torch.zeros(12, 3, n, device=device) for _ in range(4)]
+    for b in range(12):
+        acc[b % 4] = acc[b % 4] + eq[:, b, None, :] * cache[2][b]
+    in_order = ((acc[0] + acc[1]) + acc[2]) + acc[3]          # [C, 3, N]
+    m = eq.sum(dim=1, dtype=torch.float64)[:, None, :]
+    assert int(m.max()) >= 3
+    u = 2.0 ** -24
+    gamma = (m - 1).clamp_min(0) * u / (1 - (m - 1).clamp_min(0) * u)
+    bound = 2 * gamma * (eq.double()[:, :, None, :]
+                         * cache[2].double().abs()[None]).sum(dim=1)
+    plain = sk.cached_warm_start(*cache)
+    assert bool(((in_order.double() - plain.double()).abs()
+                 <= bound).all())
+    kw = dict(iterations=10, momentum=0.5)
+    vel, ang, lams = contact_t.solve_contacts_t_reference(
+        *args, warm=in_order.unbind(1), return_lambdas=True, **kw)
+    _assert_solve_equals_plain(
+        args, want=(vel, ang, sk.refreshed_cache(args[14], c_feat, lams)),
+        cache=cache, **kw)
+
+
+def test_solve_route_and_bad_input(device):
+    """Inputs the kernel does not take raise ValueError before any launch:
+    functorch-batched CUDA tensors (the kernel reads a tensor by pointer;
+    the many-world steps hand it one plain world-major row set), a budget
+    past ``MAX_C``, a wrong dtype, shape or device."""
+    args, warm = _solve_case(40, 12, 3, device)
+    kw = dict(iterations=3, momentum=0.5, return_lambdas=True)
+    before = sk.KERNEL.launches
+    batched = [torch.stack([a, a]) for a in (*args, *warm)]
+    with pytest.raises(ValueError, match="functorch-batched"):
+        torch.func.vmap(lambda *a: contact_t.solve_contacts_t(
+            *a[:18], warm=a[18:], **kw))(*batched)
+    with pytest.raises(ValueError, match="past MAX_C"):
+        contact_t.solve_contacts_t(*_solve_case(40, sk.MAX_C + 1, 3,
+                                                device)[0])
+    bad = {0: args[0].double(), 3: args[3][:, :3], 6: args[6].long(),
+           10: args[10][:-1], 14: args[14].to(torch.uint8),
+           15: args[15].cpu(), 17: args[17][None]}
+    for i, t in bad.items():
+        a = list(args)
+        a[i] = t
+        with pytest.raises(ValueError):
+            contact_t.solve_contacts_t(*a)
+    with pytest.raises(ValueError):
+        contact_t.solve_contacts_t(*args, warm=warm[:2])
+    assert sk.KERNEL.launches == before
 
 
 # ---- the render kernels: the visibility walk and the attribute resolve ----
@@ -572,12 +770,14 @@ def test_gather_rows_rejects_bad_input(device):
 
 
 def test_graph_replays_count_kernel_launches(device):
-    """A frame's graph and a stress multi-step's graph (the broadphase and
-    the box contact kernel once a step): after the capture
-    (whose eager warm-up launches each kernel once, counted apart in
-    ``graphs.warmup_launches``) every replay adds the launches its graph
-    holds to the kernels' counts, as many as the eager route launches;
-    the outputs bit-equal to the eager route's."""
+    """A frame's graph and a stress multi-step's graph (the broadphase,
+    the box contact and the contact solve kernels once a step): after the
+    capture (whose eager warm-up launches each kernel once, counted apart
+    in ``graphs.warmup_launches``) every replay adds the launches its
+    graph holds to the kernels' counts, as many as the eager route
+    launches; the outputs bit-equal to the eager route's.  The static
+    route (the flat many-world step) launches the box contact and solve
+    kernels once a step too, the dense route neither."""
     sc = build_showcase_render(0)
     rs = convert.render_scene_from_numpy(sc.render)
     w, h = 640, 360
@@ -600,15 +800,15 @@ def test_graph_replays_count_kernel_launches(device):
     state_g = graphs.clone_tree(run(state, inp))
     torch.cuda.synchronize()
     assert {k: n for k, n in graphs.warmup_launches.items() if n} == {
-        "broadphase": 1, "contacts": 1, "walk": 1, "resolve": 1}
+        "broadphase": 1, "contacts": 1, "solve": 1, "walk": 1, "resolve": 1}
     assert launches() == {"walk": 2, "resolve": 2, "broadphase": 6,
-                          "contacts": 6}
+                          "contacts": 6, "solve": 6}
     for _ in range(3):
         render(*args)
         run(state, inp)
     torch.cuda.synchronize()
     assert launches() == {"walk": 5, "resolve": 5, "broadphase": 21,
-                          "contacts": 21}
+                          "contacts": 21, "solve": 21}
     assert render.program.captures == run.program.captures == 1
     for kernel in kernels.values():
         kernel.launches = 0
@@ -617,10 +817,27 @@ def test_graph_replays_count_kernel_launches(device):
         state_e = run(state, inp)
     torch.cuda.synchronize()
     assert launches() == {"walk": 1, "resolve": 1, "broadphase": 5,
-                          "contacts": 5}
+                          "contacts": 5, "solve": 5}
     for a, b in zip(graphs.flatten((frame_g, state_g))[0],
                     graphs.flatten((frame_e, state_e))[0]):
         assert torch.equal(a, b)
+
+    from banggameengine_tpu_torch.parallel import manyworld as mw
+
+    state1, static1 = build_falling_boxes(
+        num_bodies=8, with_character=True, with_trigger=True, device=device)
+    flat = mw.make_flat_many_world_step(static1, 4, state1.comp_mask,
+                                        num_steps=3)
+    dense = make_multi_step_fn(static, 3, broadphase="dense")
+    graphs.warmup_launches.clear()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    flat(mw.replicate_state(state1, 4), mw.replicate_input(inp, 4))
+    dense(state, inp)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in graphs.warmup_launches.items() if n} == {
+        "contacts": 1, "solve": 1}
+    assert launches() == {"contacts": 4, "solve": 4}
 
 
 def test_failed_capture_raises(device):
