@@ -176,10 +176,12 @@ def make_multi_step_fn(
     returned state is the graph's buffers, valid until the next call.
 
     With ``joints`` (:class:`physics.joints.JointSet`, bound like the
-    scene; the dense route) a call is ``run(state, inp, joint_state) ->
-    (state, joint_state)``: the joints' impulses are carried and donated
-    with the state, and ``joint_state.limit_rows`` counts the limit rows
-    at their bound in the last step."""
+    scene; the dense route) a call is ``run(state, inp, joint_state,
+    command=None) -> (state, joint_state)``: the joints' impulses are
+    carried and donated with the state, and ``joint_state.limit_rows``
+    counts the limit rows at their bound in the last step.  ``command``
+    f32[J] drives the hinges' motors, held for the call's steps: a set
+    with motors (``joints.motored``) needs it, a set without takes none."""
     if joints is not None:
         return _multi_step_joints(static, num_steps, solver_iterations,
                                   joints, physics_kwargs)
@@ -202,19 +204,21 @@ def _multi_step_joints(static, num_steps, solver_iterations, joints,
     pair (state, joint state), the joint set an argument by reference."""
     fn = _bound_step(static, solver_iterations, physics_kwargs)
 
-    def body(carry, inp, st, js):
+    def body(carry, inp, st, js, command):
         state, joint_state = carry
         state, _, joint_state = fn(state, inp, st, joints=js,
-                                   joint_state=joint_state)
+                                   joint_state=joint_state,
+                                   motor_command=command)
         return ((state, joint_state),)
 
     program = graphs.Program(body, donate=True, by_ref=(2, 3),
                              name="multi_step")
 
-    def run(state: WorldState, inp: InputFrame, joint_state: JointState):
+    def run(state: WorldState, inp: InputFrame, joint_state: JointState,
+            command: torch.Tensor | None = None):
         if num_steps < 1:
             return state, joint_state
-        return program((state, joint_state), inp, static, joints,
+        return program((state, joint_state), inp, static, joints, command,
                        times=num_steps)[0]
 
     run.program = program

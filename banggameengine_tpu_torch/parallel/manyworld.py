@@ -18,6 +18,10 @@ step W worlds of B entities in lockstep:
   entities), so no trigger pair crosses a world and no plane of the step
   grows with the square of W.
 
+Joints (:mod:`physics.joints`) run on the flat layout only: its factory
+tiles one world's joint table over the worlds and steps them on the
+static route, and the vmapped layout refuses them.
+
 :func:`make_many_world_step` picks the flat layout and falls back to the
 vmapped one only when the flat factory refuses the scene.  The batched
 state that both take and return carries the trigger planes as bool[W, T,
@@ -39,6 +43,7 @@ import torch
 from banggameengine_tpu_torch import graphs
 from banggameengine_tpu_torch.engine import engine_step
 from banggameengine_tpu_torch.parallel import ranks
+from banggameengine_tpu_torch.physics import joints as jt
 from banggameengine_tpu_torch.physics.step import scene_census
 from banggameengine_tpu_torch.state import (
     COMP_COLLIDER,
@@ -127,9 +132,11 @@ def make_sharded_many_world_step(
     solver_iterations: int = 10,
     with_metrics: bool = False,
     world_minor: bool = False,
+    joints=None,
     **physics_kwargs,
 ):
-    """The vmapped lockstep many-worlds step.
+    """The vmapped lockstep many-worlds step (no joints: ``joints`` raises
+    ValueError, since they run on the flat layout).
 
     Returns ``step(batched_state, batched_input) -> batched_state`` (or
     ``(state, metrics)`` with ``with_metrics``): ``num_steps`` steps of
@@ -147,6 +154,10 @@ def make_sharded_many_world_step(
     call.  The metrics are a second graph that reads those buffers in
     place, its all-reduce over the mesh inside it.
     """
+    if joints is not None:
+        raise ValueError("the vmapped many-world layout takes no joints; "
+                         "they run on the flat layout "
+                         "(make_flat_many_world_step)")
     kwargs = {**scene_census(static), **physics_kwargs}
     ax = -1 if world_minor else 0
 
@@ -195,7 +206,8 @@ def make_sharded_many_world_step(
     return step
 
 
-def _flat_static(static: StaticScene, num_worlds: int, comp_mask_1w):
+def _flat_static(static: StaticScene, num_worlds: int, comp_mask_1w,
+                 joints=None):
     """Tile one world's StaticScene into a [W*B]-entity block-diagonal
     scene, with the static intra-world neighbor lists and the per-entity
     world group ids.  Host-side numpy, once per factory call; returns
@@ -204,7 +216,12 @@ def _flat_static(static: StaticScene, num_worlds: int, comp_mask_1w):
     device, where ``shifts`` is the sorted tuple of partner offsets
     (partner id - row id) that the block topology produces.
     ``comp_mask_1w`` is one world's component mask: its solid boxes and
-    capsules, characters excepted, are the bodies that meet."""
+    capsules, characters excepted, are the bodies that meet, where their
+    layers and masks meet both ways and no joint of ``joints`` (one
+    world's) joins them.  A list is as wide as the most partners a solid
+    body has: with joints possibly 0 (the dense narrowphase then takes
+    the ground alone), without at least 1, since the box contacts'
+    kernel takes no empty list."""
     dev = static.parent.device
     w = num_worlds
     b = static.capacity
@@ -243,11 +260,17 @@ def _flat_static(static: StaticScene, num_worlds: int, comp_mask_1w):
     solid = (((comp & COMP_COLLIDER) != 0)
              & ((st == SHAPE_BOX) | (st == SHAPE_CAPSULE)) & ~is_char)
     sol = np.where(solid)[0]
-    k = max(int(len(sol)) - 1, 1)
+    layer, mask = host["layer"], host["mask"]
+    meet = (~np.eye(b, dtype=bool)
+            & ((layer[:, None] & mask[None, :]) != 0)
+            & ((layer[None, :] & mask[:, None]) != 0))
+    if joints is not None:
+        meet &= ~jt.jointed_pairs(joints, b).cpu().numpy()
+    partners = {i: [j for j in sol if meet[i, j]] for i in sol}
+    k = max([len(p) for p in partners.values()] + [int(joints is None)])
     loc_idx = np.zeros((b, k), np.int32)
     loc_val = np.zeros((b, k), bool)
-    for i in sol:
-        others = [j for j in sol if j != i]
+    for i, others in partners.items():
         loc_idx[i, :len(others)] = others
         loc_val[i, :len(others)] = True
     nb_idx = (loc_idx[None] + offs[:, None, None]).reshape(n, k)
@@ -273,6 +296,7 @@ def make_flat_many_world_step(
     num_steps: int = 1,
     solver_iterations: int = 10,
     mesh=None,
+    joints=None,
     **physics_kwargs,
 ):
     """Flat block-diagonal lockstep many-worlds step, on the static
@@ -307,9 +331,29 @@ def make_flat_many_world_step(
     donated as in JAX: the returned state is those buffers, valid until
     the next call.
 
+    The lists hold each solid body's partners in its world whose layers
+    and masks meet its own both ways (the JAX package's take every solid
+    pair).  With ``joints`` (one world's
+    :class:`physics.joints.JointSet`) the factory tiles the joint table
+    over the worlds once (body ids offset by each world's block start)
+    and leaves the jointed pairs out of the lists too; the flat step
+    takes the static route's joints (the dense narrowphase and the
+    unified solve over the lists).  A call is then ``step(bstate, binp,
+    joint_state, command=None) -> (bstate, joint_state)``: the batched
+    joints' impulses ``joint_state.impulse`` [W, J, 7] (from
+    :func:`physics.joints.make_joint_state` with ``num_worlds``) are
+    flattened to [W*J, 7] and back with the state and donated with it,
+    and ``joint_state.limit_rows`` counts the limit rows at their bound
+    over this rank's worlds in the last step.  ``command`` f32[W, J]
+    drives the hinges' motors, one row a world, held for the call's steps
+    (the flat step reads it as [W*J]); a set with motors needs it, one
+    without takes none.  One program serves both: its carry holds the
+    joint state, or None.
+
     The returned function also carries ``flatten``, ``unflatten``,
-    ``flat_step`` (one engine step of the flat world, with its events)
-    and ``flat_static``.
+    ``flat_step`` (one engine step of the flat world, with its events,
+    and with joints ``flat_step(fs, binp, joint_state, command)``),
+    ``flat_static`` and ``flat_joints``.
     """
     n_dev = 1 if mesh is None else mesh.size()
     if num_worlds % n_dev:
@@ -320,13 +364,18 @@ def make_flat_many_world_step(
     b = static.capacity
     t1 = static.num_trigger_slots
     n = w * b
+    if joints is not None and joints.lin_damping.shape[0] != b:
+        raise ValueError(f"the joint set has {joints.lin_damping.shape[0]} "
+                         f"bodies, the world {b}")
     flat_static, nb_idx, nb_val, group, char_cand, _ = _flat_static(
-        static, w, comp_mask_1w)
+        static, w, comp_mask_1w, joints)
     kwargs = {**scene_census(static), **physics_kwargs}
     # one world is one group: no mask (and its plane bool[T, B] is square)
     kwargs.update(broadphase="static", static_neighbors=(nb_idx, nb_val),
                   group=group if w > 1 else None, char_candidates=char_cand)
     dev = static.parent.device
+    flat_joints = None if joints is None else _flat_joints(joints, w, b)
+    j = 0 if joints is None else joints.num_joints
     # Contact features encode partner ids: pair features are (partner + 1)
     # * FEAT_STRIDE + slot (>= FEAT_STRIDE), ground features bare slot ids
     # (< FEAT_STRIDE).  The flat partner is w*B + partner, so the
@@ -335,11 +384,17 @@ def make_flat_many_world_step(
     feat_off = (torch.arange(w, dtype=torch.int32, device=dev) * b
                 * FEAT_STRIDE)[:, None, None]
 
-    def flat_step(fs: WorldState, binp: InputFrame):
+    def flat_step(fs: WorldState, binp: InputFrame, fjs=None, command=None):
+        if flat_joints is None:
+            return engine_step(fs, binp, flat_static, solver_iterations,
+                               **kwargs)
         return engine_step(fs, binp, flat_static, solver_iterations,
-                           **kwargs)
+                           joints=flat_joints, joint_state=fjs,
+                           motor_command=command, **kwargs)
 
-    def flatten(s: WorldState) -> WorldState:
+    def enter(carry):
+        """The batched (state, joint state) as the flat one."""
+        s, js = carry
         with span("manyworld.flatten", dev):
             f = {}
             for name in _ROW_FIELDS:
@@ -353,9 +408,13 @@ def make_flat_many_world_step(
             # lockstep: every world shares the clock
             f["time"] = s.time[0]
             f["step_idx"] = s.step_idx[0]
-            return WorldState(**f)
+            return WorldState(**f), (None if js is None else jt.JointState(
+                impulse=js.impulse.reshape(w * j, jt.ROWS),
+                limit_rows=js.limit_rows))
 
-    def unflatten(fs: WorldState) -> WorldState:
+    def leave(carry):
+        """The flat (state, joint state) as the batched one."""
+        fs, fjs = carry
         with span("manyworld.unflatten", dev):
             f = {}
             for name in _ROW_FIELDS:
@@ -368,26 +427,74 @@ def make_flat_many_world_step(
             f["trigger_active"] = fs.trigger_active.reshape(w, t1)
             f["time"] = fs.time.expand(w).clone()
             f["step_idx"] = fs.step_idx.expand(w).clone()
-            return WorldState(**f)
+            return WorldState(**f), (None if fjs is None else jt.JointState(
+                impulse=fjs.impulse.reshape(w, j, jt.ROWS),
+                limit_rows=fjs.limit_rows))
 
-    program = graphs.Program(
-        lambda fs, binp: flat_step(fs, binp)[:1], donate=True,
-        enter=flatten, leave=unflatten, name="flat_many_world_step")
+    def body(carry, binp, command):
+        fs, fjs = carry
+        out = flat_step(fs, binp, fjs,
+                        None if command is None else command.reshape(-1))
+        return ((out[0], None if fjs is None else out[2]),)
 
-    def step(bstate: WorldState, binp: InputFrame) -> WorldState:
-        if num_steps < 1:
-            return bstate
-        (out,) = program(ranks.map_fields(ranks.local, bstate),
-                         ranks.map_fields(ranks.local, binp),
-                         times=num_steps)
-        return ranks.rewrap_fields(out, bstate)
+    program = graphs.Program(body, donate=True, enter=enter, leave=leave,
+                             name="flat_many_world_step")
 
-    step.flatten = flatten
-    step.unflatten = unflatten
+    def step(bstate: WorldState, binp: InputFrame, joint_state=None,
+             command=None):
+        if (joint_state is None) != (joints is None):
+            raise ValueError("a step with joints takes their joint_state, "
+                             "one without takes none")
+        if num_steps >= 1:
+            local = (ranks.map_fields(ranks.local, bstate),
+                     None if joints is None
+                     else ranks.map_fields(ranks.local, joint_state))
+            ((out, js),) = program(
+                local, ranks.map_fields(ranks.local, binp),
+                None if command is None else ranks.local(command),
+                times=num_steps)
+            out = ranks.rewrap_fields(out, bstate)
+            if joints is not None:
+                js = ranks.rewrap_fields(js, joint_state)
+        else:
+            out, js = bstate, joint_state
+        return out if joints is None else (out, js)
+
     step.flat_step = flat_step
+    step.flatten = lambda s: enter((s, None))[0]
+    step.unflatten = lambda fs: leave((fs, None))[0]
     step.flat_static = flat_static
+    step.flat_joints = flat_joints
     step.program = program
     return step
+
+
+def _flat_joints(joints: jt.JointSet, w: int, b: int) -> jt.JointSet:
+    """One world's joint table tiled over ``w`` worlds of ``b`` bodies:
+    body ids offset by each world's block start, the per-body rows of the
+    impulse table renumbered for W*J joints."""
+    j = joints.num_joints
+
+    def tile(x):
+        if not torch.is_tensor(x):
+            return x
+        return x.repeat((w,) + (1,) * (x.dim() - 1))
+
+    offs = torch.arange(w, dtype=torch.int32,
+                        device=joints.body_a.device).repeat_interleave(j)
+    rows = joints.body_rows.to(torch.int64)             # [b, JB]
+    world = torch.arange(w, device=rows.device)[:, None, None]
+    # a side j -> w*J + j, b side J + j -> W*J + w*J + j, none -> 2*W*J
+    flat_rows = torch.where(rows < j, world * j + rows,
+                            torch.where(rows < 2 * j,
+                                        w * j + world * j + rows - j,
+                                        2 * w * j))
+    fields = {f.name: tile(getattr(joints, f.name))
+              for f in dataclasses.fields(joints)}
+    fields.update(body_a=joints.body_a.repeat(w) + offs * b,
+                  body_b=joints.body_b.repeat(w) + offs * b,
+                  body_rows=flat_rows.reshape(w * b, -1).to(torch.int32))
+    return jt.JointSet(**fields)
 
 
 def make_many_world_step(
@@ -397,6 +504,7 @@ def make_many_world_step(
     num_worlds: int,
     num_steps: int = 1,
     verbose: bool = True,
+    joints=None,
     **physics_kwargs,
 ):
     """Auto-routing many-world factory: ``(step, layout)``.
@@ -406,12 +514,16 @@ def make_many_world_step(
     W/D worlds); the vmapped layout (``"vmapped"``) only when the flat
     builder refuses the scene with ``ValueError`` (world count not
     divisible by the mesh), and then with a printed line.  Any other
-    failure propagates.  ``mesh=None`` is one process.
+    failure propagates.  ``mesh=None`` is one process.  ``joints`` (one
+    world's) go to the flat factory, whose step then takes and returns
+    the joints' state and the motors' commands
+    (:func:`make_flat_many_world_step`); the vmapped layout refuses them
+    with ValueError.
     """
     try:
         step = make_flat_many_world_step(
             static, num_worlds, comp_mask_1w, num_steps=num_steps,
-            mesh=mesh, **physics_kwargs)
+            mesh=mesh, joints=joints, **physics_kwargs)
         layout = ("flat" if mesh is None or mesh.size() == 1
                   else "flat-sharded")
         return step, layout
@@ -420,5 +532,5 @@ def make_many_world_step(
             print(f"[manyworld] flat layout unavailable "
                   f"({type(e).__name__}: {e}); using vmapped")
     step = make_sharded_many_world_step(
-        static, mesh, num_steps=num_steps, **physics_kwargs)
+        static, mesh, num_steps=num_steps, joints=joints, **physics_kwargs)
     return step, "vmapped"

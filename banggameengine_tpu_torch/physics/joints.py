@@ -47,8 +47,42 @@ contacts and joints counted.  The rows are warm-started from the last
 step's impulses by Bullet's warm-starting factor.  Bullet solves them by
 sequential impulses; the Jacobi solve is this port's departure.
 
+A set with ``mass_splitting`` solves its rows by Tonge et al.'s mass
+splitting (2012) instead: ``K`` takes each body's inverse mass and
+inertia times its split, and both bodies take the change of impulse
+whole, so a joint's impulses are equal and opposite and the iteration
+converges whatever the bodies' masses.  Dividing each side by its own
+split, as above, gives a joint between bodies of unequal splits unequal
+impulses, and at the Ant's mass and inertia ratios (a torso of 0.48 kg
+on legs of 0.04-0.07 kg whose inertia about their own axis is 2e-4 kg
+m^2) the iteration diverges in some worlds; the ragdolls, equal masses,
+keep the first form.
+
 Per-body damping is Bullet's ``applyDamping``, after gravity and before
 the contact phase: ``v *= (1 - d)^dt`` on the dynamic bodies.
+
+Motors drive hinges (a cone-twist has none).  A hinge's ``gear`` is the
+torque of a unit command and its ``joint_damping`` the torque against a
+rad/s of relative spin (MuJoCo's ``gear`` and joint ``damping``); each
+step takes a command ``u`` a joint.  After the bodies' damping and before
+the contact phase (:func:`apply_motors`), about the hinge's world axis
+``a = FA ez``, the torque ``tau = gear u - joint_damping ((wb - wa) .
+a)`` turns b and, equal and opposite, a: ``wb += dt Ib^-1 tau a``, ``wa
+-= dt Ia^-1 tau a``, every joint's torque from the same velocities.  A
+set runs its motors exactly when some gear or joint damping is not zero
+(``JointSet.motored``, read once when the set is built); such a set's
+step needs a command, and a set without motors takes none.
+
+A set may also hold its joints by position (``position_iterations``,
+PhysX TGS's position iterations and Box2D's position solve; zero: none).
+After the integration, each sweep moves every joint's anchors together
+from the poses at its start: with ``C = pB - pA`` and ``K = (1/ma + 1/mb)
+E - [rA]x IA^-1 [rA]x - [rB]x IB^-1 [rB]x`` (``[r]x`` the cross-product
+matrix, the world inverse inertias at the integrated poses), the
+correction is ``P = -K^-1 C``; b moves by ``P / mb`` and turns by ``IB^-1
+(rB x P)``, a by the opposite, each divided by the body's joint count
+(the split, as in the velocity solve), dynamic bodies only.  The
+velocities are left as the solve made them.
 """
 
 from __future__ import annotations
@@ -63,7 +97,9 @@ from banggameengine_tpu_torch import math3d
 from banggameengine_tpu_torch.physics.solver import (
     BAUMGARTE,
     WARM_START_FACTOR,
+    _matvec,
     compaction_index,
+    inv_inertia_world,
 )
 
 Tensor = torch.Tensor
@@ -94,6 +130,11 @@ class JointSet:
     # each body's joints as rows of the stacked [a sides; b sides; zero]
     # impulse table: j (the body is j's a), J + j (its b), 2J (no joint)
     body_rows: Tensor     # int32[N, JB]
+    gear: Tensor          # f32[J] a hinge motor's torque a unit command
+    joint_damping: Tensor  # f32[J] torque a rad/s of the hinge's spin
+    motored: bool         # some gear or joint damping is not zero
+    position_iterations: int  # sweeps of the position pass (0: none)
+    mass_splitting: bool  # the rows solved by Tonge et al.'s splitting
 
     @property
     def num_joints(self) -> int:
@@ -110,11 +151,17 @@ class JointState:
 
 def make_joint_set(capacity: int, body_a, body_b, kind, origin_a, origin_b,
                    basis_a, basis_b, limit_lo, limit_hi, lin_damping=None,
-                   ang_damping=None, device=None) -> JointSet:
+                   ang_damping=None, gear=None, joint_damping=None,
+                   position_iterations: int = 0,
+                   mass_splitting: bool = False, device=None) -> JointSet:
     """A :class:`JointSet` of ``capacity`` bodies from the joint table
     (arrays or tensors; ``basis_a``/``basis_b`` f32[J, 3, 3], the frames'
-    axes as columns in each body's frame) and the bodies' damping (zero
-    where None).  Reads each body's joint count to the host once."""
+    axes as columns in each body's frame), the bodies' damping, the
+    hinges' motors (``gear``, ``joint_damping``; zero where None, and
+    ValueError on a cone-twist), the sweeps of the position pass and the
+    solve's form (see the module docstring).
+    Reads each body's joint count, and whether any motor is set, to the
+    host once."""
     device = torch.device(device or "cpu")
 
     def t(x, dtype):
@@ -134,8 +181,16 @@ def make_joint_set(capacity: int, body_a, body_b, kind, origin_a, origin_b,
     src, valid, _ = compaction_index(touches, width)
     body_rows = torch.where(valid, src, 2 * j).to(torch.int32)
     zeros = torch.zeros(capacity, dtype=torch.float32, device=device)
+    kinds = t(kind, torch.int8)
+    motor = [torch.zeros(j, dtype=torch.float32, device=device) if m is None
+             else t(m, torch.float32) for m in (gear, joint_damping)]
+    motored = (motor[0] != 0) | (motor[1] != 0)
+    if (motored & (kinds != HINGE)).any():
+        raise ValueError("a motor drives a hinge; a cone-twist takes none")
+    if position_iterations < 0:
+        raise ValueError("position_iterations counts sweeps: 0 or more")
     return JointSet(
-        body_a=a, body_b=b, kind=t(kind, torch.int8),
+        body_a=a, body_b=b, kind=kinds,
         origin_a=t(origin_a, torch.float32),
         origin_b=t(origin_b, torch.float32),
         frame_a=math3d.quat_from_mat3(t(basis_a, torch.float32)),
@@ -146,15 +201,21 @@ def make_joint_set(capacity: int, body_a, body_b, kind, origin_a, origin_b,
                      else t(lin_damping, torch.float32)),
         ang_damping=(zeros.clone() if ang_damping is None
                      else t(ang_damping, torch.float32)),
-        body_rows=body_rows)
+        body_rows=body_rows, gear=motor[0], joint_damping=motor[1],
+        motored=bool(motored.any()),
+        position_iterations=int(position_iterations),
+        mass_splitting=bool(mass_splitting))
 
 
-def make_joint_state(joints: JointSet) -> JointState:
-    """Zero impulses: the joints' state before the first step."""
+def make_joint_state(joints: JointSet,
+                     num_worlds: int | None = None) -> JointState:
+    """Zero impulses: the joints' state before the first step, f32[J, 7],
+    or with ``num_worlds`` a [W, J, 7] batch (the many-world steps')."""
     dev = joints.body_a.device
+    lead = () if num_worlds is None else (num_worlds,)
     return JointState(
-        impulse=torch.zeros((joints.num_joints, ROWS), dtype=torch.float32,
-                            device=dev),
+        impulse=torch.zeros(lead + (joints.num_joints, ROWS),
+                            dtype=torch.float32, device=dev),
         limit_rows=torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -166,6 +227,76 @@ def apply_damping(vel: Tensor, ang: Tensor, is_dynamic: Tensor,
     dyn = is_dynamic[:, None]
     return (torch.where(dyn, vel * lin_f[:, None], vel),
             torch.where(dyn, ang * ang_f[:, None], ang))
+
+
+def apply_motors(ang: Tensor, quat: Tensor, inv_inertia_body: Tensor,
+                 is_dynamic: Tensor, joints: JointSet, command: Tensor,
+                 dt: Tensor) -> Tensor:
+    """The hinges' motors (see the module docstring): ``ang`` with each
+    dynamic body turned by ``dt I^-1`` times the torques of its joints
+    under ``command`` f32[J], all from the same velocities."""
+    a = joints.body_a.to(torch.int64)
+    b = joints.body_b.to(torch.int64)
+    ez = torch.zeros_like(joints.origin_a)
+    ez[:, 2] = 1.0
+    axis = math3d.quat_rotate(math3d.quat_mul(quat[a], joints.frame_a), ez)
+    spin = _dot(ang[b] - ang[a], axis)
+    torque = (joints.gear * command - joints.joint_damping * spin)[:, None] \
+        * axis
+    table = torch.cat([-torque, torque, torch.zeros_like(torque[:1])])
+    per_body = table[joints.body_rows.to(torch.int64)].sum(dim=1)
+    turn = _matvec(inv_inertia_world(quat, inv_inertia_body), per_body)
+    return torch.where(is_dynamic[:, None], ang + dt * turn, ang)
+
+
+def project_joints(pos: Tensor, quat: Tensor, is_dynamic: Tensor,
+                   alive: Tensor, inv_mass: Tensor, inv_inertia_body: Tensor,
+                   joints: JointSet) -> tuple[Tensor, Tensor]:
+    """The position pass (see the module docstring): ``pos`` and ``quat``
+    after ``joints.position_iterations`` sweeps, each moving every live
+    joint's anchors together from the poses at the sweep's start."""
+    a = joints.body_a.to(torch.int64)
+    b = joints.body_b.to(torch.int64)
+    live = (alive[a] & alive[b])[:, None]
+    inv_m = torch.where(is_dynamic, inv_mass, 0.0)
+    inv_i = torch.where(is_dynamic[:, None, None],
+                        inv_inertia_world(quat, inv_inertia_body), 0.0)
+    ia, ib = inv_i[a], inv_i[b]
+    body_rows = joints.body_rows.to(torch.int64)
+    split = (body_rows < 2 * a.shape[0]).sum(dim=1).clamp_min(1)[:, None]
+    eye = torch.eye(3, dtype=pos.dtype, device=pos.device)
+    for _ in range(joints.position_iterations):
+        r_a = math3d.quat_rotate(quat[a], joints.origin_a)
+        r_b = math3d.quat_rotate(quat[b], joints.origin_b)
+        gap = (pos[b] + r_b) - (pos[a] + r_a)
+        sa, sb = _skew(r_a), _skew(r_b)
+        k = ((inv_m[a] + inv_m[b])[:, None, None] * eye
+             - _matmul(_matmul(sa, ia), sa) - _matmul(_matmul(sb, ib), sb))
+        p = torch.where(live, -_matvec(_spd_inverse(k), gap), 0.0)
+        table = torch.cat([torch.cat([-p, -_cross(r_a, p)], dim=1),
+                           torch.cat([p, _cross(r_b, p)], dim=1),
+                           torch.zeros_like(p[:1, :1]).expand(1, 6)], dim=0)
+        per_body = table[body_rows].sum(dim=1) / split      # [N, 6]
+        pos = pos + inv_m[:, None] * per_body[:, :3]
+        turn = _matvec(inv_i, per_body[:, 3:])
+        quat = torch.where(is_dynamic[:, None], math3d.quat_integrate(
+            quat, turn, torch.ones((), dtype=pos.dtype, device=pos.device)),
+            quat)
+    return pos, quat
+
+
+def _matmul(m: Tensor, n: Tensor) -> Tensor:
+    """``m @ n`` of [..., 3, 3] matrices as multiplies and a sum."""
+    return (m[..., :, :, None] * n[..., None, :, :]).sum(dim=-2)
+
+
+def _skew(r: Tensor) -> Tensor:
+    """[..., 3, 3]: the matrices of ``v -> r x v``."""
+    z = torch.zeros_like(r[..., 0])
+    x, y, w = r.unbind(-1)
+    return torch.stack([torch.stack([z, -w, y], -1),
+                        torch.stack([w, z, -x], -1),
+                        torch.stack([-y, x, z], -1)], -2)
 
 
 def jointed_pairs(joints: JointSet, n: int) -> Tensor:
@@ -196,6 +327,7 @@ class JointRows(NamedTuple):
     limit_rows: Tensor    # int32[] active limit, swing and twist rows
     body_rows: Tensor     # int64[N, JB] (JointSet.body_rows)
     count: Tensor         # f32[N] joints of each body (the split's share)
+    mass_splitting: bool  # impulses whole on both bodies (JointSet's)
 
     def update(self, v: Tensor, w: Tensor, lam: Tensor, plam: Tensor,
                momentum: float) -> Tensor:
@@ -252,12 +384,22 @@ def _cross(u: Tensor, v: Tensor) -> Tensor:
 
 def joint_rows(joints: JointSet, joint_state: JointState, pos: Tensor,
                quat: Tensor, alive: Tensor, inv_m: Tensor,
-               inv_i_world: Tensor, dt: Tensor) -> JointRows:
+               inv_i_world: Tensor, dt: Tensor,
+               contacts: Tensor | None = None) -> JointRows:
     """The rows of every joint at the poses ``pos``/``quat`` (see the
     module docstring): anchors, axes, angles, which limits are passed, the
-    effective masses, and the warm start from ``joint_state``."""
+    effective masses, and the warm start from ``joint_state``.  A set with
+    ``mass_splitting`` takes each body's split from its joints and its
+    contacts in the solve, the valid slots of ``contacts`` bool[N, C]."""
     a = joints.body_a.to(torch.int64)
     b = joints.body_b.to(torch.int64)
+    body_rows = joints.body_rows.to(torch.int64)
+    count = (body_rows < 2 * a.shape[0]).sum(dim=1).to(torch.float32)
+    if joints.mass_splitting:
+        split = (contacts.sum(dim=-1).to(torch.float32)
+                 + count).clamp_min(1.0)
+        inv_m = inv_m * split
+        inv_i_world = inv_i_world * split[:, None, None]
     qa, qb = quat[a], quat[b]
     fa = math3d.quat_mul(qa, joints.frame_a)          # world frames
     fb = math3d.quat_mul(qb, joints.frame_b)
@@ -341,10 +483,9 @@ def joint_rows(joints: JointSet, joint_state: JointState, pos: Tensor,
     prev = joint_state.impulse
     warm = torch.where(active, torch.maximum(prev, floor) * WARM_START_FACTOR,
                        0.0)
-    body_rows = joints.body_rows.to(torch.int64)
-    count = (body_rows < 2 * a.shape[0]).sum(dim=1).to(torch.float32)
     limit_rows = active[:, _LIMIT_ROW:].sum().to(torch.int32)
     return JointRows(a=a, b=b, jl=jl, ja=ja, jb=jb, inv_k=inv_k,
                      target=target,
                      floor=floor, active=active, warm=warm,
-                     limit_rows=limit_rows, body_rows=body_rows, count=count)
+                     limit_rows=limit_rows, body_rows=body_rows, count=count,
+                     mass_splitting=joints.mass_splitting)

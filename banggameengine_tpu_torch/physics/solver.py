@@ -216,6 +216,10 @@ def solve_contacts_unified(
             split = split + joints.count
         split = split.clamp_min(1.0)
         inv_m_split = (inv_m / split)[:, None]
+        # the joints' impulses: each side's share divided by its split, or
+        # whole where the rows' effective masses took the split already
+        joint_split = (torch.ones_like(split) if joints is not None
+                       and joints.mass_splitting else split)
 
         def apply(v_, w_, dl):
             """Add the impulses ``dl`` [N, C, 3 dirs] along the directions."""
@@ -251,7 +255,7 @@ def solve_contacts_unified(
         with stage("physics.joints"):
             jlam = joints.warm
             v, w = _add_joints(v, w, joints.body_impulse(jlam), inv_m,
-                               inv_i_world, split)
+                               inv_i_world, joint_split)
         jplam = jlam
 
     for _ in range(iterations):
@@ -280,7 +284,8 @@ def solve_contacts_unified(
             lam = torch.where(valid3, new, lam)
             v, w = apply(v, w, dl)
             if joints is not None:
-                v, w = _add_joints(v, w, jimp, inv_m, inv_i_world, split)
+                v, w = _add_joints(v, w, jimp, inv_m, inv_i_world,
+                                   joint_split)
     if joints is None:
         return v, w, lam.unbind(-1)
     return v, w, lam.unbind(-1), jlam

@@ -21,7 +21,11 @@ The routes differ in where the contacts come from:
   was built (the flat many-world step, :mod:`parallel.manyworld`), in
   original id order, with the world ``group`` masking the characters'
   obstacles; the transposed contacts take the capsule slots when the
-  scene has a solid capsule.
+  scene has a solid capsule.  With joints it takes the dense route's
+  narrowphase and unified solver over those lists instead.
+
+Joints (:mod:`joints`) run on the dense and static routes; their motors
+turn the bodies after gravity and damping, before the contact phase.
 
 The trigger sweep follows the state's trigger plane: bool[T, N] for one
 world, per-world blocks bool[W*T, B] for the flat many-world layout.
@@ -49,6 +53,7 @@ from banggameengine_tpu_torch.physics import shapes as sh_mod
 from banggameengine_tpu_torch.physics import solver as sv
 from banggameengine_tpu_torch.physics import triggers as tg
 from banggameengine_tpu_torch.physics.broadphase import (
+    NeighborLists,
     build_neighbor_lists,
     build_neighbor_lists_dense,
 )
@@ -117,6 +122,7 @@ def physics_step(
     solver_momentum: float = SOLVER_MOMENTUM,
     joints: jt.JointSet | None = None,
     joint_state: jt.JointState | None = None,
+    motor_command: torch.Tensor | None = None,
 ) -> tuple[WorldState, StepEvents]:
     """One fixed physics step, ``(WorldState, InputFrame, StaticScene) ->
     (WorldState, StepEvents)``.
@@ -160,11 +166,20 @@ def physics_step(
 
     ``joints`` (:class:`joints.JointSet`) with ``joint_state`` (the
     joints' impulses from the last step) puts the scene's hinges and
-    cone-twists into the dense route: the jointed pairs leave the pair
-    mask before the neighbor lists are cut to their width, the joints'
-    rows join the unified solve, and each body's damping follows gravity.
-    The step then returns ``(WorldState, StepEvents, JointState)``.
-    Another route given joints raises ValueError.
+    cone-twists into the step: the joints' rows join the unified solve,
+    and each body's damping follows gravity.  On the dense route the
+    jointed pairs leave the pair mask before the neighbor lists are cut
+    to their width; on the static route the contacts are the dense
+    route's narrowphase over ``static_neighbors``, which must already
+    leave the jointed pairs out (the flat many-world factory's lists do).
+    A set with motors (``joints.motored``) needs ``motor_command`` f32[J],
+    one command a joint, which drives the hinges' motors
+    (:func:`joints.apply_motors`, span ``physics.motors``); a set without
+    them takes none (ValueError both ways).  A set with
+    ``position_iterations`` holds its anchors together after the
+    integration (:func:`joints.project_joints`, span ``physics.joints``).
+    The step then returns ``(WorldState, StepEvents, JointState)``.  The
+    grid and all-pairs routes given joints raise ValueError.
     """
     if broadphase not in ("dense", "grid", "allpairs", "static"):
         raise ValueError(
@@ -174,12 +189,18 @@ def physics_step(
     if trigger_mode not in ("aabb", "shape"):
         raise ValueError(f"unknown trigger_mode {trigger_mode!r}")
     if joints is not None:
-        if broadphase != "dense":
+        if broadphase not in ("dense", "static"):
             raise ValueError(
-                f"joints run on broadphase='dense' only, not "
+                f"joints run on broadphase='dense' or 'static' only, not "
                 f"{broadphase!r}")
         if joint_state is None:
             raise ValueError("joints need their joint_state")
+        if joints.motored != (motor_command is not None):
+            raise ValueError(
+                "a joint set with motors needs a motor_command, one without "
+                "takes none")
+    elif motor_command is not None:
+        raise ValueError("a motor command needs the joints it drives")
     if any_char is None or enable_capsule is None or any_trig is None:
         census = scene_census(static)
         any_char = census["any_char"] if any_char is None else any_char
@@ -235,10 +256,21 @@ def physics_step(
         # solid = participates in the contact solver (characters are
         # ghosts)
         solid = alive & has_collider & ~is_char
+    if joints is not None and joints.motored:
+        with span("physics.motors", dev):
+            ang = jt.apply_motors(ang, quat, static.inv_inertia_body,
+                                  is_dynamic, joints, motor_command, dt)
     solve = dict(iterations=solver_iterations, warm_start=warm_start,
                  momentum=solver_momentum)
 
-    if broadphase in ("dense", "grid"):
+    if joints is not None and broadphase == "static":
+        nl, pair_ok = _static_lists(static_neighbors, solid, is_dynamic,
+                                    pos.device)
+        vel, ang, cache, overflow, joint_state = _contacts_dense(
+            state, static, pos, quat, vel, ang, solid, is_dynamic, nl,
+            pair_ok, enable_capsule, sor=solver_sor, joints=joints,
+            joint_state=joint_state, **solve)
+    elif broadphase in ("dense", "grid"):
         nl, pair_ok = _neighbor_lists(
             static, pos, quat, solid, is_dynamic, broadphase, max_neighbors,
             grid_cell_size, grid_table_size, grid_cell_capacity, joints)
@@ -258,7 +290,8 @@ def physics_step(
                        char_on_ground, moving, alive, has_collider, dt,
                        any_trig, contact_cache=cache,
                        contact_overflow=overflow, group=group,
-                       trigger_mode=trigger_mode)
+                       trigger_mode=trigger_mode, joints=joints,
+                       is_dynamic=is_dynamic)
     return out if joints is None else (*out, joint_state)
 
 
@@ -435,6 +468,18 @@ def _contacts_static(state, static, pos, quat, vel, ang, solid, is_dynamic,
     return vel, ang, cache, overflow
 
 
+def _static_lists(static_neighbors, solid, is_dynamic, device):
+    """The static lists as the dense route's neighbor lists, and the
+    validity of each listed pair (both solid, one dynamic)."""
+    with span("physics.broadphase", device):
+        nb_idx, nb_valid = static_neighbors
+        safe_j = nb_idx.to(torch.int64)
+        pair_ok = (nb_valid & solid[safe_j] & solid[:, None]
+                   & (is_dynamic[safe_j] | is_dynamic[:, None]))
+        return NeighborLists(idx=nb_idx, valid=pair_ok, cell_overflow=None,
+                             nbr_overflow=None), pair_ok
+
+
 def _neighbor_lists(static, pos, quat, solid, is_dynamic, broadphase,
                     max_neighbors, cell_size, table_size, cell_capacity,
                     joints=None):
@@ -546,7 +591,8 @@ def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
             return vel, ang, cache_of(lams), overflow, None
     with span("physics.joints", pos.device):
         rows = jt.joint_rows(joints, joint_state, pos, quat, state.alive,
-                             static.inv_mass, inv_i_w, static.fixed_dt)
+                             static.inv_mass, inv_i_w, static.fixed_dt,
+                             contacts=c_valid)
     vel, ang, lams, impulse = sv.solve_contacts_unified(
         *solve, iterations=iterations, sor=sor, joints=rows)
     with span("physics.solver", pos.device):
@@ -559,11 +605,12 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                  char_on_ground, moving, alive, has_collider, dt, any_trig,
                  contact_cache, contact_overflow,
                  group=None,
-                 trigger_mode: str = "aabb") -> tuple[WorldState, StepEvents]:
-    """Shared step tail: integrate, triggers, state assembly, each in its
-    span.  The contact cache is ``contact_cache`` = (feature ids,
-    impulses), or the state's own where it is None (a step without warm
-    start).
+                 trigger_mode: str = "aabb", joints=None,
+                 is_dynamic=None) -> tuple[WorldState, StepEvents]:
+    """Shared step tail: integrate, the joints' position pass where the
+    set asks for one, triggers, state assembly, each in its span.  The
+    contact cache is ``contact_cache`` = (feature ids, impulses), or the
+    state's own where it is None (a step without warm start).
 
     The trigger plane's width picks the sweep: bool[T, N] sweeps every
     trigger against every entity; bool[W*T, B] with B < N (the flat
@@ -595,6 +642,12 @@ def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,
                 state.trigger_overlap,
                 torch.zeros_like(state.trigger_overlap),
                 static.trig_one_shot, state.trigger_active)
+
+    if joints is not None and joints.position_iterations:
+        with span("physics.joints", pos.device):
+            pos, quat = jt.project_joints(pos, quat, is_dynamic, alive,
+                                          static.inv_mass,
+                                          static.inv_inertia_body, joints)
 
     # triggers: AABB overlap (Bullet's ghost pairs) or exact shape overlap,
     # each trigger against its own world's block of the plane's width

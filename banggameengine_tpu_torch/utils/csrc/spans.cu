@@ -27,6 +27,7 @@ extern "C" __global__ void bge_span_manyworld_unflatten() {}
 extern "C" __global__ void bge_span_render_raster() {}
 extern "C" __global__ void bge_span_render_shade() {}
 extern "C" __global__ void bge_span_physics_joints() {}
+extern "C" __global__ void bge_span_physics_motors() {}
 extern "C" __global__ void bge_span_end() {}
 
 namespace {
@@ -46,6 +47,7 @@ const Marker kMarkers[] = {
     bge_span_render_raster,
     bge_span_render_shade,
     bge_span_physics_joints,
+    bge_span_physics_motors,
     bge_span_end,
 };
 

@@ -218,6 +218,7 @@ DEVICE_SPANS = (
     "render.raster",
     "render.shade",
     "physics.joints",
+    "physics.motors",
 )
 _MARKER_INDEX = {name: i for i, name in enumerate(DEVICE_SPANS)}
 _MARKER_END = len(DEVICE_SPANS)

@@ -497,13 +497,17 @@ def test_dropped_ragdoll_settles_within_its_joints():
 
 
 @pytest.fixture
-def no_joint_code(monkeypatch):
-    """Every joint and damping function raises, and the spans entered are
-    recorded."""
+def no_joint_code(monkeypatch, request):
+    """Every joint, damping and motor function raises (in the ragdolls'
+    steps, which have joints but no motor, the motors' alone), and the
+    spans entered are recorded."""
     def refuse(*_a, **_k):
         raise AssertionError("joint code ran in a scene without joints")
 
-    for name in ("joint_rows", "apply_damping", "jointed_pairs"):
+    names = ("joint_rows", "apply_damping", "jointed_pairs", "apply_motors")
+    if request.node.callspec.params.get("scene") == "ragdolls":
+        names = ("apply_motors",)
+    for name in names:
         monkeypatch.setattr(jt, name, refuse)
     entered = []
     for mod in (step_mod, sv):
@@ -518,13 +522,23 @@ def no_joint_code(monkeypatch):
 
 
 @pytest.mark.parametrize("scene", ["boxes_dense", "boxes_allpairs",
-                                   "flat_worlds"])
+                                   "flat_worlds", "ragdolls"])
 def test_scenes_without_joints_capture_no_joint_op(no_joint_code, scene):
     """The captured steps of a box world (dense and all-pairs routes) and
-    of the flat many-world step hold no joint or damping op and no
-    ``physics.joints`` span."""
+    of the flat many-world step hold no joint, damping or motor op and
+    neither a ``physics.joints`` nor a ``physics.motors`` span; the
+    ragdolls' steps, whose joints have no motor, hold no motor op and no
+    ``physics.motors`` span."""
     state, static = build_falling_boxes(8, seed=4, with_character=True,
                                         with_trigger=True, device="cpu")
+    if scene == "ragdolls":
+        sc = rd.build_ragdoll_pyramid(dict(RAGDOLL, size=1), device="cpu")
+        fn = make_multi_step_fn(sc.static, 2, joints=sc.joints,
+                                broadphase="dense", max_neighbors=8)
+        fn(sc.state, INP, jt.make_joint_state(sc.joints))
+        assert "physics.joints" in no_joint_code
+        assert "physics.motors" not in no_joint_code
+        return
     if scene == "flat_worlds":
         fn = mw.make_flat_many_world_step(static, 2, state.comp_mask,
                                           num_steps=2)
@@ -536,18 +550,39 @@ def test_scenes_without_joints_capture_no_joint_op(no_joint_code, scene):
                                 max_neighbors=8)
         fn(state, InputFrame.zero("cpu"))
     assert no_joint_code and "physics.joints" not in no_joint_code
+    assert "physics.motors" not in no_joint_code
     assert "physics.solver" in no_joint_code
 
 
-@pytest.mark.parametrize("route", ["grid", "allpairs", "static"])
+@pytest.mark.parametrize("route", ["grid", "allpairs"])
 def test_joints_on_another_route_raise(route):
     sc = rd.build_ragdoll_pyramid(dict(RAGDOLL, size=1), device="cpu")
-    extra = {}
-    if route == "static":
-        n = sc.static.capacity
-        extra["static_neighbors"] = (torch.zeros((n, 2), dtype=torch.int32),
-                                     torch.zeros((n, 2), dtype=torch.bool))
     with pytest.raises(ValueError, match="dense"):
         physics_step(sc.state, INP, sc.static, broadphase=route,
                      joints=sc.joints,
-                     joint_state=jt.make_joint_state(sc.joints), **extra)
+                     joint_state=jt.make_joint_state(sc.joints))
+
+
+def test_static_route_runs_joints():
+    """The static route takes joints: over lists that hold every pair of
+    distinct parts but the jointed ones (as the flat many-world factory
+    builds them), one ragdoll's 5 steps equal the dense route's to the
+    last bit: both lists hold the touching partners in id order, so the
+    narrowphase, the compaction and the unified solve see the same
+    contacts."""
+    sc = rd.build_ragdoll_pyramid(dict(RAGDOLL, size=1), device="cpu")
+    n = sc.static.capacity
+    jointed = jt.jointed_pairs(sc.joints, n) | torch.eye(n, dtype=torch.bool)
+    k = int((~jointed).sum(dim=1).max())
+    order = torch.argsort(jointed.to(torch.int8), dim=1, stable=True)[:, :k]
+    valid = ~torch.gather(jointed, 1, order)
+    lists = (order.to(torch.int32), valid)
+    dense = make_multi_step_fn(sc.static, 5, joints=sc.joints,
+                               broadphase="dense", max_neighbors=k)
+    static = make_multi_step_fn(sc.static, 5, joints=sc.joints,
+                                broadphase="static", static_neighbors=lists)
+    js = jt.make_joint_state(sc.joints)
+    a, ja = dense(sc.state, INP, js)
+    b, jb = static(sc.state, INP, js)
+    assert torch.equal(a.pos, b.pos) and torch.equal(a.quat, b.quat)
+    assert torch.equal(ja.impulse, jb.impulse)

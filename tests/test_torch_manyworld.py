@@ -198,6 +198,29 @@ def test_flat_static_matches_jax(world):
     assert trest[4] == want
 
 
+def test_flat_lists_keep_to_the_layers():
+    """The port's flat lists, unlike the JAX package's, leave out the
+    pairs whose layers and masks do not meet both ways, and are as wide
+    as the most partners a solid body keeps: box 1's mask leaves out box
+    0's layer, so 0 and 1 drop each other and keep 6 partners each, the
+    other boxes all 7, in every world."""
+    state, static = _port_world()
+    layer, mask = static.layer.clone(), static.mask.clone()
+    layer[0] = 1 << 4
+    mask[1] = ~(1 << 4)
+    static = dataclasses.replace(static, layer=layer, mask=mask)
+    _, idx, val, *_ = manyworld._flat_static(static, 2, state.comp_mask)
+    b = static.capacity
+    assert idx.shape[1] == 7
+    for w in range(2):
+        rows = [sorted((idx[w * b + i][val[w * b + i]] - w * b).tolist())
+                for i in range(8)]
+        assert rows[0] == list(range(2, 8))
+        assert rows[1] == list(range(2, 8))
+        for i in range(2, 8):
+            assert rows[i] == [j for j in range(8) if j != i]
+
+
 def test_flatten_unflatten_round_trip():
     state, static = _port_world()
     w, b, t1 = 3, static.capacity, static.num_trigger_slots

@@ -15,6 +15,13 @@ gloo ranks, against the JAX package on D of the 8 virtual CPU devices.
   bar (atol and rtol 1e-4) of the JAX phase at the same D, bit-equal
   across D (a row's arithmetic does not depend on its rank).
 - ``dryrun_multichip(4, device="cpu")`` on the 4 ranks.
+- The flat step with joints (IsaacGymEnvs' Ant, ``scene/ant.py``) with
+  ``mesh=`` at 4 worlds, a call of 2 steps under seeded motor commands:
+  each rank tiles the joint table over its own worlds, and the state and
+  the joints' impulses are bit-equal to the single-device step's on the
+  same worlds.  (The single-device step of W/D worlds, not of all W: on
+  the CPU the joints' sums over a middle axis take another order at
+  another count of worlds, 1.2e-7 m apart after 4 steps.)
 
 Each D's ranks are spawned once, all three groups at once, through
 ``parallel.ranks.run_ranks``; they import neither JAX nor the JAX
@@ -36,6 +43,7 @@ from banggameengine_tpu_torch.state import (
 
 DS = (1, 2, 4)
 FLAT_WORLDS, FLAT_STEPS = 16, 25
+ANT_WORLDS, ANT_CALLS = 4, 1
 PHASE_TOL = 1e-4
 DT = 1 / 120
 
@@ -98,6 +106,8 @@ def modes_rank(rank, world_size, boxes, phase_scene, phase_in):
                                        verbose=False)[1]
         for w in (FLAT_WORLDS, 10)]
 
+    out["ant"] = _ant_flat(mesh)
+
     pst = convert.static_scene_from_numpy(phase_scene, "cpu")
     emesh = ranks.make_mesh(spatial.AXIS, "cpu")
     phase = spatial.make_entity_sharded_contact_phase(pst, emesh)
@@ -111,6 +121,46 @@ def modes_rank(rank, world_size, boxes, phase_scene, phase_in):
         m == "jax" or m.startswith(("jax.", "banggameengine_tpu."))
         or m == "banggameengine_tpu" for m in sys.modules)
     return out
+
+
+def _ant_flat(mesh=None, worlds=slice(None)):
+    """The jointed flat step of ``ANT_WORLDS`` Ant worlds (seeded starts
+    and commands), on the world mesh, or on one device on ``worlds``
+    alone: the whole positions and joint impulses after ``ANT_CALLS``
+    calls."""
+    import json
+    import os
+
+    from banggameengine_tpu_torch.physics import joints as jt
+    from banggameengine_tpu_torch.scene.ant import build_ant_worlds
+    from torch.distributed.tensor import Shard
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "portbench", "configs",
+        "isaacgym-ant4k.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    aw = build_ant_worlds(cfg["scene"], cfg["physics"],
+                          num_worlds=ANT_WORLDS, seed=5, device="cpu")
+    state = dataclasses.replace(aw.state, **{
+        f.name: getattr(aw.state, f.name)[worlds]
+        for f in dataclasses.fields(aw.state)})
+    w = state.pos.shape[0]
+    step = manyworld.make_flat_many_world_step(
+        aw.static, w, aw.state.comp_mask[0], num_steps=2, mesh=mesh,
+        joints=aw.joints)
+    js = jt.make_joint_state(aw.joints, w)
+    g = torch.Generator().manual_seed(9)
+    commands = [torch.randn((ANT_WORLDS, 8), generator=g).clamp(-1, 1)[
+        worlds] for _ in range(ANT_CALLS)]
+    if mesh is not None:
+        state = manyworld.shard_batched(state, mesh)
+        js.impulse = ranks.distribute(js.impulse, mesh, Shard(0))
+        commands = [ranks.distribute(c, mesh, Shard(0)) for c in commands]
+    for command in commands:
+        state, js = step(state, InputFrame.zero("cpu"), js, command)
+    return (ranks.replicated(state.pos).numpy(),
+            ranks.replicated(js.impulse).numpy())
 
 
 @pytest.fixture(scope="module")
@@ -238,3 +288,15 @@ def test_dryrun_multichip_on_four_ranks(runs):
     assert lines[0].startswith("8 worlds over 4 ranks OK")
     assert any(line.startswith("demo topology fully sharded OK")
                for line in lines)
+
+
+@pytest.mark.parametrize("d", DS)
+def test_flat_mesh_with_joints_bit_equal_to_single_device(d, runs):
+    per_rank = ANT_WORLDS // d
+    one = [_ant_flat(worlds=slice(r * per_rank, (r + 1) * per_rank))
+           for r in range(d)]
+    pos = np.concatenate([o[0] for o in one])
+    impulse = np.concatenate([o[1] for o in one])
+    for r in runs["results"][d]:
+        np.testing.assert_array_equal(r["ant"][0], pos)
+        np.testing.assert_array_equal(r["ant"][1], impulse)
