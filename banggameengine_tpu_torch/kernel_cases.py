@@ -10,7 +10,8 @@ to their plain versions.
   of its contract (ties, parallel edges, the caps and the budget);
 - :func:`solve_contact_case`, :func:`solve_cache_case`: random contact
   solve inputs, ground slots, invalid and full columns among them, and a
-  contact cache for them;
+  contact cache for them; :func:`unified_solve_case`: the unified solve's
+  (contacts in the rows' layout, a cache, random joints);
 - :func:`sorted_broadphase_inputs`, :func:`sorted_contact_inputs` and
   :func:`recorded_inputs`: the inputs the main path itself gives the
   kernels;
@@ -309,6 +310,134 @@ def solve_cache_case(n: int, c: int, cb: int, seed: int = 0,
     feat[rng.random((n, cb)) < 0.2] = -1
     imp = rng.normal(scale=0.5, size=(n, cb, 3)).astype(np.float32)
     return c_feat, feat.astype(np.int32), imp
+
+
+def unified_solve_case(n: int, c: int, seed: int = 0, joints: int = 0,
+                       cache_width: int = 12) -> dict:
+    """Inputs of ``unified_kernel.solve_unified`` as numpy arrays:
+    ``args``, its 14 leading positional arguments (v, w, pos f32[n, 3],
+    quat f32[n, 4], inv_m f32[n], inv_inertia_body f32[n, 3], friction,
+    restitution f32[n], c_b int32[n, c], c_point, c_normal f32[n, c, 3],
+    c_depth f32[n, c], c_valid bool[n, c], dt f32[]); ``cache`` (c_feat
+    int32[n, c], contact_feat int32[n, cache_width], contact_imp f32[n,
+    cache_width, 3]); ``alive`` bool[n]; and with ``joints`` J > 0
+    ``table``, the keyword arguments of ``joints.make_joint_set`` but
+    ``capacity`` and ``mass_splitting``, and ``impulse`` f32[J, 7].
+
+    Random bodies as :func:`solve_contact_case` draws them (10 % static,
+    moving at a few m/s), a tenth of them dead, the last among them; slots
+    in the rows' layout, a quarter of the partners the ground, 70 % valid,
+    body 0's row all invalid and body 1's all valid, half the invalid
+    slots as the compaction fills them (partner -1, zeros); cached ids
+    drawn from -1..23, unique within a row but for -1.  Joint k joins the
+    k-th moving body (mod their count) to another moving body drawn at
+    random, half hinges and half cone-twists, random frames and anchors
+    within half a metre, and limits around the random poses' angles, so
+    that limit, swing and twist rows come out both on and off; last step's
+    impulses of both signs."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def unit_quats(m):
+        q = rng.normal(size=(m, 4))
+        return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(f32)
+
+    pos = rng.uniform(-3.0, 3.0, (n, 3)).astype(f32)
+    quat = unit_quats(n)
+    vel = (3.0 * rng.normal(size=(n, 3))).astype(f32)
+    ang = rng.normal(size=(n, 3)).astype(f32)
+    moving = rng.random(n) >= 0.1
+    inv_m = np.where(moving, rng.uniform(0.2, 2.0, n), 0.0).astype(f32)
+    inertia = np.where(moving[:, None], rng.uniform(0.1, 3.0, (n, 3)),
+                       0.0).astype(f32)
+    friction = rng.uniform(0.2, 1.0, n).astype(f32)
+    restitution = rng.uniform(0.0, 0.6, n).astype(f32)
+    alive = rng.random(n) >= 0.1
+    alive[-1] = n < 3         # a dead body in every case of 3 or more
+
+    prt = rng.integers(0, n, (n, c)).astype(np.int32)
+    prt[rng.random((n, c)) < 0.25] = -1
+    pt = pos[:, None, :] + rng.uniform(-1.0, 1.0, (n, c, 3))
+    nrm = rng.normal(size=(n, c, 3))
+    nrm[rng.random((n, c)) < 0.2] = np.float64([1.0, 0.1, 0.0])
+    nrm /= np.linalg.norm(nrm, axis=2, keepdims=True)
+    dep = rng.uniform(-0.01, 0.1, (n, c))
+    valid = rng.random((n, c)) < 0.7
+    valid[0] = False
+    if n > 1:
+        valid[1] = True
+    filled = ~valid & (rng.random((n, c)) < 0.5)
+    prt[filled] = -1
+    pt[filled] = 0.0
+    nrm[filled] = 0.0
+    dep[filled] = 0.0
+    c_feat = rng.integers(-1, 24, (n, c)).astype(np.int32)
+    feat = np.stack([rng.permutation(24)[:cache_width] for _ in range(n)])
+    feat[rng.random((n, cache_width)) < 0.2] = -1
+    imp = rng.normal(scale=0.5, size=(n, cache_width, 3)).astype(f32)
+    out = dict(args=(vel, ang, pos, quat, inv_m, inertia, friction,
+                     restitution, prt, pt.astype(f32), nrm.astype(f32),
+                     dep.astype(f32), valid, f32(1.0 / 120.0)),
+               cache=(c_feat, feat.astype(np.int32), imp),
+               alive=alive)
+    if joints:
+        # joints between moving bodies (two static ones have no effective
+        # mass to invert)
+        movers = np.flatnonzero(moving)
+        m = len(movers)
+        ka = np.arange(joints) % m
+        a = movers[ka]
+        b = movers[(ka + rng.integers(1, m, joints)) % m]
+        kind = (rng.random(joints) < 0.5).astype(np.int8)
+
+        def frames():
+            q = unit_quats(joints).astype(np.float64)
+            x, y, z, w = q.T
+            return np.stack([
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                 2 * (x * z + w * y)],
+                [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                 2 * (y * z - w * x)],
+                [2 * (x * z - w * y), 2 * (y * z + w * x),
+                 1 - 2 * (x * x + y * y)]]).transpose(2, 0, 1).astype(f32)
+
+        hinge = kind == 0
+        lo = np.where(hinge, -rng.uniform(0.0, 2.0, joints),
+                      rng.uniform(0.2, 2.0, joints)).astype(f32)
+        hi = np.where(hinge, rng.uniform(0.0, 2.0, joints),
+                      rng.uniform(0.2, 2.5, joints)).astype(f32)
+        out["table"] = dict(
+            body_a=a.astype(np.int32), body_b=b.astype(np.int32), kind=kind,
+            origin_a=rng.uniform(-0.5, 0.5, (joints, 3)).astype(f32),
+            origin_b=rng.uniform(-0.5, 0.5, (joints, 3)).astype(f32),
+            basis_a=frames(), basis_b=frames(), limit_lo=lo, limit_hi=hi)
+        out["impulse"] = rng.normal(scale=0.5, size=(joints, 7)).astype(f32)
+    return out
+
+
+def unified_solve_tensors(case: dict, device,
+                          mass_splitting: bool = False) -> dict:
+    """:func:`unified_solve_case`'s arrays as tensors on ``device``: the
+    same keys, with ``joints`` (a ``joints.JointSet`` of ``mass_splitting``,
+    or None) and ``joint_state`` in place of ``table`` and ``impulse``."""
+    import torch
+
+    from banggameengine_tpu_torch.physics import joints as jt
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    out = dict(args=tuple(t(x) for x in case["args"]),
+               cache=tuple(t(x) for x in case["cache"]),
+               alive=t(case["alive"]), joints=None, joint_state=None)
+    if "table" in case:
+        out["joints"] = jt.make_joint_set(
+            len(case["alive"]), **case["table"],
+            mass_splitting=mass_splitting, device=device)
+        out["joint_state"] = jt.JointState(
+            impulse=t(case["impulse"]),
+            limit_rows=torch.zeros((), dtype=torch.int32, device=device))
+    return out
 
 
 def walk_edge_case(n_tiles: int = 13, k_pad: int = 272, tiles_x: int = 5,

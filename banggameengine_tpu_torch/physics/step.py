@@ -52,6 +52,7 @@ from banggameengine_tpu_torch.physics import narrowphase as nf
 from banggameengine_tpu_torch.physics import shapes as sh_mod
 from banggameengine_tpu_torch.physics import solver as sv
 from banggameengine_tpu_torch.physics import triggers as tg
+from banggameengine_tpu_torch.physics import unified_kernel as uk
 from banggameengine_tpu_torch.physics.broadphase import (
     NeighborLists,
     build_neighbor_lists,
@@ -130,7 +131,8 @@ def physics_step(
     ``broadphase="dense"`` prunes all pairs by their AABBs to at most
     ``min(max_neighbors, 8)`` partners per body, then runs the narrowphase
     (with the capsule slots when the census finds a solid capsule) and
-    :func:`solver.solve_contacts_unified`.
+    :func:`solver.solve_contacts_unified` (on the card, kernel #10:
+    :func:`unified_kernel.solve_unified`).
 
     ``broadphase="grid"`` takes the partners from the spatial hash
     (cells of ``grid_cell_size``, a table of ``grid_table_size`` cells of
@@ -558,47 +560,27 @@ def _contacts_dense(state, static, pos, quat, vel, ang, solid, is_dynamic,
             n, m_pair), ground_slots.expand(n, nf.K_GROUND)], dim=1)
         c_b, c_pt, c_n, c_d, c_valid, overflow, c_f = sv.compact_contacts(
             all_b, all_pt, all_n, all_d, all_v, CONTACT_BUDGET, feat=all_f)
-    with span("physics.solver", pos.device):
-        safe_b = c_b.clamp_min(0).to(torch.int64)
-        static_side = c_b < 0
-        fric = static.friction[:, None]
-        c_mu = torch.where(static_side, fric * GROUND_FRICTION,
-                           fric * static.friction[safe_b])
-        c_e = torch.where(
-            static_side, 0.0,
-            static.restitution[:, None] * static.restitution[safe_b])
-        inv_i_w = sv.inv_inertia_world(quat, static.inv_inertia_body)
-        warm = None
-        if warm_start:
-            # the previous step's impulses by feature match: feature ids are
-            # unique within a row, so the masked sum moves one cached impulse
-            match = ((c_f[:, :, None] == state.contact_feat[:, None, :])
-                     & (c_f >= 0)[:, :, None]).to(torch.float32)  # [N, C, C0]
-            warm = (match[..., None] * state.contact_imp[:, None]).sum(
-                dim=2).unbind(-1)
-        solve = (vel, ang, pos, static.inv_mass, inv_i_w, c_b, c_pt, c_n,
-                 c_d, c_valid, c_mu, c_e, static.fixed_dt, warm, momentum)
-
-        def cache_of(lams):
-            if not warm_start:
-                return None
-            return (c_f, torch.where(c_valid[..., None],
-                                     torch.stack(lams, dim=-1), 0.0))
-
-        if joints is None:
-            vel, ang, lams = sv.solve_contacts_unified(
-                *solve, iterations=iterations, sor=sor)
-            return vel, ang, cache_of(lams), overflow, None
-    with span("physics.joints", pos.device):
-        rows = jt.joint_rows(joints, joint_state, pos, quat, state.alive,
-                             static.inv_mass, inv_i_w, static.fixed_dt,
-                             contacts=c_valid)
-    vel, ang, lams, impulse = sv.solve_contacts_unified(
-        *solve, iterations=iterations, sor=sor, joints=rows)
-    with span("physics.solver", pos.device):
-        cache = cache_of(lams)
-    return (vel, ang, cache, overflow,
-            jt.JointState(impulse=impulse, limit_rows=rows.limit_rows))
+    # the solve opens its own spans (the rows' set-up in physics.joints,
+    # the rest in physics.solver) and matches the previous step's impulses
+    # by feature id (unique within a row): kernel #10 on the card, its plain
+    # twin elsewhere
+    unified = (uk.solve_unified if pos.device.type == "cuda"
+               else uk.solve_unified_reference)
+    jkw = ({} if joints is None else
+           dict(joints=joints, joint_state=joint_state, alive=state.alive))
+    vel, ang, lams, *rest = unified(
+        vel, ang, pos, quat, static.inv_mass, static.inv_inertia_body,
+        static.friction, static.restitution, c_b, c_pt, c_n, c_d, c_valid,
+        static.fixed_dt, momentum, iterations=iterations, sor=sor,
+        ground_friction=GROUND_FRICTION,
+        cache=((c_f, state.contact_feat, state.contact_imp)
+               if warm_start else None), **jkw)
+    cache = None
+    if warm_start:
+        with span("physics.solver", pos.device):
+            cache = (c_f, torch.where(c_valid[..., None],
+                                      torch.stack(lams, dim=-1), 0.0))
+    return vel, ang, cache, overflow, (rest[0] if rest else None)
 
 
 def _finish_step(state, static, pos, quat, vel, ang, char_vel_y,

@@ -111,12 +111,13 @@ the others keep their numbers.  Phases, one line each:
    stores, bools exact);
 16. the default route (``broadphase="dense"``: all-pairs AABB neighbor
    lists, the narrowphase manifolds, the unified solver, the character
-   step against every entity), no hand kernel on it: ``build_demo_like``
+   step against every entity), kernel #10 alone on it (the unified
+   solve: its set-up and 10 sweeps, 11 launches a step): ``build_demo_like``
    (the character, the checkpoint trigger and the static ground box), 480
    zero-input steps through ``make_multi_step_fn(static, 100)`` (4
    dispatches and one of 80) and 360 steps sprinting toward the trigger
    through ``make_step_fn_with_events`` (6 dispatches of 60), no host
-   synchronisation, no hand-kernel launch: the character's position
+   synchronisation, no other hand-kernel launch: the character's position
    within the JAX golden's bar (``tests/data/demo_jax_golden.json``) after
    the landing and every 60 walking steps, the trigger's Enter and Exit
    on the golden's steps; then 200 boxes and a character sprinting into
@@ -191,7 +192,9 @@ the others keep their numbers.  Phases, one line each:
    that take it counted, the frame bit-equal to the full resolve), the
    256x160 frame against ``tests/data/tiled_tile_jax_golden.npz``;
 20. the sharded modes, the native loader and the windows, no hand kernel
-   on them but kernels #8 and #9 on the flat step's, on a one-rank NCCL group
+   on them but kernels #8 and #9 on the flat step's and #10 on the
+   vmapped step's (the worlds' rows folded into one solve), on a one-rank
+   NCCL group
    (``parallel.ranks.init_rank``); each
    sharded program runs as a CUDA graph with its collectives inside, and
    through ``graphs.eager()`` from the same start, every output of every
@@ -238,7 +241,17 @@ the others keep their numbers.  Phases, one line each:
    clones, at most ``G_STRESS_HOST_MAX`` for the stress dispatch; eager:
    ATen ops and hand kernels); and a one-step flat many-world call
    (flatten, the flat step and unflatten: three graphs) traced, its
-   kernels in the trace.
+   kernels in the trace;
+22. kernel #10 vs plain: the unified solve against its plain twin, every
+   output bit-equal (the joints' impulses and ``limit_rows`` included),
+   on the solves eager steps of the main path hand it: the demo world and
+   300 boxes on the dense route (no joints, 11 launches a solve), the
+   benchmark's 136 ragdolls (the dense route, each side's split) at
+   their start and after 60 steps, and its 4,096 Ant worlds on the flat
+   step (the static route with joints, mass splitting, 36,864 bodies: the
+   serial sweeps) after 24 steps of random commands (22 launches a
+   solve); the jointed runs through their graphs, no host sync, 22
+   launches a step through the replays.
 
 The line before the last is the registry as JSON: each hand kernel's
 key, library, source and the TPU kernel it stands for; the last line is
@@ -417,6 +430,42 @@ def launch_counts(warm: bool = False) -> dict:
     counts = (graphs.warmup_launches if warm else
               {k: v.launches for k, v in hand_kernels().items()})
     return {k: n for k, n in counts.items() if n}
+
+
+# kernel #10's launches a step of the dense and grid routes without joints:
+# the contacts' set-up and one launch a sweep of the step's 10 iterations
+DENSE_UNIFIED = 11
+
+
+def without_unified(counts: dict) -> dict:
+    """``counts`` less kernel #10's, which the app's physics on the dense
+    route launches ``DENSE_UNIFIED`` times a step."""
+    n = counts.get("unified", 0)
+    check(n % DENSE_UNIFIED == 0, f"kernel #10 launched {n} times, not "
+          f"{DENSE_UNIFIED} a step")
+    return {k: v for k, v in counts.items() if k != "unified"}
+
+
+def dense_only(what: str, steps: int | None = None) -> None:
+    """Check that kernel #10 is the only hand kernel launched since
+    :func:`reset_launches`, ``DENSE_UNIFIED`` times a step of the dense
+    route: ``steps`` steps through the replays, or a whole number of steps
+    where ``steps`` is None."""
+    hand, replayed = launch_counts(), replayed_counts()
+    n = replayed.get("unified", 0)
+    check(set(hand) == {"unified"}
+          and (n == DENSE_UNIFIED * steps if steps is not None
+               else n > 0 and n % DENSE_UNIFIED == 0),
+          f"{what}: hand-kernel launches {hand} "
+          f"({launch_counts(warm=True)} in the captures' warm-ups), kernel "
+          f"#10 alone, {DENSE_UNIFIED} a step"
+          + (f" of {steps}" if steps is not None else "") + ", expected")
+
+
+# kernel #10's launches a step with joints: the rows' set-up, the contacts'
+# set-up and two launches a sweep of the step's 10 iterations
+JOINTED_UNIFIED = 22
+UNIFIED_ANT_CALLS = 12   # phase 22: the Ant's calls of random commands
 
 
 def replayed_counts() -> dict:
@@ -1445,8 +1494,7 @@ def dense_phase(dev) -> None:
             # walk's buffers
             chunks.append((graphs.owned(state), events))
     torch.cuda.synchronize()
-    hand = launch_counts()
-    check(not hand, f"the demo launched hand kernels: {hand}")
+    dense_only("the demo", settle + walk_steps)
     rest = settled.pos[DEMO_CHAR].cpu().numpy()
     err = char_err(settled, settle)
     check(err < gd["atol"],
@@ -1473,7 +1521,8 @@ def dense_phase(dev) -> None:
           f"{DEMO_DISPATCH} and one of {settle % DEMO_DISPATCH}), then "
           f"{walk_steps} sprinting toward the trigger "
           f"({walk_steps // WALK_CHUNK} events dispatches of {WALK_CHUNK}); "
-          f"no host sync, no hand kernel launched")
+          f"no host sync, kernel #10 alone launched ({DENSE_UNIFIED} a "
+          f"step)")
     print(f"[demo] the character rests at y = {rest[1]:.6f} on the ground "
           f"box (on the ground: True); trigger Enter at step {enter}, Exit "
           f"at {leave} (the JAX golden's {gd['enter_steps']}, "
@@ -1495,8 +1544,7 @@ def dense_phase(dev) -> None:
             bstate, bev = brun(bstate, bwalk)
             bchunks.append((graphs.owned(bstate), bev))   # brun's buffers
     torch.cuda.synchronize()
-    hand = launch_counts()
-    check(not hand, f"the 200-box world launched hand kernels: {hand}")
+    dense_only("the 200-box world", gdn["steps"] // every * every)
     for field in ("pos", "quat", "lin_vel", "ang_vel", "char_vel_y"):
         check(bool(torch.isfinite(getattr(bstate, field)).all()),
               f"200 boxes: {field} not finite")
@@ -1547,7 +1595,7 @@ def dense_phase(dev) -> None:
           f"trigger ({bstatic.capacity} entity slots) on the default "
           f"route, trigger_mode='shape': {gdn['steps']} steps in "
           f"{gdn['steps'] // every} events dispatches of {every} "
-          f"(no host sync, no hand kernel): state "
+          f"(no host sync, kernel #10 alone): state "
           f"finite, lowest box centre {lowest:.4f} > {DENSE_FLOOR}, "
           f"{landed} boxes at rest (|v_y| < 0.05); trigger Enter "
           f"{got_ev['enter']}, Exit {got_ev['exit']} ([step, trigger, "
@@ -1671,8 +1719,9 @@ def app_phase(dev) -> None:
     reset_launches()
     rec, syncs, _ = _app_run(app, frames, fps)
     counts = launch_counts()
-    check(replayed_counts() == {"walk": frames, "resolve": frames}
-          and set(counts) == {"walk", "resolve"},
+    check(without_unified(replayed_counts()) == {"walk": frames,
+                                                 "resolve": frames}
+          and set(counts) == {"walk", "resolve", "unified"},
           f"app (fused): {counts} launches ({launch_counts(warm=True)} in "
           f"the captures' warm-ups) in {frames} rendered frames")
     err_f = _app_check("fused", rec, g, frames)
@@ -1725,7 +1774,8 @@ def app_phase(dev) -> None:
     reset_launches()
     drec, dsyncs, dimg = _app_run(dapp, dframes, fps, render=True)
     counts = launch_counts()
-    check(replayed_counts() == {"walk": dframes, "resolve": dframes},
+    check(without_unified(replayed_counts()) == {"walk": dframes,
+                                                 "resolve": dframes},
           f"app (default): {counts} launches ({launch_counts(warm=True)} "
           f"in the captures' warm-ups) in {dframes} rendered frames")
     err_d = _app_check("default", drec, g, dframes)
@@ -1746,6 +1796,149 @@ def app_phase(dev) -> None:
           f"{counts['resolve']} times; the last frame bit-equal with the "
           f"plain versions; {dsyncs / dframes:.2f} blocking host syncs a "
           f"display frame ({dsyncs} in all)")
+
+
+def unified_phase(dev) -> None:
+    """Phase 22: kernel #10, the unified solve, against its plain twin on
+    the solves that eager steps of the main path hand it
+    (``kernel_cases.recorded_inputs``): the demo world after 200 steps and
+    300 boxes after 120 steps on the dense route (no joints), the
+    benchmark's ragdoll pile (136 ragdolls, the dense route, each side's
+    split) at its start and after 60 steps, and the benchmark's Ant worlds
+    on the flat step (the static route with joints, mass splitting; 36,864
+    bodies, so the narrow set-up and the serial sweeps) after
+    ``UNIFIED_ANT_CALLS`` calls of random commands.  The jointed runs go
+    through their graphs with no host sync, kernel #10 launched
+    ``JOINTED_UNIFIED`` times a step through the replays; each recorded
+    solve launches it 22 or 11 times, and every output equals the plain
+    twin's bit for bit, the joints' impulses and ``limit_rows``
+    included."""
+    from banggameengine_tpu_torch.engine import make_multi_step_fn
+    from banggameengine_tpu_torch.parallel.manyworld import (
+        make_many_world_step)
+    from banggameengine_tpu_torch.physics import joints as jt
+    from banggameengine_tpu_torch.physics import unified_kernel as uk
+    from banggameengine_tpu_torch.scene.ant import build_ant_worlds
+    from banggameengine_tpu_torch.scene.ragdolls import build_ragdoll_pyramid
+    from banggameengine_tpu_torch.scene.synthetic import (
+        build_demo_like, build_falling_boxes)
+    from banggameengine_tpu_torch.state import InputFrame
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    zero = InputFrame.zero(dev)
+
+    def counted(what: str, run, steps: int):
+        """``run()`` through the graphs with no host sync, kernel #10
+        launched ``JOINTED_UNIFIED`` times a step of ``steps`` through the
+        replays; its result owned."""
+        reset_launches()
+        with no_host_sync():
+            out = graphs.owned(run())
+        torch.cuda.synchronize()
+        n = replayed_counts().get("unified", 0)
+        check(n == JOINTED_UNIFIED * steps,
+              f"{what}: kernel #10 launched {n} times through the replays "
+              f"({launch_counts(warm=True)} in the captures' warm-ups), "
+              f"not {JOINTED_UNIFIED} a step of {steps}")
+        print(f"[unified] {what}: {steps} steps through the graphs (no host "
+              f"sync), kernel #10 launched {n} times through the replays "
+              f"({JOINTED_UNIFIED} a step); hand kernels {launch_counts()}")
+        return out
+
+    # the dense route without joints: the demo world and 300 boxes
+    demo, demo_static = build_demo_like(device=dev)
+    demo_run = make_multi_step_fn(demo_static, DEMO_DISPATCH)
+    for _ in range(2):
+        demo = demo_run(demo, zero)
+    boxes, box_static = build_falling_boxes(300, seed=5, spread=6.0,
+                                            device=dev)
+    boxes = make_multi_step_fn(box_static, 120, broadphase="dense")(boxes,
+                                                                    zero)
+    with recorded_inputs("unified") as rec:
+        make_multi_step_fn(demo_static, 1)(demo, zero)
+        make_multi_step_fn(box_static, 1, broadphase="dense")(boxes, zero)
+    solves = list(zip((f"demo, step {2 * DEMO_DISPATCH}",
+                       "300 boxes, step 120"), rec["unified"]))
+
+    # the ragdoll pile of the benchmark
+    with open(os.path.join(root, "portbench", "configs",
+                           "bullet-ragdolls136.json")) as f:
+        sc = build_ragdoll_pyramid(json.load(f)["scene"], device=dev)
+    js0 = jt.make_joint_state(sc.joints)
+    kw = dict(joints=sc.joints, broadphase="dense", max_neighbors=8)
+    run = make_multi_step_fn(sc.static, 60, **kw)
+    state, js = counted("the ragdoll pile", lambda: run(sc.state, zero, js0),
+                        60)
+    one = make_multi_step_fn(sc.static, 1, **kw)
+    with recorded_inputs("unified") as rec:
+        one(sc.state, zero, js0)
+        one(state, zero, js)
+    solves += zip(("ragdolls, step 0", "ragdolls, step 60"), rec["unified"])
+
+    # the Ant worlds of the benchmark on the flat step, two steps a call
+    with open(os.path.join(root, "portbench", "configs",
+                           "isaacgym-ant4k.json")) as f:
+        cfg = json.load(f)
+    w = cfg["scene"]["num_worlds"]
+    aw = build_ant_worlds(cfg["scene"], cfg["physics"], num_worlds=w, seed=7,
+                          device=dev)
+    step, layout = make_many_world_step(aw.static, None,
+                                        aw.state.comp_mask[0], w,
+                                        num_steps=2, joints=aw.joints,
+                                        verbose=False)
+    check(layout == "flat", f"the Ant worlds took the {layout} layout")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    commands = [torch.randn(w, 8, generator=gen).clamp(-1, 1).to(dev)
+                for _ in range(UNIFIED_ANT_CALLS)]
+    ant_js = jt.make_joint_state(aw.joints, w)
+
+    def ant_run():
+        state, js = aw.state, ant_js
+        for u in commands:
+            state, js = graphs.clone_tree(step(state, zero, js, u))
+        return state, js
+
+    steps = 2 * UNIFIED_ANT_CALLS
+    state, js = counted(f"the Ant, {w} worlds", ant_run, steps)
+    with recorded_inputs("unified") as rec:
+        step(state, zero, js, torch.zeros(w, 8, device=dev))
+    solves.append((f"the Ant, {w} worlds, step {steps}", rec["unified"][0]))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(len(solves) == 5, f"kernel #10: {len(solves)} solves recorded")
+    for name, args in solves:
+        n, c = args[8].shape
+        joints = args[19]
+        before = uk.KERNEL.launches
+        got = uk.solve_unified(*args)
+        launched = uk.KERNEL.launches - before
+        want = uk.solve_unified_reference(*args)
+        torch.cuda.synchronize()
+        expect = DENSE_UNIFIED if joints is None else JOINTED_UNIFIED
+        check(launched == expect, f"kernel #10, {name}: {launched} "
+              f"launches, not {expect}")
+        check(args[18] is not None and args[15] == 10,
+              f"kernel #10, {name}: a cold start or {args[15]} iterations")
+        leaves = []
+        for out in (got, want):
+            v, w_, lams, *rest = out
+            leaves.append([v, w_, *lams] + (
+                [rest[0].impulse, rest[0].limit_rows] if rest else []))
+        check(len(leaves[0]) == len(leaves[1]) == (7 if joints else 5)
+              and all(a.dtype == b.dtype and a.shape == b.shape
+                      and torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                      for a, b in zip(*leaves)),
+              f"kernel #10, {name}: differs from the plain version")
+        layout = ("a thread a body" if -(-n // 32) >= 2 * sms
+                  else "16 item lanes a body")
+        what = "no joints" if joints is None else (
+            f"J={joints.num_joints}, JB={joints.body_rows.shape[1]}, mass "
+            f"splitting {'on' if joints.mass_splitting else 'off'}, "
+            f"{int(want[3].limit_rows)} limit rows on")
+        print(f"[unified] kernel #10 vs plain, {name} (N={n}, C={c}, "
+              f"{what}; sweeps {layout}): {launched} launches, every "
+              f"output bit-equal ({int(args[12].sum())} valid slots)")
 
 
 def _golden_app(dev, gz):
@@ -1821,8 +2014,9 @@ def overlay_phase(dev) -> None:
     reset_launches()
     rec, syncs, img = _app_run(app, frames, fps, render=True, hud=True)
     counts = launch_counts()
-    check(replayed_counts() == {"walk": frames, "resolve": frames}
-          and set(counts) == {"walk", "resolve"},
+    check(without_unified(replayed_counts()) == {"walk": frames,
+                                                 "resolve": frames}
+          and set(counts) == {"walk", "resolve", "unified"},
           f"overlay: {counts} launches ({launch_counts(warm=True)} in the "
           f"captures' warm-ups) in {frames} rendered frames")
     err = _app_check("default", rec, g, frames)
@@ -2103,8 +2297,8 @@ def new_routes_phase(dev, state0, allpairs_state, static,
         for _ in range(DISPATCHES):
             state = run(state, inp)
     torch.cuda.synchronize()
-    check(not launch_counts(), "the grid route launched a hand kernel")
     steps = DISPATCHES * STEPS_PER_DISPATCH
+    dense_only("the grid route", steps)
     check(bool(torch.isfinite(state.pos).all())
           and bool(torch.isfinite(state.lin_vel).all())
           and bool(torch.isfinite(state.ang_vel).all()),
@@ -2125,7 +2319,8 @@ def new_routes_phase(dev, state0, allpairs_state, static,
           f"grid route vs all-pairs after {steps} steps: median "
           f"{np.median(diff)}, max {diff.max()}, mean y {mean_y}")
     print(f"[grid] {N_STRESS} boxes, {steps} steps of broadphase='grid' in "
-          f"{DISPATCHES} dispatches (no host sync, no hand kernel): finite, "
+          f"{DISPATCHES} dispatches (no host sync, kernel #10 alone): "
+          f"finite, "
           f"lowest corner {lowest:.4f} > -0.08; overflows step 0 "
           f"{over0[0]}/{over0[1]}, step {steps} {over1[0]}/{over1[1]} "
           f"(cell/neighbor); contact_overflow of step {steps + 1} "
@@ -2315,7 +2510,8 @@ SW_SHARDED_STEPS = 10  # donated fully sharded steps on each route
 
 def _sync_free(what: str, fn, *args):
     """``fn(*args)`` with host syncs and functorch's BatchedFallback
-    warning raised as errors, and no hand-kernel launch allowed."""
+    warning raised as errors, and no hand kernel launched but kernel #10
+    (the dense route's solve), ``DENSE_UNIFIED`` times a step."""
     import warnings
 
     reset_launches()
@@ -2324,8 +2520,7 @@ def _sync_free(what: str, fn, *args):
         with no_host_sync():
             out = fn(*args)
     torch.cuda.synchronize()
-    hand = launch_counts()
-    check(not hand, f"{what}: hand-kernel launches {hand}")
+    dense_only(what)
     return out
 
 
@@ -2335,7 +2530,7 @@ def sharded_phase(dev, stress_state, stress_static) -> None:
     contact phase, all on a one-rank NCCL group, each a CUDA graph held
     bit-equal to its eager route; the native OBJ loader and the windows;
     ``dryrun_multichip(1)`` (no hand kernel on these paths but kernels #8
-    and #9 on the flat step's)."""
+    and #9 on the flat step's and #10 on the vmapped step's)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -2412,7 +2607,8 @@ def sharded_phase(dev, stress_state, stress_static) -> None:
                   f"mesh, {k} input: {SW_RUN} steps in "
                   f"{SW_RUN // SW_STEPS} dispatches of {SW_STEPS} (one "
                   f"step's graph replayed), no host sync, no "
-                  f"BatchedFallback warning, no hand kernel; finite, lowest "
+                  f"BatchedFallback warning, kernel #10 alone (the worlds' "
+                  f"rows in one solve); finite, lowest "
                   f"box corner {lowest:.4f} > -0.08, characters on the "
                   f"ground {int(full.char_on_ground[:, MW_CHAR_ROW].sum())}")
         # the flat step on the same inputs, 25 steps: JAX's flat-vs-vmapped
@@ -3140,6 +3336,7 @@ def main() -> int:
     new_routes_phase(dev, state0, state, static, views)
     sharded_phase(dev, state, static)
     graphs_phase(dev, run, state, static, views)
+    unified_phase(dev)
 
     root = os.path.dirname(os.path.abspath(__file__))
     print(json.dumps({"kernels": [

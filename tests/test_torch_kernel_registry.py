@@ -22,6 +22,7 @@ WRAPPER_MODULES = {
     "broadphase": "banggameengine_tpu_torch.physics.broadphase_kernel",
     "contacts": "banggameengine_tpu_torch.physics.contacts_kernel",
     "solve": "banggameengine_tpu_torch.physics.solve_kernel",
+    "unified": "banggameengine_tpu_torch.physics.unified_kernel",
     "walk": "banggameengine_tpu_torch.render.raster_walk",
     "resolve": "banggameengine_tpu_torch.render.resolve",
     "fused": "banggameengine_tpu_torch.render.raster_resolve",
@@ -31,10 +32,11 @@ WRAPPER_MODULES = {
 
 
 def test_wrapper_modules_register_the_seven_kernels():
-    """Importing the wrapper modules enters exactly the hand kernels, each
-    with its wrapper, a plain twin, its source and the TPU kernel it stands
-    for (a ``def`` of the JAX repository; none for the box contacts and
-    the contact solve, which XLA fuses); the span markers stay out."""
+    """Importing the wrapper modules enters exactly the nine hand kernels,
+    each with its wrapper, a plain twin, its source and the TPU kernel it
+    stands for (a ``def`` of the JAX repository; none for the box contacts,
+    the contact solve and the unified solve, which XLA fuses or the JAX
+    package does not have); the span markers stay out."""
     for name in WRAPPER_MODULES.values():
         importlib.import_module(name)
     kernels = cuda_build.KERNELS
@@ -48,7 +50,7 @@ def test_wrapper_modules_register_the_seven_kernels():
         assert getattr(mod, k.wrapper.__name__) is k.wrapper
         assert callable(k.plain) and k.plain is not k.wrapper
         assert k.name.startswith("bge_") and os.path.isfile(k.source)
-        if key in ("contacts", "solve"):
+        if key in ("contacts", "solve", "unified"):
             assert k.replaces is None
             continue
         path, line = k.replaces.rsplit(":", 1)

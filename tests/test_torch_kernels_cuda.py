@@ -6,6 +6,7 @@ Imports no JAX, so it runs on a machine that has none:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 """
 
+import inspect
 import os
 
 import numpy as np
@@ -19,7 +20,9 @@ from banggameengine_tpu_torch.physics import broadphase_kernel as bk
 from banggameengine_tpu_torch.physics import contact_t
 from banggameengine_tpu_torch.physics import contacts_kernel as ck
 from banggameengine_tpu_torch.physics import shapes
+from banggameengine_tpu_torch.physics import joints as jt
 from banggameengine_tpu_torch.physics import solve_kernel as sk
+from banggameengine_tpu_torch.physics import unified_kernel as uk
 from banggameengine_tpu_torch.render import raster_resolve as rr
 from banggameengine_tpu_torch.render import raster_tile as rt
 from banggameengine_tpu_torch.render import raster_walk as rwk
@@ -457,6 +460,296 @@ def test_solve_route_and_bad_input(device):
     assert sk.KERNEL.launches == before
 
 
+# ---- the unified solve kernel (the dense and jointed routes) ---------------
+
+
+def _unified_case(n, c, seed, device, joints=0, mass_splitting=False):
+    """``kernel_cases.unified_solve_case`` on ``device``, its joint set's
+    effective masses split or not."""
+    return kernel_cases.unified_solve_tensors(
+        kernel_cases.unified_solve_case(n, c, seed, joints=joints), device,
+        mass_splitting)
+
+
+def _unified_leaves(out):
+    v, w, lams, *rest = out
+    leaves = [v, w, *lams]
+    if rest:
+        leaves += [rest[0].impulse, rest[0].limit_rows]
+    return leaves
+
+
+def _assert_unified_equals_plain(args, **kw):
+    """``solve_unified`` on CUDA tensors launches kernel #10 (the set-ups
+    and two launches a sweep with joints, the contacts' set-up and one a
+    sweep without), and every output equals the plain twin's bit for bit
+    (the sign of a zero included): the velocities, the contacts'
+    impulses, the joints' impulses and the count of limit rows on, so the
+    angles and the rows they switch on are the plain version's."""
+    joints = kw.get("joints") is not None
+    sweeps = max(int(kw.get("iterations", 10)), 0)
+    before = uk.KERNEL.launches
+    got = uk.solve_unified(*args, **kw)
+    assert uk.KERNEL.launches == before + (
+        2 + 2 * sweeps if joints else 1 + sweeps)
+    want = uk.solve_unified_reference(*args, **kw)
+    torch.cuda.synchronize()
+    got, want = _unified_leaves(got), _unified_leaves(want)
+    assert len(got) == len(want) == (7 if joints else 5)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), i
+    return want
+
+
+@pytest.mark.parametrize("n,joints", [(9, 0), (37, 0), (3000, 0), (9, 12),
+                                      (300, 280), (3000, 2800),
+                                      (12000, 11000)])
+def test_unified_random_cases_exact(device, n, joints):
+    """Random bodies and slots (ground slots, invalid slots filled as the
+    compaction fills them and left random, body 0's row all invalid and
+    body 1's all valid), a tenth of the bodies dead, and random hinges and
+    cone-twists at random poses whose limit, swing and twist rows come out
+    both on and off, bodies in up to ~9 joints: bit-equal to the plain twin
+    for 0, 1 and 10 iterations, momentum 0.5 or 0 with over-relaxation 1
+    or 1.3, warm-started from the contact cache or cold, the joints'
+    effective masses split (mass splitting) or not; J = 0 takes the same
+    kernels without the rows; a slot a lane (up to 3,000 bodies) and a
+    thread a body (12,000)."""
+    for mass_splitting in (False, True) if joints else (False,):
+        case = _unified_case(n, 12, n + joints, device, joints,
+                             mass_splitting)
+        jkw = {} if not joints else dict(
+            joints=case["joints"], joint_state=case["joint_state"],
+            alive=case["alive"])
+        assert not bool(case["alive"].all())
+        for iterations in (0, 1, 10):
+            for momentum, sor in ((0.5, 1.0), (0.0, 1.3)):
+                for warm in ({}, {"cache": case["cache"]}):
+                    want = _assert_unified_equals_plain(
+                        case["args"], momentum=momentum,
+                        iterations=iterations, sor=sor, **warm, **jkw)
+        if joints:
+            assert case["joints"].body_rows.shape[1] >= 4
+            assert 0 < int(want[-1]) < 2 * joints
+
+
+def test_unified_budgets_exact(device):
+    """Budgets of 1, 5, 17 and 40 slots (one and three chunks of the
+    kernels' 16 items, and past the four accumulators' groups), with
+    joints: bit-equal to the plain twin."""
+    for c in (1, 5, 17, uk.MAX_C):
+        case = _unified_case(300, c, c, device, 250, mass_splitting=c > 9)
+        _assert_unified_equals_plain(
+            case["args"], momentum=0.5, iterations=10, cache=case["cache"],
+            joints=case["joints"], joint_state=case["joint_state"],
+            alive=case["alive"])
+
+
+def test_unified_recorded_steps_exact(device):
+    """The solves the main path hands the registry's kernel #10
+    (``kernel_cases.recorded_inputs``): the ragdoll pile of the benchmark
+    (136 ragdolls, the dense route, each side's split) at its start and
+    after 60 steps, the benchmark's 4,096 Ant worlds on the flat step (the
+    static route with joints, mass splitting, ground contacts only; 36,864
+    bodies, so the sweeps take a thread a body) after 12 calls of random
+    commands, and 300 boxes on the dense route (no joints): every output
+    bit-equal to the plain twin's."""
+    import json
+
+    from banggameengine_tpu_torch.parallel.manyworld import (
+        make_many_world_step)
+    from banggameengine_tpu_torch.scene.ant import build_ant_worlds
+    from banggameengine_tpu_torch.scene.ragdolls import build_ragdoll_pyramid
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    kernel = kernel_cases.hand_kernels()["unified"]
+    inp = InputFrame.zero(device)
+    calls = []
+    with open(os.path.join(root, "portbench", "configs",
+                           "bullet-ragdolls136.json")) as f:
+        sc = build_ragdoll_pyramid(json.load(f)["scene"], device=device)
+    with graphs.eager():
+        state, js = make_multi_step_fn(
+            sc.static, 60, joints=sc.joints, broadphase="dense",
+            max_neighbors=8)(sc.state, inp, jt.make_joint_state(sc.joints))
+    one = make_multi_step_fn(sc.static, 1, joints=sc.joints,
+                             broadphase="dense", max_neighbors=8)
+    with kernel_cases.recorded_inputs("unified") as rec:
+        one(sc.state, inp, jt.make_joint_state(sc.joints))
+        one(state, inp, js)
+    calls += rec["unified"]
+    with open(os.path.join(root, "portbench", "configs",
+                           "isaacgym-ant4k.json")) as f:
+        cfg = json.load(f)
+    w = cfg["scene"]["num_worlds"]
+    aw = build_ant_worlds(cfg["scene"], cfg["physics"], num_worlds=w, seed=7,
+                          device=device)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    with graphs.eager():
+        step, _ = make_many_world_step(aw.static, None,
+                                       aw.state.comp_mask[0], w, num_steps=2,
+                                       joints=aw.joints, verbose=False)
+        state, js = aw.state, jt.make_joint_state(aw.joints, w)
+        for _ in range(12):
+            u = torch.randn(w, 8, generator=gen).clamp(-1, 1).to(device)
+            state, js = graphs.clone_tree(step(state, inp, js, u))
+    with kernel_cases.recorded_inputs("unified") as rec:
+        step(state, inp, js, torch.zeros(w, 8, device=device))
+    calls += rec["unified"][:1]
+    boxes, static = build_falling_boxes(300, seed=5, spread=6.0,
+                                        device=device)
+    with graphs.eager():
+        boxes = make_multi_step_fn(static, 120, broadphase="dense")(boxes,
+                                                                    inp)
+    with kernel_cases.recorded_inputs("unified") as rec:
+        make_multi_step_fn(static, 1, broadphase="dense")(boxes, inp)
+    calls += rec["unified"]
+    assert len(calls) == 4
+    # the Ant's blocks of 32 bodies give every SM two or more: the narrow
+    # set-up and the serial sweeps, the layout the benchmark runs
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert -(-calls[2][0].shape[0] // 32) >= 2 * sms
+    names = list(inspect.signature(kernel.wrapper).parameters)[14:]
+    for i, args in enumerate(calls):
+        kw = dict(zip(names, args[14:]))
+        assert kw["cache"] is not None and kw["momentum"] == 0.5
+        assert (kw["joints"] is None) == (i == 3)
+        if kw["joints"] is not None:
+            assert kw["joints"].mass_splitting == (i == 2)
+        want = _assert_unified_equals_plain(args[:14], **kw)
+        if i < 3:
+            assert 0 < int(want[-1]) < 2 * kw["joints"].num_joints
+
+
+def test_unified_vmapped_over_worlds_exact(device):
+    """A solve vmapped over worlds (the many-world steps' vmapped layout:
+    the state's planes batched, the scene's not) takes the kernels once over
+    every world's rows: bit-equal to the plain twin vmapped; a dt a world
+    or joints under vmap raise ValueError before any launch."""
+    cases = [_unified_case(700, 12, s, device) for s in range(3)]
+    bodies = [torch.stack([c["args"][i] for c in cases]) for i in range(13)]
+    bodies[4], bodies[6] = cases[0]["args"][4], cases[0]["args"][6]
+    cache = [torch.stack([c["cache"][k] for c in cases]) for k in range(3)]
+    dt = cases[0]["args"][13]
+    in_dims = tuple(None if i in (4, 6) else 0 for i in range(13)) + (0,) * 3
+
+    def call(solve):
+        return lambda *a: solve(*a[:13], dt, 0.5, cache=a[13:])
+
+    before = uk.KERNEL.launches
+    got = torch.func.vmap(call(uk.solve_unified), in_dims=in_dims)(
+        *bodies, *cache)
+    assert uk.KERNEL.launches == before + 11
+    want = torch.func.vmap(call(uk.solve_unified_reference),
+                           in_dims=in_dims)(*bodies, *cache)
+    torch.cuda.synchronize()
+    for g, w in zip(_unified_leaves(got), _unified_leaves(want)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    with pytest.raises(ValueError, match="one step dt"):
+        torch.func.vmap(lambda *a: uk.solve_unified(*a, 0.5)[0])(
+            *bodies[:4], *[torch.stack([b, b, b]) for b in bodies[4:7]],
+            *bodies[7:], dt.expand(3))
+    case = _unified_case(40, 12, 3, device, 30)
+    with pytest.raises(ValueError, match="no joints"):
+        torch.func.vmap(lambda *a: uk.solve_unified(
+            *a, case["args"][13], 0.5, joints=case["joints"],
+            joint_state=case["joint_state"], alive=case["alive"])[0])(
+            *[torch.stack([a, a]) for a in case["args"][:13]])
+    assert uk.KERNEL.launches == before + 11
+
+
+def test_unified_route_and_bad_input(device):
+    """Inputs the kernels do not take raise ValueError before any launch:
+    a budget past ``MAX_C``, a wrong dtype, shape or device, a joint table
+    that does not match its bodies."""
+    case = _unified_case(40, 12, 3, device, 30)
+    args = case["args"]
+    jkw = dict(joints=case["joints"], joint_state=case["joint_state"],
+               alive=case["alive"])
+    before = uk.KERNEL.launches
+    with pytest.raises(ValueError, match="past MAX_C"):
+        uk.solve_unified(*_unified_case(40, uk.MAX_C + 1, 3,
+                                        device)["args"], 0.5)
+    bad = {0: args[0].double(), 3: args[3][:, :3], 8: args[8].long(),
+           10: args[10][:-1], 12: args[12].to(torch.uint8),
+           6: args[6].cpu(), 13: args[13][None]}
+    for i, t in bad.items():
+        a = list(args)
+        a[i] = t
+        with pytest.raises(ValueError):
+            uk.solve_unified(*a, 0.5, **jkw)
+    with pytest.raises(ValueError, match="alive must be"):
+        uk.solve_unified(*args, 0.5, **dict(jkw, alive=case["alive"][1:]))
+    assert uk.KERNEL.launches == before
+
+
+def test_graph_replays_count_unified_launches(device):
+    """Kernel #10's launches counted through the graphs: a jointed step
+    holds 22 (the rows' and the contacts' set-ups, two a sweep), on the
+    dense route (3 ragdolls, 3 steps a call) and the flat step's static
+    route with joints (8 Ant worlds, 2 steps a call): the capture's eager
+    warm-up counts one step apart, each replay its steps; the box routes
+    (all pairs, and the flat step without joints) launch it never."""
+    import json
+
+    from banggameengine_tpu_torch.parallel import manyworld as mw
+    from banggameengine_tpu_torch.scene.ant import build_ant_worlds
+    from banggameengine_tpu_torch.scene.ragdolls import build_ragdoll_pyramid
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    kernel = kernel_cases.hand_kernels()["unified"]
+    inp = InputFrame.zero(device)
+    with open(os.path.join(root, "portbench", "configs",
+                           "bullet-ragdolls136.json")) as f:
+        sc = build_ragdoll_pyramid(dict(json.load(f)["scene"], size=2),
+                                   device=device)
+    with open(os.path.join(root, "portbench", "configs",
+                           "isaacgym-ant4k.json")) as f:
+        cfg = json.load(f)
+    aw = build_ant_worlds(cfg["scene"], cfg["physics"], num_worlds=8,
+                          seed=7, device=device)
+    ragdolls = make_multi_step_fn(sc.static, 3, joints=sc.joints,
+                                  broadphase="dense", max_neighbors=8)
+    ants, layout = mw.make_many_world_step(
+        aw.static, None, aw.state.comp_mask[0], 8, num_steps=2,
+        joints=aw.joints, verbose=False)
+    assert layout == "flat"
+    boxes, static = build_falling_boxes(64, seed=0, device=device)
+    box_run = make_multi_step_fn(static, 3, broadphase="allpairs")
+    state1, static1 = build_falling_boxes(
+        num_bodies=8, with_character=True, with_trigger=True, device=device)
+    rollout = mw.make_flat_many_world_step(static1, 4, state1.comp_mask,
+                                           num_steps=2)
+    graphs.warmup_launches.clear()
+    kernel.launches = 0
+    box_run(boxes, inp)
+    rollout(mw.replicate_state(state1, 4), mw.replicate_input(inp, 4))
+    torch.cuda.synchronize()
+    assert kernel.launches == 0 and graphs.warmup_launches["unified"] == 0
+    js = jt.make_joint_state(sc.joints)
+    for call in range(2):
+        graphs.clone_tree(ragdolls(sc.state, inp, js))
+        torch.cuda.synchronize()
+        assert graphs.warmup_launches["unified"] == 22
+        assert kernel.launches == 22 + 3 * 22 * (call + 1)
+    assert ragdolls.program.captures == 1
+    kernel.launches = 0
+    graphs.warmup_launches.clear()
+    u = torch.zeros(8, 8, device=device)
+    for call in range(2):
+        ants(aw.state, inp, jt.make_joint_state(aw.joints, 8), u)
+        torch.cuda.synchronize()
+        assert graphs.warmup_launches["unified"] == 22
+        assert kernel.launches == 22 + 2 * 22 * (call + 1)
+    kernel.launches = 0
+    with graphs.eager():
+        ragdolls(sc.state, inp, js)
+    assert kernel.launches == 3 * 22
+
+
 # ---- the render kernels: the visibility walk and the attribute resolve ----
 
 
@@ -777,7 +1070,8 @@ def test_graph_replays_count_kernel_launches(device):
     graph holds to the kernels' counts, as many as the eager route
     launches; the outputs bit-equal to the eager route's.  The static
     route (the flat many-world step) launches the box contact and solve
-    kernels once a step too, the dense route neither."""
+    kernels once a step too; the dense route neither, but kernel #10's
+    set-up and 10 sweeps (11 launches a step, no joints)."""
     sc = build_showcase_render(0)
     rs = convert.render_scene_from_numpy(sc.render)
     w, h = 640, 360
@@ -836,8 +1130,8 @@ def test_graph_replays_count_kernel_launches(device):
     dense(state, inp)
     torch.cuda.synchronize()
     assert {k: n for k, n in graphs.warmup_launches.items() if n} == {
-        "contacts": 1, "solve": 1}
-    assert launches() == {"contacts": 4, "solve": 4}
+        "contacts": 1, "solve": 1, "unified": 11}
+    assert launches() == {"contacts": 4, "solve": 4, "unified": 44}
 
 
 def test_failed_capture_raises(device):

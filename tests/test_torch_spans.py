@@ -44,9 +44,11 @@ ORDER = {
     "allpairs": ["program:step", "physics.broadphase", "physics.broadphase",
                  "physics.narrowphase", "physics.solver",
                  "physics.integrate", "ecs.transforms"],
+    # the dense route's solve opens its own span, the cache's refresh
+    # another
     "dense": ["program:step", "physics.characters", "physics.broadphase",
-              "physics.narrowphase", "physics.solver", "physics.integrate",
-              "physics.triggers", "ecs.transforms"],
+              "physics.narrowphase", "physics.solver", "physics.solver",
+              "physics.integrate", "physics.triggers", "ecs.transforms"],
     "rollout": ["program:flat_many_world_step", "manyworld.flatten",
                 "physics.characters", "physics.broadphase",
                 "physics.narrowphase", "physics.solver",
